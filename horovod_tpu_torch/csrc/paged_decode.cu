@@ -20,8 +20,12 @@
 //   out of shared memory.  Two stages: while one tile is computed, the next
 //   one's pages are in flight as 16-byte `cp.async` copies, so a CTA keeps
 //   a whole tile of loads outstanding instead of one load per thread;
-// - fp32 accumulation with bf16/fp16/fp32 inputs; p is rounded to the
+// - fp32 accumulation with bf16 or fp32 inputs; p is rounded to the
 //   input type before the P.V product, as the Pallas kernel does.
+//
+// Layout requirement: a K/V row of Dh elements is a whole number of
+// 16-byte copies and both pools start 16-byte aligned.  The entry point
+// refuses anything else with cudaErrorInvalidValue.
 //
 // Bound: memory.  A launch must read sum_b ceil(len_b / BS) * BS * KV * Dh
 // elements of K and as many of V.  At 8 requests x 1024 tokens x 32 kv
@@ -37,7 +41,6 @@
 // the stream it is handed, allocates nothing and returns the cudaError_t.
 
 #include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,17 +61,11 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <> __device__ __forceinline__ float to_f<__half>(__half x) {
-  return __half2float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -104,41 +101,28 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stage the K and V rows of group g for the live tokens of table columns
-// j0.. into k_s / v_s.  The vector path issues 16-byte asynchronous copies
-// and commits them as one group; the scalar path (a head dim or pool
-// address that is not 16-byte aligned) copies synchronously.
-template <typename T, bool kVec>
+// j0.. into k_s / v_s as 16-byte asynchronous copies, committed as one
+// group.
+template <typename T>
 __device__ __forceinline__ void stage_tile(T* k_s, T* v_s, const T* k_pool,
                                            const T* v_pool, const int* tbl,
                                            int j0, int t_live, int g, int Dh,
                                            int BS, size_t row_stride) {
-  if (kVec) {
-    constexpr int V = 16 / sizeof(T);
-    const int vpr = Dh / V;
-    for (int i = threadIdx.x; i < t_live * vpr; i += kThreads) {
-      const int t = i / vpr;
-      const int c = i - t * vpr;
-      const int blk = tbl[j0 + t / BS];
-      const size_t src =
-          ((size_t)blk * BS + (t % BS)) * row_stride + (size_t)g * Dh + c * V;
-      cp_async16(reinterpret_cast<uint4*>(k_s) + i, k_pool + src);
-      cp_async16(reinterpret_cast<uint4*>(v_s) + i, v_pool + src);
-    }
-  } else {
-    for (int i = threadIdx.x; i < t_live * Dh; i += kThreads) {
-      const int t = i / Dh;
-      const int d = i - t * Dh;
-      const int blk = tbl[j0 + t / BS];
-      const size_t src =
-          ((size_t)blk * BS + (t % BS)) * row_stride + (size_t)g * Dh + d;
-      k_s[i] = k_pool[src];
-      v_s[i] = v_pool[src];
-    }
+  constexpr int V = 16 / sizeof(T);
+  const int vpr = Dh / V;
+  for (int i = threadIdx.x; i < t_live * vpr; i += kThreads) {
+    const int t = i / vpr;
+    const int c = i - t * vpr;
+    const int blk = tbl[j0 + t / BS];
+    const size_t src =
+        ((size_t)blk * BS + (t % BS)) * row_stride + (size_t)g * Dh + c * V;
+    cp_async16(reinterpret_cast<uint4*>(k_s) + i, k_pool + src);
+    cp_async16(reinterpret_cast<uint4*>(v_s) + i, v_pool + src);
   }
   cp_async_commit();
 }
 
-template <typename T, bool kVec>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
                     const T* __restrict__ k_pool,    // [NB, BS, KV, Dh]
@@ -189,8 +173,8 @@ paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
   const size_t row_stride = (size_t)KV * Dh;  // between tokens of a page
   const int n_tiles = (n_live + ppt - 1) / ppt;
   if (n_tiles > 0)
-    stage_tile<T, kVec>(kv_s, kv_s + stage_elems, k_pool, v_pool, tbl, 0,
-                        min(tile, n_live * BS), g, Dh, BS, row_stride);
+    stage_tile<T>(kv_s, kv_s + stage_elems, k_pool, v_pool, tbl, 0,
+                  min(tile, n_live * BS), g, Dh, BS, row_stride);
   for (int it = 0; it < n_tiles; ++it) {
     const int j0 = it * ppt;
     const int t_live = min(tile, (n_live - j0) * BS);
@@ -201,9 +185,9 @@ paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
     //    for this tile's.
     if (it + 1 < n_tiles) {
       T* k_n = kv_s + (2 * ((it + 1) & 1)) * stage_elems;
-      stage_tile<T, kVec>(k_n, k_n + stage_elems, k_pool, v_pool, tbl,
-                          j0 + ppt, min(tile, (n_live - j0 - ppt) * BS), g,
-                          Dh, BS, row_stride);
+      stage_tile<T>(k_n, k_n + stage_elems, k_pool, v_pool, tbl, j0 + ppt,
+                    min(tile, (n_live - j0 - ppt) * BS), g, Dh, BS,
+                    row_stride);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -283,10 +267,11 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const size_t smem = smem_bytes(sizeof(T), rep, Dh, ppt * BS);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
 
-  const bool vec = (Dh * sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(k_pool) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v_pool) % 16 == 0;
-  auto kernel = vec ? paged_decode_kernel<T, true> : paged_decode_kernel<T, false>;
+  if ((Dh * sizeof(T)) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(k_pool) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v_pool) % 16 != 0)
+    return cudaErrorInvalidValue;
+  auto kernel = paged_decode_kernel<T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -304,7 +289,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t.
 int paged_decode(const void* q, const void* k_pool, const void* v_pool,
                  const void* tables, const void* lengths, void* out, int B,
                  int H, int KV, int Dh, int BS, int n_cols, float scale,
@@ -322,9 +307,6 @@ int paged_decode(const void* q, const void* k_pool, const void* v_pool,
     case 1:
       return launch<__nv_bfloat16>(q, k_pool, v_pool, tb, ln, out, B, H, KV,
                                    Dh, BS, n_cols, scale, s);
-    case 2:
-      return launch<__half>(q, k_pool, v_pool, tb, ln, out, B, H, KV, Dh, BS,
-                            n_cols, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -21,9 +21,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
-from typing import Iterable, Mapping, Sequence
+from typing import Mapping, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -33,8 +32,6 @@ NVCC_FLAGS: tuple[str, ...] = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: seconds each kernel's nvcc took in this process (0.0 = reused a build)
-build_seconds: dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -68,37 +65,23 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str]) -> dict[str, Path]:
-    """Build every named kernel that has no current library yet, one
-    ``nvcc`` per source, all started together.  Returns name -> library
-    path; raises ``RuntimeError`` with the compiler's output when a build
-    fails."""
-    names = list(names)
-    out: dict[str, Path] = {}
-    procs = []
-    build_dir().mkdir(parents=True, exist_ok=True)
-    for name in names:
-        src, so = _target(name)
-        out[name] = so
-        if so.is_file():
-            build_seconds.setdefault(name, 0.0)
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs.append((name, so, tmp, time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    errors = []
-    for name, so, tmp, t0, p in procs:
-        log, _ = p.communicate()
-        build_seconds[name] = time.perf_counter() - t0
-        if p.returncode != 0:
-            errors.append(f"{name}: nvcc exited {p.returncode}\n"
-                          f"{log.decode(errors='replace')}")
-            continue
-        os.replace(tmp, so)
-    if errors:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-    return out
+def _compile(name: str) -> Path:
+    """The named kernel's library, compiled with one ``nvcc`` unless a
+    current build is already there.  Raises ``RuntimeError`` with the
+    compiler's output when the build fails."""
+    src, so = _target(name)
+    if so.is_file():
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    p = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if p.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{p.returncode}\n"
+                           f"{p.stdout.decode(errors='replace')}")
+    os.replace(tmp, so)
+    return so
 
 
 def load(name: str,
@@ -111,7 +94,7 @@ def load(name: str,
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build([name])[name]))
+            lib = ctypes.CDLL(str(_compile(name)))
             for fn, (restype, argtypes) in signatures.items():
                 f = getattr(lib, fn)
                 f.restype = restype

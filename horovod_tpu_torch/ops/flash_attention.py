@@ -28,7 +28,7 @@ from . import _build
 _NEG_INF = -1e30
 
 # torch dtype -> the kernel's dtype code (csrc/paged_decode.cu).
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _SIGNATURES = {
     "paged_decode": (ctypes.c_int, [ctypes.c_void_p] * 6
@@ -83,6 +83,40 @@ def _check(q, k_pool, v_pool, tables, lengths):
             f"{tuple(tables.shape)}, {tuple(lengths.shape)}")
 
 
+def _check_kernel_inputs(q, k_pool, v_pool, tables, lengths) -> None:
+    """Raise ``ValueError`` for inputs the CUDA kernel does not take: a
+    pool geometry outside :func:`paged_supported`, a dtype other than
+    float32/bfloat16 shared by q and the pools, non-int32 tables or
+    lengths, tensors on other devices or not contiguous, a K/V row that is
+    not a whole number of 16-byte copies, or a pool not 16-byte aligned."""
+    _, BS, _, Dh = k_pool.shape
+    if not paged_supported(BS, Dh):
+        raise ValueError(
+            f"paged decode kernel needs block_size % 8 == 0 and head_dim "
+            f"<= 256; got block_size={BS}, head_dim={Dh}")
+    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise ValueError(
+            f"paged decode kernel takes float32 or bfloat16 with one dtype "
+            f"for q and the pools; got {q.dtype}, {k_pool.dtype}, "
+            f"{v_pool.dtype}")
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError("tables and lengths must be int32")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("tables", tables), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if Dh * q.element_size() % 16:
+        raise ValueError(
+            f"paged decode kernel copies K/V rows in 16-byte pieces; a row "
+            f"of head_dim={Dh} {q.dtype} is {Dh * q.element_size()} bytes")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned")
+
+
 def paged_attention_reference(q, k_pool, v_pool, tables, lengths,
                               scale: Optional[float] = None) -> torch.Tensor:
     """The plain PyTorch version of :func:`paged_attention`: gather each
@@ -127,7 +161,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     CPU tensors run :func:`paged_attention_reference`.  CUDA tensors
     launch the kernel on the current stream and add one to
     ``paged_attention.launches``; an unsupported geometry, dtype or
-    layout raises, as does a launch the runtime refuses.
+    layout raises (see :func:`_check_kernel_inputs`), as does a launch
+    the runtime refuses.
     """
     _check(q, k_pool, v_pool, tables, lengths)
     if q.device.type == "cpu":
@@ -136,26 +171,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    _check_kernel_inputs(q, k_pool, v_pool, tables, lengths)
     B, H, Dh = q.shape
     _, BS, KV, _ = k_pool.shape
-    if not paged_supported(BS, Dh):
-        raise ValueError(
-            f"paged decode kernel needs block_size % 8 == 0 and head_dim "
-            f"<= 256; got block_size={BS}, head_dim={Dh}")
-    if q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        raise ValueError(
-            f"paged decode kernel takes float32/bfloat16/float16 with one "
-            f"dtype for q and the pools; got {q.dtype}, {k_pool.dtype}, "
-            f"{v_pool.dtype}")
-    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise ValueError("tables and lengths must be int32")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables), ("lengths", lengths)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
     q = q.contiguous()

@@ -71,6 +71,26 @@ def _bucket_pow2(n: int, floor: int = 1) -> int:
     return b
 
 
+def _paged_kernel_path(device: torch.device, use_flash: str,
+                       block_size: int, head_dim: int) -> bool:
+    """Whether decode attention takes the paged kernel path (else the
+    gather path).  "never" is the caller's choice of the gather path.
+    Under "auto" a CUDA device must take the kernel, so a pool geometry
+    outside :func:`~horovod_tpu_torch.ops.flash_attention.paged_supported`
+    raises there; on the CPU it takes the gather path, as the JAX
+    engine's selection does."""
+    if use_flash == "never":
+        return False
+    if FA.paged_supported(block_size, head_dim):
+        return True
+    if device.type == "cuda":
+        raise ValueError(
+            f"the paged decode kernel needs block_size % 8 == 0 and "
+            f"head_dim <= 256; got block_size={block_size}, "
+            f"head_dim={head_dim} (use_flash='never' takes the gather path)")
+    return False
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Serving-engine knobs (model geometry comes from ``LlamaConfig``)."""
@@ -86,9 +106,10 @@ class EngineConfig:
     prefill_token_budget: int = 512
     #: round prompt lengths up to one of these; empty = exact lengths
     prefill_buckets: tuple = ()
-    #: "auto" (the paged decode kernel for CUDA tensors, its plain
-    #: version for CPU tensors; the gather path where the kernel does not
-    #: take the pool geometry) or "never" (the gather path)
+    #: "auto" (the paged decode kernel for CUDA tensors, which raises for
+    #: a pool geometry the kernel does not take; for CPU tensors its plain
+    #: version, or the gather path for such a geometry, as in the JAX
+    #: package) or "never" (the gather path)
     use_flash: str = "auto"
     #: radix prefix cache — waits for the front-door slice
     prefix_cache: bool = False
@@ -141,6 +162,11 @@ class ServingEngine:
                 raise ValueError(
                     f"params[{name!r}] is on {t.device}; the engine runs on "
                     f"{self.device}")
+        # On a CUDA device the kernel path launches the CUDA kernel; on
+        # the CPU it runs the kernel's plain version.
+        self._use_flash = _paged_kernel_path(
+            self.device, engine_cfg.use_flash, engine_cfg.block_size,
+            cfg.head_dim)
         self.params = params
         self.cfg = cfg
         self.ecfg = engine_cfg
@@ -166,13 +192,6 @@ class ServingEngine:
         self._steps = 0
         #: decode ticks run (each launches one attention per layer)
         self.decode_ticks = 0
-
-        # The same selection as the JAX engine: the kernel path when the
-        # pool geometry suits it, unless the caller asked for the gather
-        # path.  On a CUDA device the kernel path launches the CUDA
-        # kernel; on the CPU it runs the kernel's plain version.
-        kernel_ok = FA.paged_supported(engine_cfg.block_size, cfg.head_dim)
-        self._use_flash = kernel_ok and engine_cfg.use_flash == "auto"
 
     # -- step bodies -----------------------------------------------------
     def _prefill(self, tokens: torch.Tensor, last_pos: torch.Tensor):

@@ -17,6 +17,7 @@ import torch
 from horovod_tpu.models import llama as jllama
 from horovod_tpu_torch.models import llama as tllama
 from horovod_tpu_torch.serving import EngineConfig, ServingEngine
+from horovod_tpu_torch.serving.engine import _paged_kernel_path
 
 
 def np_params(jcfg, seed=0):
@@ -190,6 +191,23 @@ def test_engine_maps_use_flash_like_jax(models, use_flash, block_size,
     eng = ServingEngine(tparams, tcfg, device="cpu", engine_cfg=EngineConfig(
         block_size=block_size, num_blocks=8, use_flash=use_flash))
     assert eng._use_flash is expect
+
+
+@pytest.mark.parametrize("use_flash,block_size,head_dim,expect", [
+    ("auto", 8, 16, True), ("never", 4, 16, False),
+    ("auto", 4, 16, ValueError), ("auto", 16, 512, ValueError)])
+def test_engine_on_cuda_takes_the_kernel_or_raises(use_flash, block_size,
+                                                   head_dim, expect):
+    """On a CUDA device "auto" means the kernel: a pool geometry it does
+    not take raises instead of quietly taking the gather path, which only
+    "never" selects there."""
+    dev = torch.device("cuda", 0)
+    if expect is ValueError:
+        with pytest.raises(ValueError, match="block_size % 8"):
+            _paged_kernel_path(dev, use_flash, block_size, head_dim)
+    else:
+        assert _paged_kernel_path(dev, use_flash, block_size,
+                                  head_dim) is expect
 
 
 def test_engine_rejects_interpret_mode(models):

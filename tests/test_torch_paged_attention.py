@@ -102,6 +102,45 @@ def test_paged_attention_validates_shapes():
         FA.paged_attention(q[:, :4], kp, vp, tables, lens[:1])
 
 
+def _kernel_case(dtype=torch.bfloat16, BS=8, Dh=64, offset=0):
+    """CPU tensors shaped as a kernel launch; ``offset`` elements shift
+    both pools off their allocation's start."""
+    q, kp, vp, tables, lens = _case(5, 2, 4, 2, Dh, 8, BS, 4, [3, 9])
+
+    def pool(a):
+        flat = torch.zeros(a.size + offset, dtype=dtype)
+        flat[offset:] = torch.from_numpy(a).reshape(-1).to(dtype)
+        return flat[offset:].view(a.shape)
+
+    return (torch.from_numpy(q).to(dtype), pool(kp), pool(vp),
+            torch.from_numpy(tables), torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_input_checks_accept_the_served_layout(dtype):
+    FA._check_kernel_inputs(*_kernel_case(dtype))
+
+
+@pytest.mark.parametrize("kw,edit,match", [
+    (dict(dtype=torch.float16), None, "float32 or bfloat16"),
+    (dict(BS=4), None, "block_size % 8"),
+    (dict(Dh=4), None, "16-byte pieces"),
+    (dict(offset=1), None, "16-byte aligned"),
+    ({}, lambda a: (a[0], a[1], a[2].float(), a[3], a[4]), "one dtype"),
+    ({}, lambda a: (a[0], a[1], a[2], a[3].long(), a[4]), "int32"),
+    ({}, lambda a: (a[0], a[1].transpose(0, 1).contiguous().transpose(0, 1),
+                    a[2], a[3], a[4]), "contiguous"),
+])
+def test_kernel_input_checks_refuse(kw, edit, match):
+    """What the CUDA kernel does not take raises before any launch: the
+    wrapper runs these checks for every CUDA tensor."""
+    args = _kernel_case(**kw)
+    if edit is not None:
+        args = edit(args)
+    with pytest.raises(ValueError, match=re.escape(match)):
+        FA._check_kernel_inputs(*args)
+
+
 @pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
 def test_gqa_expand_matches_jax(H, KV):
     rng = np.random.RandomState(H + KV)
