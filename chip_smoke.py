@@ -5,30 +5,45 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It drives the port's main path on the card and checks it, phase by phase,
-printing one JSON line per phase:
+It drives the port's two main paths on the card, serving and training,
+and checks them, phase by phase, printing one JSON line per phase:
 
 1. ``device``  the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
-2. ``build``   the CUDA kernel of the path, built from ``csrc/`` and
-   loaded, with the seconds it took;
-3. ``kernel``  the kernel against its plain PyTorch version on the card,
-   in bf16 at the shapes the main path gives it and in fp32 at the tiny
-   model's shape: each output row (one request, one head) within a
-   tolerance scaled to that row's largest value, and the kernel's, the
-   plain version's and one library call's time (CUDA events, L2 flushed
-   before every launch) beside the bound the card's memory rate sets;
+2. ``build``   the CUDA kernels, ``paged_decode``, ``flash_fwd`` and
+   ``flash_bwd``, built from ``csrc/`` (one ``nvcc`` each, all at once)
+   and loaded, with the seconds each took;
+3. ``kernel``  each kernel against its plain PyTorch version on the card
+   (fp32, TF32 off), in bf16 at the shapes the main paths give it (and
+   ``paged_decode`` also in fp32 at the tiny model's shape): each output
+   row (one position or request, one head) within a tolerance scaled to
+   that row's largest value, and the kernel's, the plain version's and
+   one library call's time (CUDA events, L2 flushed before every launch)
+   beside the bound the card's memory or tensor-core rate sets;
 4. ``serve``   Llama-2-7B at full width (random weights from a seeded
    ``torch.Generator``) served through ``serve()``: 8 requests of 64-512
    prompt tokens and 32 new tokens each.  Every kernel launch counter is
-   zeroed just before the run and read just after; each kernel must have
-   launched, ``paged_decode`` exactly once per layer per decode tick.  One
-   decode tick's logits through the kernel must match the gather path's.
+   zeroed just before the run and read just after; ``paged_decode`` must
+   launch exactly once per layer per decode tick, the flash kernels never.
+   One decode tick's logits through the kernel must match the gather
+   path's;
+5. ``train``   Llama-2-7B at full width and depth, bf16, per-layer
+   recompute, one sequence of 4096 tokens a step, Adam (lr 1e-3, fused):
+   one warm-up step and three timed steps on one batch.  Every counter is
+   zeroed just before and read just after: per step ``flash_fwd`` must
+   launch 2 x 32 times (forward and recompute), ``flash_bwd_dq`` and
+   ``flash_bwd_dkv`` 32 times each, ``paged_decode`` never; the losses
+   must be finite, start near ln(32000) and fall.  Then a profile of one
+   step: device time, idle share, top kernels;
+6. ``train_parity``  two layers at full width, S=4096: loss and every
+   gradient through the kernels against the same call through their plain
+   versions (``llama._FORCE_ATTENTION_REFERENCE``).
 
 Then a ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line; without a CUDA device the script exits 2.
-``--phases`` runs a subset (``device,build,kernel,serve``).
+``--phases`` runs a subset (``device,build,kernel,serve,train,
+train_parity``).
 """
 
 from __future__ import annotations
@@ -43,7 +58,17 @@ import time
 # Published H100 SXM rates (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-PHASES = ("device", "build", "kernel", "serve")
+PHASES = ("device", "build", "kernel", "serve", "train", "train_parity")
+KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
+SRC = "horovod_tpu_torch/csrc/"
+TPU_SRC = "horovod_tpu/ops/flash_attention.py"
+# name -> (library, the Pallas kernel it replaces, file:line of its def)
+KERNELS = {
+    "paged_decode": ("paged_decode", TPU_SRC + ":367"),
+    "flash_fwd": ("flash_fwd", TPU_SRC + ":85"),
+    "flash_bwd_dq": ("flash_bwd", TPU_SRC + ":185"),
+    "flash_bwd_dkv": ("flash_bwd", TPU_SRC + ":224"),
+}
 
 
 def emit(obj: dict) -> None:
@@ -76,6 +101,24 @@ def time_cold(torch, fn, iters: int = 30, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def _counters():
+    from horovod_tpu_torch.ops import flash_attention as FA
+    return {"paged_decode": FA.paged_attention,
+            "flash_fwd": FA.flash_forward,
+            "flash_bwd_dq": FA.flash_backward_dq,
+            "flash_bwd_dkv": FA.flash_backward_dkv}
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch counter to 0."""
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +231,159 @@ def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
     return res
 
 
+# ---------------------------------------------------------------------------
+# flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain versions
+# ---------------------------------------------------------------------------
+
+# Per-row tolerance of a flash kernel against its plain version (fp32,
+# TF32 off), as a share of the row's largest |value| (one position, one
+# head), 2^-5 in bf16 as for paged_decode: the kernels round p (and ds) to
+# bf16 before each product, as the Pallas kernels do, the plain versions
+# keep fp32, and both round the output to bf16; together a few ulps
+# (2^-8 each) of the row's largest value.  A K/V block skipped, misrouted
+# or masked wrongly moves some row by order its own size.  The share is
+# taken of max(row's largest value, FLOOR_SHARE x the median row's): in the
+# first causal rows dq nearly cancels (p = 1 on one key, so dO.V^T ~
+# delta), the plain version's dq there is ~0 and any rounding is "large"
+# against it, while it is ~1e-7 of a typical row.
+FLASH_ROW_TOL = 2.0 ** -5
+FLOOR_SHARE = 2.0 ** -3
+# LSE, absolute: both sum fp32 exponentials of the same fp32-accumulated
+# scores in another order (and exp2 against exp): ~1e-6 at values near
+# log(S) ~ 8.  A 64-key block dropped from a 4096-key row moves it by
+# about log(1 - 64/4096) = -0.016.
+LSE_ABS_TOL = 1e-3
+
+
+def _row_check(torch, name, label, got, ref) -> dict:
+    diff = (got.float() - ref.float()).abs()
+    row_err = diff.amax(dim=-1)
+    row_mag = ref.float().abs().amax(dim=-1)
+    floor = FLOOR_SHARE * row_mag.median()
+    ratio = (row_err / torch.maximum(row_mag, floor).clamp_min(1e-30)
+             ).max().item()
+    err = diff.max().item()
+    if not (math.isfinite(err) and ratio <= FLASH_ROW_TOL):
+        raise AssertionError(
+            f"{name} {label}: worst row |kernel - plain| is {ratio} of the "
+            f"row's scale (limit {FLASH_ROW_TOL}); max abs {err}")
+    return {"max_abs_err": err, "worst_row_rel_err": ratio}
+
+
+def flash_case(torch, gen, B, S, H, KV, D):
+    def rnd(heads):
+        return torch.randn(B, S, heads, D, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    return rnd(H), rnd(KV), rnd(KV), rnd(H)
+
+
+def flash_bytes(q, k, outs, extra_f32=0) -> int:
+    """Each input read once and each output written once."""
+    return sum(t.numel() * t.element_size() for t in (q, k, k) + outs) \
+        + extra_f32 * 4
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_flash(torch, gen, *, label, B, S, H, KV, D, causal) -> dict:
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
+    versions at one shape (the backward on the kernel forward's o and lse),
+    then each timed beside its bound and the library yardstick: SDPA for
+    the forward, one autograd.grad through SDPA's output (dq, dk and dv
+    together) for the backward pair.  The port never calls SDPA."""
+    import torch.nn.functional as F
+    from horovod_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, do = flash_case(torch, gen, B, S, H, KV, D)
+    sc = 1.0 / math.sqrt(D)
+    shape = {"shape": label, "B": B, "S": S, "H": H, "KV": KV, "D": D,
+             "causal": causal, "dtype": "bfloat16"}
+    o, lse = FA.flash_forward(q, k, v, sc, causal)
+    ro, rlse = FA.flash_forward_reference(q, k, v, sc, causal)
+    delta = FA.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, sc, causal)
+    dq = FA.flash_backward_dq(*args)
+    dk, dv = FA.flash_backward_dkv(*args)
+    rdq = FA.flash_backward_dq_reference(*args)
+    rdk, rdv = FA.flash_backward_dkv_reference(*args)
+    torch.cuda.synchronize()
+    res = {"flash_fwd": _row_check(torch, "flash_fwd", label, o, ro),
+           "flash_bwd_dq": _row_check(torch, "flash_bwd_dq", label, dq, rdq)}
+    dk_c = _row_check(torch, "flash_bwd_dkv", label, dk, rdk)
+    dv_c = _row_check(torch, "flash_bwd_dkv", label, dv, rdv)
+    res["flash_bwd_dkv"] = {
+        "max_abs_err": max(dk_c["max_abs_err"], dv_c["max_abs_err"]),
+        "worst_row_rel_err": max(dk_c["worst_row_rel_err"],
+                                 dv_c["worst_row_rel_err"])}
+    lse_err = (lse - rlse).abs().max().item()
+    if not (math.isfinite(lse_err) and lse_err <= LSE_ABS_TOL):
+        raise AssertionError(f"flash_fwd {label}: lse off by {lse_err} "
+                             f"(limit {LSE_ABS_TOL})")
+    res["flash_fwd"]["lse_max_abs_err"] = lse_err
+    del ro, rlse, rdq, rdk, rdv
+
+    # Library yardsticks on [B, H, S, D] copies made outside the timed
+    # calls (K/V repeated to H heads for GQA).
+    qt, dot = (t.transpose(1, 2).contiguous() for t in (q, do))
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+              .contiguous() for t in (k, v))
+    qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    lib_fwd = time_cold(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal))
+    lib_bwd = time_cold(torch, lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+    del lib_out, qt, kt, vt, dot
+
+    flops = {n: FA.flash_flops((B, S, H, D), causal, p)
+             for n, p in (("flash_fwd", 2), ("flash_bwd_dq", 3),
+                          ("flash_bwd_dkv", 4))}
+    rows = B * H * S
+    nbytes = {"flash_fwd": flash_bytes(q, k, (o,), rows),
+              "flash_bwd_dq": flash_bytes(q, k, (do, dq), 2 * rows),
+              "flash_bwd_dkv": flash_bytes(q, k, (do, dk, dv), 2 * rows)}
+    timed = {
+        "flash_fwd": (lambda: FA.flash_forward(q, k, v, sc, causal),
+                      lambda: FA.flash_forward_reference(q, k, v, sc,
+                                                         causal), lib_fwd),
+        "flash_bwd_dq": (lambda: FA.flash_backward_dq(*args),
+                         lambda: FA.flash_backward_dq_reference(*args),
+                         lib_bwd),
+        "flash_bwd_dkv": (lambda: FA.flash_backward_dkv(*args),
+                          lambda: FA.flash_backward_dkv_reference(*args),
+                          lib_bwd),
+    }
+    for name, (fn, plain, lib_ms) in timed.items():
+        r = res[name]
+        r.update(shape)
+        r.update({"ms": time_cold(torch, fn),
+                  "plain_ms": time_cold(torch, plain, iters=10),
+                  "library_ms": lib_ms,
+                  "library": "SDPA forward" if name == "flash_fwd" else
+                  "SDPA backward (dq, dk, dv in one autograd.grad)"})
+        r.update(bound(nbytes[name], flops[name]))
+        r["row_rel_tol"] = FLASH_ROW_TOL
+        emit({"phase": "kernel", "name": name, **r})
+    return res
+
+
 def phase_kernel(torch) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in fp32
+    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
+    flash7b = check_flash(torch, gen, label="llama2_7b_train", B=1, S=4096,
+                          H=32, KV=32, D=128, causal=True)
+    check_flash(torch, gen, label="gqa_rep4", B=2, S=2048, H=32, KV=8,
+                D=128, causal=True)
+    check_flash(torch, gen, label="full_d64", B=2, S=1024, H=16, KV=16,
+                D=64, causal=False)
     # Ragged lengths 1..2048, partial last pages, rows padded to 128
     # columns at block 0.
     ragged = [1, 17, 300, 777, 1024, 1500, 2000, 2048]
@@ -210,7 +403,7 @@ def phase_kernel(torch) -> dict:
     check_paged_decode(torch, gen, label="tiny_fp32", B=3, H=4, KV=2,
                        Dh=16, BS=8, lengths=[5, 17, 30], n_cols=6,
                        dtype=torch.float32, timed=False)
-    return res7b
+    return {"paged_decode": res7b, **flash7b}
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +415,6 @@ def phase_serve(torch, smi: str) -> dict:
 
     from horovod_tpu_torch import serving
     from horovod_tpu_torch.models import llama
-    from horovod_tpu_torch.ops import flash_attention as FA
 
     cfg = llama.LlamaConfig.llama2_7b()
     gen = torch.Generator(device="cuda")
@@ -248,7 +440,7 @@ def phase_serve(torch, smi: str) -> dict:
     def on_token(req_id, tok):
         emit_t.setdefault(req_id, []).append(time.perf_counter())
 
-    FA.paged_attention.launches = 0            # every counter of the path
+    zero_launches()                            # every counter of the path
     ticks0 = eng.decode_ticks
     torch.cuda.synchronize()
     t_run = time.perf_counter()
@@ -256,7 +448,8 @@ def phase_serve(torch, smi: str) -> dict:
     sess.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
-    launches = FA.paged_attention.launches
+    counts = read_launches()
+    launches = counts["paged_decode"]
     ticks = eng.decode_ticks - ticks0
 
     results = [f.result() for f in futs]
@@ -268,6 +461,8 @@ def phase_serve(torch, smi: str) -> dict:
         raise AssertionError(
             f"paged_decode launched {launches} times over {ticks} decode "
             f"ticks; want {cfg.n_layers} per tick")
+    if any(counts[n] for n in counts if n != "paged_decode"):
+        raise AssertionError(f"serving launched a training kernel: {counts}")
 
     ttft = sorted(r.metrics["ttft_s"] for r in results)
     itl = sorted(b - a for ts in emit_t.values()
@@ -291,7 +486,19 @@ def phase_serve(torch, smi: str) -> dict:
     logits_parity(torch, params, cfg, eng)
     decode_breakdown(torch, eng, smi)
     sess.close()
-    return {"launches": launches}
+    return counts
+
+
+def device_kernels(prof) -> list:
+    """The profiler's device-side kernel entries, without the device spans
+    of user annotations (``Optimizer.step#Adam.step``), which cover kernels
+    already counted: such a span carries the name of a CPU-side op, a
+    kernel never does."""
+    events = prof.key_averages()
+    cpu_ops = {e.key for e in events if e.device_type.name == "CPU"}
+    return [e for e in events
+            if e.device_type.name == "CUDA" and e.self_device_time_total
+            and e.key not in cpu_ops]
 
 
 def decode_breakdown(torch, eng, smi: str, ticks: int = 5) -> None:
@@ -319,8 +526,7 @@ def decode_breakdown(torch, eng, smi: str, ticks: int = 5) -> None:
         for _ in range(ticks):
             eng._decode(tok, pos, tables)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    kernels = device_kernels(prof)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / ticks
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     emit({"phase": "decode_breakdown", "slots": R, "n_cols": 64,
@@ -386,6 +592,182 @@ def logits_parity(torch, params, cfg, eng) -> None:
 
 
 # ---------------------------------------------------------------------------
+# training Llama-2-7B at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_S = 4096          # Llama 2's training context, one sequence a step
+TRAIN_LR = 1e-3         # survives bf16 rounding of weights near 1/64
+
+
+def _free_cuda(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, smi: str, steps: int = 3) -> dict:
+    import numpy as np
+
+    from horovod_tpu_torch.models import llama
+
+    _free_cuda(torch)
+    cfg = llama.LlamaConfig.llama2_7b()            # bf16, remat=True
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, "cuda")
+    n_params = sum(t.numel() for t in llama.trainable(params))
+    opt = torch.optim.Adam(llama.trainable(params), lr=TRAIN_LR, fused=True)
+    step = llama.make_train_step(cfg, opt)
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(1, TRAIN_S + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launches()                            # every counter of the path
+    losses, step_s = [step(params, batch).item()], []   # warm-up step
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_steps = steps + 1
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "paged_decode": 0}
+    if counts != {k: n_steps * v for k, v in want.items()}:
+        raise AssertionError(f"launches over {n_steps} steps: {counts}; "
+                             f"want per step {want}")
+    ln_v = math.log(cfg.vocab_size)
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - ln_v) <= 2
+            and all(x < losses[0] for x in losses[1:])):
+        raise AssertionError(f"losses {losses}: want finite, the first "
+                             f"within 2 of ln V = {ln_v}, then below it")
+    med = sorted(step_s)[len(step_s) // 2]
+    # bench.py's count: 6 N per token for the dense parameters (forward and
+    # backward) plus 12 L D S for the attention products.
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * TRAIN_S
+    tok_s = TRAIN_S / med
+    res = {"phase": "train", "model": "llama2_7b", "dtype": "bfloat16",
+           "remat": cfg.remat, "batch": 1, "seq": TRAIN_S,
+           "optimizer": f"Adam(lr={TRAIN_LR}, fused=True)",
+           "params": n_params, "losses": losses, "step_s": step_s,
+           "step_ms_median": med * 1e3, "tokens_per_s": tok_s,
+           "mfu": tok_s * flops_per_token / BF16_FLOPS,
+           "flops_per_token": flops_per_token,
+           "launches": counts, "launches_per_step": want,
+           "peak_mem_gb": peak_gb, "card": smi}
+    emit(res)
+    train_breakdown(torch, step, params, batch, med * 1e3, smi)
+    del params, opt, step, batch
+    _free_cuda(torch)
+    return counts
+
+
+def train_breakdown(torch, step, params, batch, wall_ms: float,
+                    smi: str) -> None:
+    """Where one training step's time goes: the device time the profiler
+    attributes to kernels, the idle share against the step's host clock
+    (median of the timed steps), the top kernels, and the three flash
+    kernels' device time in the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, batch)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+
+    def flash_ms(tag):
+        return sum(e.self_device_time_total for e in kernels
+                   if tag in e.key) / 1e3
+
+    emit({"phase": "train_breakdown", "wall_ms_per_step": wall_ms,
+          "device_ms_per_step": device_ms if kernels else "not measured",
+          "device_idle_share": (1 - device_ms / wall_ms) if kernels
+          else "not measured",
+          "flash_ms_per_step": {
+              "flash_fwd": flash_ms("flash_fwd_kernel"),
+              "flash_bwd_dq": flash_ms("flash_bwd_dq_kernel"),
+              "flash_bwd_dkv": flash_ms("flash_bwd_dkv_kernel")},
+          "top_kernels_ms_per_step": {
+              e.key[:80]: e.self_device_time_total / 1e3 for e in top},
+          "card": smi})
+
+
+# Tolerance of train_parity.  Both runs are bf16; the kernels round p and
+# ds to bf16 before each product, as the Pallas kernels do, the plain
+# versions keep them in fp32, so every attention output and gradient
+# differs by a few bf16 ulps (2^-8 relative) and the weight gradients that
+# sum them by about that.  A wrong block, head or mask moves a leaf by
+# order 1.
+PARITY_LOSS_REL = 1e-2
+PARITY_GRAD_REL_L2 = 5e-2
+
+
+def phase_train_parity(torch, smi: str) -> None:
+    import dataclasses
+
+    import numpy as np
+
+    from horovod_tpu_torch.models import llama
+
+    _free_cuda(torch)
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), n_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    params = llama.init_params(cfg, gen, "cuda")
+    leaves = llama.trainable(params)
+    tokens = np.random.RandomState(1).randint(
+        0, cfg.vocab_size, size=(1, TRAIN_S + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+
+    def run(plain: bool):
+        for t in leaves:
+            t.grad = None
+        old = llama._FORCE_ATTENTION_REFERENCE
+        llama._FORCE_ATTENTION_REFERENCE = plain
+        zero_launches()
+        try:
+            loss = llama.loss_fn(params, batch, cfg)
+            loss.backward()
+        finally:
+            llama._FORCE_ATTENTION_REFERENCE = old
+        torch.cuda.synchronize()
+        return loss.item(), [t.grad.float() for t in leaves], read_launches()
+
+    k_loss, k_grads, k_counts = run(False)
+    p_loss, p_grads, p_counts = run(True)
+    if not (k_counts["flash_fwd"] == 2 * cfg.n_layers
+            and k_counts["flash_bwd_dkv"] == cfg.n_layers
+            and sum(p_counts.values()) == 0):
+        raise AssertionError(f"launches through the kernels {k_counts}, "
+                             f"through the plain versions {p_counts}")
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+           for a, b in zip(k_grads, p_grads)]
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    emit({"phase": "train_parity", "layers": cfg.n_layers, "seq": TRAIN_S,
+          "loss_kernel": k_loss, "loss_plain": p_loss, "loss_rel": loss_rel,
+          "loss_rel_tol": PARITY_LOSS_REL, "grad_leaves": len(rel),
+          "grad_rel_l2_max": max(rel), "grad_rel_l2_median":
+          sorted(rel)[len(rel) // 2], "grad_rel_l2_tol": PARITY_GRAD_REL_L2,
+          "card": smi})
+    if not (loss_rel <= PARITY_LOSS_REL and max(rel) <= PARITY_GRAD_REL_L2
+            and all(math.isfinite(r) for r in rel)):
+        raise AssertionError(f"kernel vs plain training step: loss rel "
+                             f"{loss_rel}, worst gradient rel L2 {max(rel)}")
+    del params, leaves, k_grads, p_grads
+    _free_cuda(torch)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -412,23 +794,29 @@ def main(argv=None) -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda})
     if "build" in phases:
         t0 = time.perf_counter()
-        _build.load("paged_decode", FA._SIGNATURES)
-        emit({"phase": "build", "kernel": "paged_decode",
-              "seconds": time.perf_counter() - t0,
-              "library": str(_build._target("paged_decode")[1])})
+        seconds = _build.build(KERNEL_LIBS)      # one nvcc each, all at once
+        for lib in KERNEL_LIBS:
+            _build.load(lib, FA._SIGNATURES[lib])
+        emit({"phase": "build", "seconds": seconds,
+              "wall_s": time.perf_counter() - t0,
+              "libraries": {n: str(_build._target(n)[1])
+                            for n in KERNEL_LIBS}})
     res = phase_kernel(torch) if "kernel" in phases else None
     served = phase_serve(torch, smi) if "serve" in phases else None
-    if res is not None and served is not None:
-        emit({"kernels": [{
-            "name": "paged_decode", "route": "cuda",
-            "source": "horovod_tpu_torch/csrc/paged_decode.cu",
-            "replaces": "horovod_tpu/ops/flash_attention.py:367",
-            "launches": served["launches"],
-            "max_abs_err": res["max_abs_err"],
-            "worst_row_rel_err": res["worst_row_rel_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-        }]})
+    trained = phase_train(torch, smi) if "train" in phases else None
+    if "train_parity" in phases:
+        phase_train_parity(torch, smi)
+    if res is not None and served is not None and trained is not None:
+        # launches: paged_decode on the serving path, the flash kernels on
+        # the training path (each counted in its own run).
+        launches = dict(trained, paged_decode=served["paged_decode"])
+        keys = ("max_abs_err", "worst_row_rel_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        emit({"kernels": [
+            {"name": name, "route": "cuda", "source": f"{SRC}{lib}.cu",
+             "replaces": replaces, "launches": launches[name],
+             **{k: res[name][k] for k in keys}}
+            for name, (lib, replaces) in KERNELS.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

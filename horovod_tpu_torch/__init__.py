@@ -1,11 +1,18 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu, for NVIDIA Hopper.
 
 The port is built slice by slice beside the JAX package ``horovod_tpu``,
-which stays as it is and is the reference.  This slice serves Llama-family
-models end to end on one H100: ``serve()`` over a continuous-batching
-engine with a block-paged KV cache, with decode attention in a
-hand-written CUDA kernel (``csrc/paged_decode.cu``, built with ``nvcc``
-for ``sm_90a`` at first use).
+which stays as it is and is the reference.  On one H100 it serves and
+trains Llama-family models end to end:
+
+- ``serving.serve()`` over a continuous-batching engine with a block-paged
+  KV cache, decode attention in ``csrc/paged_decode.cu``;
+- ``models.llama.make_train_step`` (Adam steps on full-width Llama-2-7B
+  with per-layer recompute), attention forward and backward in
+  ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` behind a
+  ``torch.autograd.Function``.
+
+Every kernel is hand-written CUDA C++ for ``sm_90a``, built with ``nvcc``
+at first use and bound with ctypes.
 
 Ground rules:
 
@@ -28,10 +35,13 @@ Ground rules:
   compare the two packages on the same inputs.
 
 Not yet ported, and raising ``NotImplementedError`` where a caller could
-reach them: sharded serving (``mesh=``), the prefix cache, speculative
-decoding, KV migration, MoE configs, and the elastic rejoin after a
-collective failure; training, collectives and the launcher are later
-slices.
+reach them: sharded models (``mesh=``) for serving and training, MoE
+configs, ``remat="dots"``, the blockwise cross-entropy
+(``blockwise_ce=True``; ``ops/losses.py``), the prefix cache, speculative
+decoding, KV migration, and the elastic rejoin after a collective
+failure.  Horovod's runtime (``init`` with collectives, the eager verbs,
+the negotiating engine, ``DistributedOptimizer``) and the launcher are
+later slices.
 """
 
 from .context import (  # noqa: F401

@@ -1,10 +1,13 @@
-"""Llama-family transformer, forward-only serving path, in PyTorch.
+"""Llama-family transformer in PyTorch: the training step and the serving
+entry points.
 
-A port of the serving entry points of ``horovod_tpu/models/llama.py``:
-:class:`LlamaConfig`, parameter init, :func:`prefill_step` and
-:func:`decode_step_paged`, with the helpers they share.  Layouts are the
-JAX package's, so parameters move across with :func:`params_from_jax` and
-the tests compare like with like:
+A port of ``horovod_tpu/models/llama.py``: :class:`LlamaConfig`, parameter
+init, the training path (:func:`forward`, :func:`loss_fn`,
+:func:`make_train_step`, with RMSNorm's hand-written VJP and attention
+through the flash kernels' ``torch.autograd.Function``), and the serving
+entry points :func:`prefill_step` and :func:`decode_step_paged`, with the
+helpers they share.  Layouts are the JAX package's, so parameters move
+across with :func:`params_from_jax` and the tests compare like with like:
 
 - parameters are a plain dict; layer weights are stacked over a leading
   layer axis (``wq [L, D, H, Dh]``, ``wk/wv [L, D, KV, Dh]``,
@@ -14,20 +17,22 @@ the tests compare like with like:
 - bf16 activations and weights with RMSNorm, RoPE and softmax in fp32,
   fp32 logits; RoPE is half-split (not interleaved); GQA; SwiGLU.
 
-Training (the flash-attention kernels, the custom VJPs, the train step),
-MoE configs, sharded meshes and the multi-token ``extend_step_paged``
-wait for later slices of the port.
+Still raising ``NotImplementedError``: sharded meshes (``mesh=``), MoE
+configs, ``remat="dots"``, the blockwise cross-entropy
+(``blockwise_ce=True``; ``ops/losses.py`` is not ported) and the
+multi-token ``extend_step_paged``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import context
 from ..ops import flash_attention as FA
@@ -45,6 +50,13 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     use_moe: bool = False
     n_experts: int = 8
+    # Recompute of the layer body in the backward: True = per-layer
+    # recompute (the layer inputs are all that is kept; the Llama-2-7B
+    # training step needs it to fit one 80 GB card), False = keep every
+    # activation.  "dots" (the JAX package's save-the-matmuls policy)
+    # raises NotImplementedError.
+    remat: Union[bool, str] = True
+    blockwise_ce: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -52,9 +64,9 @@ class LlamaConfig:
 
     @staticmethod
     def tiny(**kw) -> "LlamaConfig":
-        """Test-scale config, fp32."""
+        """Test-scale config, fp32, no recompute."""
         base = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
-                    n_kv_heads=2, d_ff=128, dtype=torch.float32)
+                    n_kv_heads=2, d_ff=128, dtype=torch.float32, remat=False)
         base.update(kw)
         return LlamaConfig(**base)
 
@@ -75,8 +87,19 @@ def _no_moe(cfg: LlamaConfig) -> None:
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded serving (mesh=) waits for the parallel slice of the "
+            "sharded models (mesh=) wait for the parallel slice of the "
             "port; this slice runs on one card")
+
+
+def _check_train_cfg(cfg: LlamaConfig) -> None:
+    _no_moe(cfg)
+    if cfg.remat not in (True, False):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} waits for a later slice of the port; use "
+            f"True (per-layer recompute) or False")
+    if cfg.blockwise_ce:
+        raise NotImplementedError(
+            "blockwise cross-entropy (ops/losses.py) is not ported yet")
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
@@ -153,6 +176,36 @@ def _rmsnorm_impl(x: torch.Tensor, w: torch.Tensor,
     x32 = x.float()
     rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     return (x32 * rms * w).to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with the hand-written VJP of the JAX package, whose only
+    residuals are ``x`` and ``w``: the backward recomputes the fp32
+    normalised activations from ``x`` instead of keeping them."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm_impl(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        x32 = x.float()
+        r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + ctx.eps)
+        u = x32 * r                                   # normalised activations
+        dy32 = dy.float()
+        du = dy32 * w
+        s = (du * u).mean(dim=-1, keepdim=True)
+        dx = (r * (du - u * s)).to(x.dtype)
+        dw = (dy32 * u).sum(dim=tuple(range(x.dim() - 1))).to(w.dtype)
+        return dx, dw, None
+
+
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    return _RMSNorm.apply(x, w, eps)
 
 
 def _rope_tables(positions: torch.Tensor, theta: float, head_dim: int
@@ -237,7 +290,10 @@ def _dense_mlp(x2, lp):
 
 
 def _layer(layers: dict, li: int) -> dict:
-    return {k: v[li] for k, v in layers.items()}
+    """Layer ``li``'s weights: the per-layer optimizer leaves that
+    :func:`trainable` made for a stack, else a view of the stack."""
+    return {k: (v._layer_leaves[li] if hasattr(v, "_layer_leaves")
+                else v[li]) for k, v in layers.items()}
 
 
 def _logits(params, h_last: torch.Tensor) -> torch.Tensor:
@@ -339,3 +395,122 @@ def decode_step_paged(params, tok: torch.Tensor, positions: torch.Tensor,
         h = h + _out_proj(attn, lp["wo"])
         h = h + _dense_mlp(_rmsnorm_impl(h, lp["mlp_norm"]), lp)
     return _logits(params, h[:, 0]), k_pool, v_pool
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+# Test hook, the counterpart of the JAX package's _FORCE_FLASH_INTERPRET:
+# when set, attention on CUDA tensors runs the flash kernels' plain
+# versions instead of the kernels.  Off by default; nothing in the package
+# sets it.
+_FORCE_ATTENTION_REFERENCE = False
+
+
+def _attention(q, k, v, mesh, causal: bool) -> torch.Tensor:
+    """Attention of the training path: the flash ``autograd.Function`` on
+    every device (its kernels on CUDA tensors, which raise for a shape
+    outside ``FA.supported``; its plain versions on CPU tensors)."""
+    _no_mesh(mesh)
+    return FA.flash_attention(q, k, v, None, causal,
+                              plain=_FORCE_ATTENTION_REFERENCE)
+
+
+def _attn_block(h, lp, rope, mesh, causal: bool) -> torch.Tensor:
+    """RMSNorm -> QKV -> RoPE -> :func:`_attention` (handed grouped K/V)
+    -> output projection + residual."""
+    x = _rmsnorm(h, lp["attn_norm"])
+    q = _rope(_heads(x, lp["wq"]), rope)
+    k, v = _layer_kv(x, lp, rope)
+    return h + _out_proj(_attention(q, k, v, mesh, causal), lp["wo"])
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
+            mesh=None, causal: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Logits for next-token prediction: tokens ``[B, S]`` int ->
+    (logits ``[B, S, V]`` fp32, aux = 0, the MoE loss of the JAX package's
+    dense configs).  With ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward, so only
+    the layer inputs are kept."""
+    _check_train_cfg(cfg)
+    _no_mesh(mesh)
+    B, S = tokens.shape
+    dev = tokens.device
+    h = _embed_lookup(params["embed"], tokens, cfg.dtype)
+    rope = _rope_tables(torch.arange(S, device=dev).expand(B, S),
+                        cfg.rope_theta, cfg.head_dim)
+    names = tuple(params["layers"])
+
+    def layer(h, *weights):
+        lp = dict(zip(names, weights))
+        h = _attn_block(h, lp, rope, mesh, causal)
+        return h + _dense_mlp(_rmsnorm(h, lp["mlp_norm"]), lp)
+
+    for li in range(cfg.n_layers):
+        weights = _layer(params["layers"], li).values()
+        if cfg.remat:
+            h = checkpoint(layer, h, *weights, use_reentrant=False)
+        else:
+            h = layer(h, *weights)
+    h = _rmsnorm(h, params["final_norm"])
+    logits = torch.matmul(h, params["lm_head"]).float()
+    return logits, torch.zeros((), dtype=torch.float32, device=dev)
+
+
+def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, *,
+            mesh=None) -> torch.Tensor:
+    """Causal LM loss, batch = ``{"tokens": [B, S+1] int}``: the mean over
+    positions of ``logsumexp(logits) - logits[target]``, the JAX package's
+    form (the log-probabilities are never materialised)."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits, aux = forward(params, inputs, cfg, mesh=mesh)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets[..., None].long())[..., 0]
+    return (lse - picked).mean() + aux
+
+
+def trainable(params: dict) -> list[torch.Tensor]:
+    """The optimizer's parameters: ``embed``, ``final_norm``, ``lm_head``
+    and, for each stacked layer weight, one leaf per layer.
+
+    A per-layer leaf is ``stack[i].detach().requires_grad_()``: it shares
+    storage with the stack, so ``params`` keeps the JAX layout, each
+    layer's gradient lands in its own leaf, and the optimizer's in-place
+    step updates the stack.  (Autograd through ``stack[i]`` of one leaf
+    would give every layer a stack-sized gradient to add in.)  The leaves
+    are what :func:`forward` then uses for the layer weights."""
+    leaves = []
+    for stack in params["layers"].values():
+        if not hasattr(stack, "_layer_leaves"):    # one set per stack
+            stack._layer_leaves = [stack[i].detach().requires_grad_()
+                                   for i in range(stack.shape[0])]
+        leaves.extend(stack._layer_leaves)
+    for name in ("embed", "final_norm", "lm_head"):
+        leaves.append(params[name].requires_grad_())
+    return leaves
+
+
+def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer, *,
+                    mesh=None) -> Callable[[dict, dict], torch.Tensor]:
+    """A training step ``step(params, batch) -> loss``: zero the gradients,
+    :func:`loss_fn` forward and backward, ``optimizer.step()``.
+
+    ``optimizer`` is built over :func:`trainable` (params), e.g.
+    ``torch.optim.Adam(trainable(params), lr, fused=True)``, whose update
+    is optax.adam's.  Parameters are updated in place, as the JAX step
+    donates its parameter buffers.  The loss comes back as a 0-d tensor on
+    the parameters' device; the step makes no host sync."""
+    _check_train_cfg(cfg)
+    _no_mesh(mesh)
+
+    def step(params: dict, batch: dict) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn(params, batch, cfg, mesh=mesh)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step

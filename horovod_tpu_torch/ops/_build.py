@@ -6,8 +6,10 @@ use into its own shared library::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o <build dir>/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is reused.  The build directory is
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source builds anew and an
+unchanged one is reused.  :func:`build` compiles several libraries at
+once, one ``nvcc`` each, all started together.  The build directory is
 ``build/kernels`` at the root of the checkout (git-ignored), or
 ``$HOROVOD_TPU_TORCH_BUILD_DIR``.  Nothing here is touched when a module is
 imported: the CPU tests import every module on machines without ``nvcc``.
@@ -21,6 +23,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Mapping, Sequence
 
@@ -61,6 +65,8 @@ def _target(name: str) -> tuple[Path, Path]:
     if not src.is_file():
         raise FileNotFoundError(f"no kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -82,6 +88,19 @@ def _compile(name: str) -> Path:
                            f"{p.stdout.decode(errors='replace')}")
     os.replace(tmp, so)
     return so
+
+
+def build(names: Sequence[str]) -> dict[str, float]:
+    """Compile the named libraries concurrently (one ``nvcc`` process
+    each, all started together) and return the wall seconds each took.
+    Raises the first build failure."""
+    def one(name: str) -> float:
+        t0 = time.perf_counter()
+        _compile(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(one, names)))
 
 
 def load(name: str,

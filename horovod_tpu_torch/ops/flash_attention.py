@@ -1,18 +1,24 @@
-"""Attention kernels of the port: paged decode attention.
+"""Attention kernels of the port: flash attention (training) and paged
+decode attention (serving).
 
-:func:`paged_attention` is the decode-step attention of the serving engine
-over a block-paged KV pool.  For CUDA tensors it launches the hand-written
-kernel in ``csrc/paged_decode.cu`` (built with ``nvcc`` for ``sm_90a`` at
-first use, bound with ctypes); for CPU tensors it runs the plain PyTorch
-version :func:`paged_attention_reference`.  There is no fallback between
-the two: a CUDA tensor goes through the kernel or the call raises.
+Every kernel here is hand-written CUDA C++ for ``sm_90a`` under ``csrc/``,
+built with ``nvcc`` at first use and bound with ctypes, and has a plain
+PyTorch version beside it.  A wrapper runs the plain version for CPU
+tensors; for CUDA tensors it launches the kernel or raises.  There is no
+fallback between the two.
 
-The kernel replaces the Pallas TPU kernel ``_paged_decode_kernel`` of
-``horovod_tpu/ops/flash_attention.py`` (the ``pl.pallas_call`` in
-``paged_attention`` there).  It is memory-bound: a launch reads
-``sum_b ceil(len_b / BS) * BS * KV * Dh`` elements of K and as many of V,
-once each; :func:`paged_bytes` counts them.  The flash-attention forward
-and backward kernels wait for the training slice.
+- :func:`flash_attention` is exact causal or full attention with a
+  ``torch.autograd.Function`` around three kernels: ``flash_fwd``
+  (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel`` of
+  ``horovod_tpu/ops/flash_attention.py``), and ``flash_bwd_dq`` and
+  ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``, replacing ``_bwd_dq_kernel``
+  and ``_bwd_dkv_kernel``).  All three are bound by tensor-core operations
+  at training lengths; :func:`flash_flops` counts them.
+- :func:`paged_attention` is the decode-step attention of the serving
+  engine over a block-paged KV pool (``csrc/paged_decode.cu``, replacing
+  ``_paged_decode_kernel``).  It is memory-bound: a launch reads
+  ``sum_b ceil(len_b / BS) * BS * KV * Dh`` elements of K and as many of V,
+  once each; :func:`paged_bytes` counts them.
 """
 
 from __future__ import annotations
@@ -30,12 +36,335 @@ _NEG_INF = -1e30
 # torch dtype -> the kernel's dtype code (csrc/paged_decode.cu).
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ERR = (ctypes.c_char_p, [_I])
+# library -> function -> (restype, argtypes).  A launch takes device
+# pointers, then sizes, then the stream last, and returns a cudaError_t
+# that <library>_error_string names.  The flash launches take their
+# tensors, then B, S, H, KV, D, scale and causal.
 _SIGNATURES = {
-    "paged_decode": (ctypes.c_int, [ctypes.c_void_p] * 6
-                     + [ctypes.c_int] * 6
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
-    "paged_decode_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    "paged_decode": {
+        "paged_decode": (_I, [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+        "paged_decode_error_string": _ERR,
+    },
+    "flash_fwd": {
+        "flash_fwd": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+        "flash_fwd_error_string": _ERR,
+    },
+    "flash_bwd": {
+        "flash_bwd_dq": (_I, [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
+        "flash_bwd_dkv": (_I, [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
+        "flash_bwd_error_string": _ERR,
+    },
 }
+
+
+def _launch(lib_name: str, fn: str, device: torch.device, *args) -> None:
+    """Call ``fn`` of a kernel library with ``args`` and the current stream
+    of ``device``; raise if the runtime refuses the launch."""
+    lib = _build.load(lib_name, _SIGNATURES[lib_name])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        msg = getattr(lib, f"{lib_name}_error_string")(rc).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
+
+# ---------------------------------------------------------------------------
+# flash attention: plain versions, gating, kernel wrappers, autograd
+# ---------------------------------------------------------------------------
+
+#: Head dims the flash kernels are compiled for.
+FLASH_HEAD_DIMS = (64, 128)
+#: Rows of the query and key tiles of ``flash_fwd`` and ``flash_bwd_dq``,
+#: and the key tile of ``flash_bwd_dkv``; S must be a multiple of it.
+FLASH_BLOCK = 64
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool) -> torch.Tensor:
+    """Dense attention, the test oracle: scores in the input dtype cast to
+    fp32 and scaled, a masked fp32 softmax, p cast to v's dtype before the
+    product with V.  q ``[B, S, H, D]``, grouped k/v ``[B, S, KV, D]``."""
+    k, v = gqa_expand(q, k, v)
+    s = _mask(torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale, causal)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def _mask(s: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Scores ``[..., S, S]`` with the keys after each query set to the
+    Pallas kernels' mask value, if ``causal``."""
+    if not causal:
+        return s
+    S = s.shape[-1]
+    keep = torch.ones(S, S, dtype=torch.bool, device=s.device).tril()
+    return torch.where(keep, s, _NEG_INF)
+
+
+def default_blocks(seq_len: int) -> tuple[int, int]:
+    """(query rows, key rows) of a kernel tile.  Fixed by the kernels'
+    register and shared-memory budget on Hopper (4 warps of 16 query rows;
+    80-96 KB of shared memory a CTA at head dim 128, two CTAs an SM), not
+    by the TPU sweep of the JAX package."""
+    del seq_len
+    return FLASH_BLOCK, FLASH_BLOCK
+
+
+def supported(q_shape: tuple, dtype: torch.dtype,
+              kv_heads: Optional[int] = None) -> bool:
+    """Shapes and dtypes the flash kernels take on the card: bf16, head
+    dim 64 or 128, S a positive multiple of the block, and kv heads
+    (default: H) dividing the q heads."""
+    B, S, H, D = q_shape
+    KV = H if kv_heads is None else kv_heads
+    bq, bk = default_blocks(S)
+    return (dtype == torch.bfloat16 and D in FLASH_HEAD_DIMS and S > 0
+            and S % bq == 0 and S % bk == 0 and KV > 0 and H % KV == 0)
+
+
+def _check_qkv(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"want q [B, S, H, D] and k/v [B, S, KV, D]; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, D = q.shape
+    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} in batch, length or head dim")
+    if H % k.shape[2]:
+        raise ValueError(f"kv heads {k.shape[2]} must divide q heads {H}")
+
+
+def _check_flash_kernel_inputs(q, k, v, *others) -> None:
+    """Raise ``ValueError`` for inputs the flash kernels do not take: a
+    shape or dtype outside :func:`supported`, tensors that differ in dtype
+    or device, or a tensor that is not 16-byte aligned (every row is
+    staged as 16-byte copies)."""
+    if not supported(tuple(q.shape), q.dtype, k.shape[2]):
+        raise ValueError(
+            f"flash kernels take bf16, head dim in {FLASH_HEAD_DIMS}, S a "
+            f"multiple of {FLASH_BLOCK} and kv heads dividing q heads; got "
+            f"q {tuple(q.shape)} {q.dtype}, k/v {tuple(k.shape)}")
+    for t in (k, v) + others:
+        if t.dtype != q.dtype:
+            raise ValueError(f"all of q, k, v, o, dO must be {q.dtype}; "
+                             f"got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"a tensor is on {t.device}, q on {q.device}")
+    for t in (q, k, v) + others:
+        if t.data_ptr() % 16:
+            raise ValueError("flash kernel inputs must start 16-byte aligned")
+
+
+def _plain_scores(q, k, v, scale, causal):
+    """q, and k/v repeated up to q's heads, in fp32, with the scaled,
+    masked fp32 scores ``[B, H, S, S]`` of q against k."""
+    _check_qkv(q, k, v)
+    qf = q.float()
+    kf, vf = (t.float() for t in gqa_expand(q, k, v))
+    s = _mask(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale, causal)
+    return qf, kf, vf, s
+
+
+def _plain_ds(q, k, v, do, lse, delta, scale, causal):
+    """What both backward kernels recompute, in fp32: ``p = exp(s - lse)``
+    and ``ds = p * (dO V^T - delta) * scale``, with q, k (repeated up to
+    q's heads) and dO."""
+    qf, kf, vf, s = _plain_scores(q, k, v, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    return qf, kf, dof, p, p * (dp - delta[..., None]) * scale
+
+
+def _group_sum(x: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """Sum ``[B, S, H, D]`` over the ``H / KV`` q heads of each kv group."""
+    B, S, H, D = x.shape
+    return x.reshape(B, S, kv_heads, H // kv_heads, D).sum(dim=3)
+
+
+def flash_forward_reference(q, k, v, scale: float, causal: bool
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``flash_fwd``, in fp32: ``(o [B, S, H, D]`` in q's
+    dtype, ``lse [B, H, S]`` fp32), lse the log-sum-exp of each row of
+    scaled, masked scores."""
+    _, _, vf, s = _plain_scores(q, k, v, scale, causal)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype), lse
+
+
+def flash_backward_dq_reference(q, k, v, do, lse, delta, scale: float,
+                                causal: bool) -> torch.Tensor:
+    """Plain version of ``flash_bwd_dq``, in fp32: p from the scores and
+    ``lse``, ``ds = p * (dO V^T - delta) * scale``, ``dq = ds K``.
+    ``lse`` and ``delta = rowsum(dO * O)`` are fp32 ``[B, H, S]``."""
+    _, kf, _, _, ds = _plain_ds(q, k, v, do, lse, delta, scale, causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype)
+
+
+def flash_backward_dkv_reference(q, k, v, do, lse, delta, scale: float,
+                                 causal: bool
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``flash_bwd_dkv``, in fp32: ``dv = P^T dO`` and
+    ``dk = dS^T Q`` per q head, summed over each kv group's q heads.
+    Returns ``(dk, dv)`` ``[B, S, KV, D]`` in k's and v's dtypes."""
+    qf, _, dof, p, ds = _plain_ds(q, k, v, do, lse, delta, scale, causal)
+    KV = k.shape[2]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return (_group_sum(dk, KV).to(k.dtype), _group_sum(dv, KV).to(v.dtype))
+
+
+def _flash_launch(lib_name: str, fn: str, q, tensors, scale, causal):
+    B, S, H, D = q.shape
+    _launch(lib_name, fn, q.device, *(t.data_ptr() for t in tensors),
+            B, S, H, tensors[1].shape[2], D, float(scale), int(bool(causal)))
+
+
+def _on_card(name: str, q: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    return True
+
+
+def flash_forward(q, k, v, scale: float, causal: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention forward, ``(o, lse)`` as :func:`flash_forward_reference`
+    gives them.  CPU tensors run the plain version; CUDA tensors launch
+    ``flash_fwd`` on the current stream and add one to
+    ``flash_forward.launches``, or raise."""
+    _check_qkv(q, k, v)
+    if not _on_card("flash_forward", q):
+        return flash_forward_reference(q, k, v, scale, causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_flash_kernel_inputs(q, k, v)
+    B, S, H, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    _flash_launch("flash_fwd", "flash_fwd", q, (q, k, v, o, lse), scale,
+                  causal)
+    flash_forward.launches += 1
+    return o, lse
+
+
+def _bwd_inputs(q, k, v, do, lse, delta):
+    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    _check_flash_kernel_inputs(q, k, v, do)
+    B, S, H, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (B, H, S)
+                or not t.is_contiguous() or t.device != q.device
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned "
+                             f"fp32 [B, H, S] on {q.device}; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    return q, k, v, do
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, scale: float, causal: bool
+                      ) -> torch.Tensor:
+    """dQ as :func:`flash_backward_dq_reference` gives it.  CPU tensors run
+    the plain version; CUDA tensors launch ``flash_bwd_dq`` and add one to
+    ``flash_backward_dq.launches``, or raise."""
+    _check_qkv(q, k, v)
+    if not _on_card("flash_backward_dq", q):
+        return flash_backward_dq_reference(q, k, v, do, lse, delta, scale,
+                                           causal)
+    q, k, v, do = _bwd_inputs(q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    _flash_launch("flash_bwd", "flash_bwd_dq", q,
+                  (q, k, v, do, lse, delta, dq), scale, causal)
+    flash_backward_dq.launches += 1
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, scale: float, causal: bool
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) as :func:`flash_backward_dkv_reference` gives them.  CPU
+    tensors run the plain version; CUDA tensors launch ``flash_bwd_dkv``
+    and add one to ``flash_backward_dkv.launches``, or raise."""
+    _check_qkv(q, k, v)
+    if not _on_card("flash_backward_dkv", q):
+        return flash_backward_dkv_reference(q, k, v, do, lse, delta, scale,
+                                            causal)
+    q, k, v, do = _bwd_inputs(q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _flash_launch("flash_bwd", "flash_bwd_dkv", q,
+                  (q, k, v, do, lse, delta, dk, dv), scale, causal)
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+#: kernel launches made through each flash wrapper in this process
+flash_forward.launches = 0
+flash_backward_dq.launches = 0
+flash_backward_dkv.launches = 0
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dO * O)`` in fp32 ``[B, H, S]``, computed outside
+    the kernels as the JAX package does."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with a hand-written backward.  The residuals are
+    ``(q, k, v, o, lse)``, as in the JAX custom VJP; ``plain`` routes CUDA
+    tensors through the plain versions (a test hook, never a fallback)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, plain):
+        fwd = flash_forward_reference if plain else flash_forward
+        o, lse = fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal, ctx.plain = scale, causal, plain
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = flash_delta(o, do)
+        if ctx.plain:
+            dq_fn, dkv_fn = (flash_backward_dq_reference,
+                             flash_backward_dkv_reference)
+        else:
+            dq_fn, dkv_fn = flash_backward_dq, flash_backward_dkv
+        dq = dq_fn(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None, causal: bool = True, *,
+                    plain: bool = False) -> torch.Tensor:
+    """Exact attention, flash-style, differentiable.  q ``[B, S, H, D]``,
+    k/v ``[B, S, KV, D]`` with ``KV`` dividing ``H`` (GQA-native: the
+    kernels route q head ``h`` to kv head ``h // (H / KV)``) → ``[B, S, H,
+    D]``.  ``scale`` defaults to ``1 / sqrt(D)``.
+
+    The forward runs ``flash_fwd`` and the backward ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` on CUDA tensors (a shape or dtype outside
+    :func:`supported` raises), their plain versions on CPU tensors, or,
+    with ``plain=True``, the plain versions on either device."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, float(scale), bool(causal),
+                                 bool(plain))
+
+
+def flash_flops(q_shape: tuple, causal: bool, products: int) -> int:
+    """Tensor-core operations of a flash kernel whose inner loop runs
+    ``products`` S x S x D products per head (2 forward, 3 dQ, 4 dK/dV),
+    2 a multiply-add, counting only the score blocks under the causal
+    diagonal that this shape needs (the kernels skip the rest)."""
+    B, S, H, D = q_shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 2 * products * B * H * pairs * D
 
 
 def gqa_expand(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -165,12 +494,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     the runtime refuses.
     """
     _check(q, k_pool, v_pool, tables, lengths)
-    if q.device.type == "cpu":
+    if not _on_card("paged_attention", q):
         return paged_attention_reference(q, k_pool, v_pool, tables, lengths,
                                          scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cuda or cpu, not "
-                         f"{q.device}")
     _check_kernel_inputs(q, k_pool, v_pool, tables, lengths)
     B, H, Dh = q.shape
     _, BS, KV, _ = k_pool.shape
@@ -178,17 +504,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         scale = 1.0 / math.sqrt(Dh)
     q = q.contiguous()
     out = torch.empty_like(q)
-    lib = _build.load("paged_decode", _SIGNATURES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_decode(
+    _launch("paged_decode", "paged_decode", q.device,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             B, H, KV, Dh, BS, tables.shape[1], float(scale),
-            _DTYPE_CODE[q.dtype], stream)
-    if rc != 0:
-        msg = lib.paged_decode_error_string(rc).decode()
-        raise RuntimeError(f"paged_decode launch failed: {msg} ({rc})")
+            _DTYPE_CODE[q.dtype])
     paged_attention.launches += 1
     return out
 
