@@ -14,12 +14,15 @@ and checks them, phase by phase, printing one JSON line per phase:
    ``flash_bwd``, built from ``csrc/`` (one ``nvcc`` each, all at once)
    and loaded, with the seconds each took;
 3. ``kernel``  each kernel against its plain PyTorch version on the card
-   (fp32, TF32 off), in bf16 at the shapes the main paths give it (and
-   ``paged_decode`` also in fp32 at the tiny model's shape): each output
-   row (one position or request, one head) within a tolerance scaled to
-   that row's largest value, and the kernel's, the plain version's and
-   one library call's time (CUDA events, L2 flushed before every launch)
-   beside the bound the card's memory or tensor-core rate sets;
+   (fp32, TF32 off), in bf16 at the shapes the main paths give it, plus a
+   flash shape whose S is a multiple of 64 but not of 128 (GQA) and one
+   long paged-decode request, where the split over table columns matters
+   most (and ``paged_decode`` also in fp32 at the tiny model's shape):
+   each output row (one position or request, one head) within a tolerance
+   scaled to that row's largest value, and the kernel's, the plain
+   version's and one library call's time (CUDA events around the device's
+   own work, L2 flushed before every launch) beside the bound the card's
+   memory or tensor-core rate sets;
 4. ``serve``   Llama-2-7B at full width (random weights from a seeded
    ``torch.Generator``) served through ``serve()``: 8 requests of 64-512
    prompt tokens and 32 new tokens each.  Every kernel launch counter is
@@ -84,23 +87,10 @@ def nvidia_smi_line() -> str:
 
 
 def time_cold(torch, fn, iters: int = 30, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` on the card, with the 50 MB L2
-    overwritten before each launch so every call finds it cold."""
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    """Median milliseconds of ``fn()`` on the card, L2 flushed before each
+    launch, the device's own work only (``kernel_ab.time_cold``)."""
+    from horovod_tpu_torch.ops import kernel_ab
+    return kernel_ab.time_cold(fn, iters, warmup)
 
 
 def _counters():
@@ -184,7 +174,11 @@ def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
     res = {
         "phase": "kernel", "name": "paged_decode", "shape": label,
         "B": B, "H": H, "KV": KV, "Dh": Dh, "BS": BS, "n_cols": n_cols,
-        "lengths": list(lengths), "dtype": dname, "max_abs_err": err,
+        "lengths": list(lengths), "dtype": dname,
+        "n_splits": FA.paged_splits(
+            B, KV, n_cols, torch.cuda.get_device_properties(0)
+            .multi_processor_count),
+        "max_abs_err": err,
         "worst_row_rel_err": ratio, "row_rel_tol": rel_tol,
     }
     if not timed:
@@ -384,6 +378,10 @@ def phase_kernel(torch) -> dict:
                 D=128, causal=True)
     check_flash(torch, gen, label="full_d64", B=2, S=1024, H=16, KV=16,
                 D=64, causal=False)
+    # S a multiple of 64 but not of 128: a half-full last query and key
+    # tile, and GQA's kv heads as a coordinate of the tensor maps.
+    check_flash(torch, gen, label="ragged_gqa", B=1, S=4160, H=32, KV=8,
+                D=128, causal=True)
     # Ragged lengths 1..2048, partial last pages, rows padded to 128
     # columns at block 0.
     ragged = [1, 17, 300, 777, 1024, 1500, 2000, 2048]
@@ -398,6 +396,16 @@ def phase_kernel(torch) -> dict:
                        Dh=128, BS=16,
                        lengths=[65, 129, 193, 257, 321, 385, 449, 513],
                        n_cols=64)
+    # One long request, where the split over table columns matters most.
+    check_paged_decode(torch, gen, label="long_gqa", B=1, H=32, KV=8,
+                       Dh=128, BS=16, lengths=[4096], n_cols=256)
+    # A batch whose B * KV already fills the card: one split, the output
+    # written by the main kernel itself, no merge.
+    check_paged_decode(torch, gen, label="wide_batch", B=20, H=32, KV=32,
+                       Dh=128, BS=16, lengths=[1, 16, 17, 64, 100, 200, 255,
+                                               256, 300, 400, 480, 512] + [
+                                                   33 * i + 1 for i in range(8)],
+                       n_cols=32, timed=False)
     # fp32 at LlamaConfig.tiny()'s shape (H4 KV2 Dh16, 8-token pages), as
     # the CPU parity tests serve it.
     check_paged_decode(torch, gen, label="tiny_fp32", B=3, H=4, KV=2,

@@ -1,7 +1,11 @@
-// Building blocks shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): bf16 tiles staged in shared memory with 16-byte
-// `cp.async` copies, fragments loaded with `ldmatrix`, and the tensor-core
-// product `mma.sync.m16n8k16` (bf16 operands, fp32 accumulators).
+// Building blocks of the flash-attention kernels: for flash_bwd.cu, bf16
+// tiles staged in shared memory with 16-byte `cp.async` copies, fragments
+// loaded with `ldmatrix`, and the tensor-core product
+// `mma.sync.m16n8k16` (bf16 operands, fp32 accumulators); for both
+// kernels, the constants, the quad reductions over a row of an m16n8 C
+// fragment (which a wgmma accumulator repeats), bf16 packing and the
+// shared-memory limit.  flash_fwd.cu's Hopper helpers (TMA, mbarrier,
+// wgmma) are in hopper_common.cuh.
 //
 // Tiles.  A tile is `rows x D` bf16 values, one row of the [B, S, heads, D]
 // tensor per tile row (D = 64 or 128).  Each row is D / 8 chunks of 16

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a): wgmma on TMA-fed tiles,
+// warp-specialised.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (horovod_tpu/ops/flash_attention.py:85, launched by `_flash_forward`
@@ -9,200 +10,336 @@
 // training shape (B=1, S=4096, H=32, D=128, causal) a launch does two
 // causal S x S x D products over 32 heads, 137 GFLOP, 0.139 ms at the bf16
 // dense peak (989 TFLOP/s), while q, k, v and O are 134 MB, 0.040 ms at
-// 3.35 TB/s.  So the products run on the tensor cores from this first
-// version (mma.sync m16n8k16, bf16 operands, fp32 accumulators) and every
-// K/V block is read from device memory once per CTA, through shared memory.
+// 3.35 TB/s.  On Hopper only `wgmma` reaches that rate, so the design is
+// the one the card is built for:
+// - a CTA of three warpgroups covers 128 query rows of one (b, h): two
+//   consumer warpgroups of 64 rows each, and a producer warpgroup of which
+//   one thread issues every load.  The producer hands its registers to the
+//   consumers (`setmaxnreg`: 24 against 240 a thread);
+// - TMA loads Q once and 128-key K and V tiles into a ring of three
+//   stages (32 KB for Q and 3 x 64 KB for K/V at D = 128: one CTA an SM),
+//   guarded by `mbarrier`s: full (the tile's bytes landed) and empty (every
+//   consumer warp is done with the stage).  The maps are 4-D over (D,
+//   heads, S, B), built on the host per launch, so a tile never crosses a
+//   batch and GQA is a coordinate: q head h reads kv head h / (H / KV).
+//   Rows past S arrive as zeros; a ragged last key tile is masked and rows
+//   past S are not stored;
+// - S = Q K^T is `wgmma.m64n128k16` with both operands in shared memory
+//   (K-major descriptors); O += P V is `wgmma.m64n{D}k16` with P from
+//   registers, rounded to bf16 straight from the S accumulator, and V in
+//   shared memory as the transposed (MN-major) operand: neither P nor a
+//   transposed V ever touches shared memory.  Each K/V tile is read from
+//   shared memory once per 64-row warpgroup, against once per 16-row warp
+//   with mma.sync, and loads never occupy the consumers' issue slots;
+// - the softmax is kept off the tensor cores' critical path twice over
+//   (as FlashAttention-3 does): within a warpgroup, S(it + 1) and
+//   P(it) V(it) are issued together and the softmax of S(it + 1) runs while
+//   they execute; between the two warpgroups, named barriers make them take
+//   turns to issue (ping-pong), so one's softmax overlaps the other's
+//   products.  The softmax takes the row max of the unscaled scores and
+//   computes p = 2^(s * scale - m) with one multiply-add and one
+//   `ex2.approx` each;
+// - causal: the key loop stops at the diagonal tile and masks only it;
+//   CTAs of the last query tiles, which walk the most K/V tiles, are
+//   launched first so the short ones fill the tail;
+// - numerics follow the Pallas kernel: scores in fp32, base-2
+//   exponentials with log2(e) folded into the scale, the mask value -1e30,
+//   p rounded to bf16 before P.V while the row sum l takes the fp32 p, and
+//   lse = m ln 2 + log(max(l, 1e-30)).
 //
-// Design, redesigned for the card rather than carried over block by block:
-// - one CTA of 4 warps per (query block of 64 rows, b * H + h); each warp
-//   owns 16 query rows and keeps their Q fragments, the O accumulator and
-//   the running max and sum in registers.  The TPU kernel's K/V loop
-//   (`fori_loop` over blocks of a VMEM-resident sequence) becomes a loop
-//   over 64-row K/V tiles staged in shared memory, two stages deep: the
-//   next tile's 16-byte `cp.async` copies are in flight while this one is
-//   computed;
-// - causal: the loop stops at the diagonal block, ((qi+1)*BQ-1)//BK + 1,
-//   and only that block is masked (-1e30, as the Pallas kernel); CTAs of
-//   the last query blocks, which walk the most K/V tiles, are launched
-//   first so the short ones fill the tail;
-// - GQA-native: q head h reads kv head h / (H / KV); q, k, v and O are read
-//   in their [B, S, heads, D] layout by strides, with no transposed copy;
-// - numerics follow the Pallas kernel: the fp32 score is scaled, p is
-//   rounded to bf16 before P.V, the row sum l takes the fp32 p, and
-//   lse = m + log(max(l, 1e-30)).  Exponentials run base 2 with log2(e)
-//   folded into the scale.
-//
+// What was tried on the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the
+// same products with both warpgroups in lockstep and a two-stage ring took
+// 0.37 ms at the 7B shape; issuing S(it + 1) early with only two stages
+// was slower (it waited on a load that had just begun); three stages and
+// ping-pong 0.33 ms; the fused multiply-add and `ex2.approx` softmax 0.26.
+
 // Plain C entry point, bound from Python with ctypes: the launch goes on
 // the stream it is handed, allocates nothing and returns the cudaError_t.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int BQ = 64;         // query rows per CTA, 16 per warp
-constexpr int BK = 64;         // key rows per tile
+constexpr int kConsumers = 2;                   // warpgroups of 64 query rows
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int BQ = 64 * kConsumers;             // query rows a CTA
+constexpr int BK = 128;                         // keys a K/V tile
+constexpr int kStages = 3;
+constexpr int kBoxBytes = 128 * 128;            // a 64-column box of 128 rows
+static_assert(BQ == 128 && BK == 128, "Q, K and V tiles share one box shape");
 
-template <int D> constexpr size_t fwd_smem() { return (size_t)(BQ + 4 * BK) * D * sizeof(bf16); }
+// Shared memory: Q, then K stage 0..kStages-1, then V stages, each a tile
+// of D / 64 boxes; then the barriers.  1024 bytes of slack align the base.
+template <int D> struct Layout {
+  static constexpr int kTile = (D / 64) * kBoxBytes;
+  static constexpr int kBar = kTile * (1 + 2 * kStages);
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+// 2^x in one MUFU instruction; results below 2^-126 flush to 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q,  // [B, S, H, D]
-                 const bf16* __restrict__ k,  // [B, S, KV, D]
-                 const bf16* __restrict__ v,  // [B, S, KV, D]
-                 bf16* __restrict__ o,        // [B, S, H, D]
-                 float* __restrict__ lse,     // [B, H, S]
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // [B, S, H, D]
+                 const __grid_constant__ CUtensorMap tm_k,  // [B, S, KV, D]
+                 const __grid_constant__ CUtensorMap tm_v,  // [B, S, KV, D]
+                 bf16* __restrict__ o,                      // [B, S, H, D]
+                 float* __restrict__ lse,                   // [B, H, S]
                  int S, int H, int KV, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* kv_s = q_s + BQ * D;  // stage s: K at 2s, V at 2s + 1
-  constexpr int kTile = BK * D;
+  using L = Layout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* q_full = bar;
+  uint64_t* k_full = bar + 1;
+  uint64_t* v_full = bar + 1 + kStages;
+  uint64_t* empty = bar + 1 + 2 * kStages;
+  unsigned char* q_s = smem;
+  unsigned char* k_s = smem + L::kTile;
+  unsigned char* v_s = smem + L::kTile * (1 + kStages);
 
-  const int n_q = S / BQ;
+  const int n_q = (S + BQ - 1) / BQ;
   const int qi = CAUSAL ? n_q - 1 - blockIdx.x : blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int g = h / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gr = lane >> 2, t4 = lane & 3;
+  const int n_k = (S + BK - 1) / BK;
+  const int n_kv = CAUSAL ? min(qi + 1, n_k) : n_k;
+  const int wg = threadIdx.x / 128;
 
-  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KV * D;
-  const bf16* q_blk = q + ((size_t)b * S + (size_t)qi * BQ) * q_stride + (size_t)h * D;
-  const bf16* k_base = k + (size_t)b * S * kv_stride + (size_t)g * D;
-  const bf16* v_base = v + (size_t)b * S * kv_stride + (size_t)g * D;
-
-  const int n_kv = CAUSAL ? min(((qi + 1) * BQ - 1) / BK + 1, S / BK) : S / BK;
-
-  load_tile<BQ, D, kThreads>(q_s, q_blk, q_stride);
-  load_tile<BK, D, kThreads>(kv_s, k_base, kv_stride);
-  load_tile<BK, D, kThreads>(kv_s + kTile, v_base, kv_stride);
-  cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf;  // running max (base 2) of rows gr, gr + 8
-  float l0 = 0.f, l1 = 0.f;          // this lane's part of the running sums
-  const int row0 = qi * BQ + warp * 16 + gr;
-
-  for (int kb = 0; kb < n_kv; ++kb) {
-    if (kb + 1 < n_kv) {
-      bf16* nxt = kv_s + 2 * ((kb + 1) & 1) * kTile;
-      load_tile<BK, D, kThreads>(nxt, k_base + (size_t)(kb + 1) * BK * kv_stride, kv_stride);
-      load_tile<BK, D, kThreads>(nxt + kTile, v_base + (size_t)(kb + 1) * BK * kv_stride,
-                                 kv_stride);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(empty + s, kConsumers * 4);  // one arrival a consumer warp
     }
-    __syncthreads();
-    if (kb == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) load_a<D>(qf[kk], q_s, warp * 16, kk);
-    }
-    const bf16* k_s = kv_s + 2 * (kb & 1) * kTile;
-    const bf16* v_s = k_s + kTile;
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-    // s = Q K^T for this warp's 16 rows and the tile's 64 keys.
-    float s[BK / 8][4];
+  if (wg == kConsumers) {
+    // Producer: one thread keeps the ring full.
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == kConsumers * 128) {
+      hopper::mbar_expect_tx(q_full, L::kTile);
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int x = 0; x < D / 64; ++x)
+        hopper::tma_load_4d(q_s + x * kBoxBytes, &tm_q, q_full, 64 * x, h, qi * BQ, b);
+      for (int it = 0; it < n_kv; ++it) {
+        const int st = it % kStages;
+        hopper::mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(k_full + st, L::kTile);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+        for (int x = 0; x < D / 64; ++x)
+          hopper::tma_load_4d(k_s + st * L::kTile + x * kBoxBytes, &tm_k, k_full + st, 64 * x,
+                              g, it * BK, b);
+        hopper::mbar_expect_tx(v_full + st, L::kTile);
 #pragma unroll
-      for (int jn = 0; jn < BK / 16; ++jn) {
-        uint32_t bfr[4];
-        load_b_rows_n<D>(bfr, k_s, 16 * jn, kk);
-        mma(s[2 * jn], qf[kk], bfr[0], bfr[1]);
-        mma(s[2 * jn + 1], qf[kk], bfr[2], bfr[3]);
+        for (int x = 0; x < D / 64; ++x)
+          hopper::tma_load_4d(v_s + st * L::kTile + x * kBoxBytes, &tm_v, v_full + st, 64 * x,
+                              g, it * BK, b);
       }
     }
+  } else {
+    // Consumer warpgroup wg: query rows qi * BQ + 64 wg .. + 63.
+    hopper::reg_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int gr = lane >> 2, t4 = lane & 3;
+    const int row0 = qi * BQ + wg * 64 + warp * 16 + gr;  // and row0 + 8
 
-    // Scale (base 2), mask the diagonal block, update the running max.
-    const bool masked = CAUSAL && (kb + 1) * BK - 1 > qi * BQ;
-    float mx0 = m0, mx1 = m1;
+    float oacc[D / 2];
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;  // running max (base 2) of rows row0, row0 + 8
+    float l0 = 0.f, l1 = 0.f;          // this lane's part of the running sums
+
+    // Software pipeline over the key tiles: while the tensor cores run
+    // S(it + 1) = Q K(it + 1)^T and O += P(it) V(it), this warpgroup's
+    // threads take the softmax of S(it + 1).  O is rescaled by tile
+    // it + 1's alpha once P(it) V(it) has landed, just before P(it + 1)
+    // V(it + 1) is issued.
+    float s[BK / 2];
+    uint32_t pa[BK / 16][4];
+    auto issue_s = [&](int it) {
+      const unsigned char* k_t = k_s + (it % kStages) * L::kTile;
+      hopper::mbar_wait(k_full + it % kStages, (it / kStages) & 1);
+      hopper::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale_log2;
-        if (masked) {
-          const int col = kb * BK + 8 * j + 2 * t4 + (e & 1);
-          const int row = row0 + ((e >> 1) << 3);
-          if (col > row) x = kNegInf;
-        }
-        s[j][e] = x;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        hopper::wgmma_m64n128k16_ss(s, hopper::desc_sw128(q_s + wg * 64 * 128 + off, 16, 1024),
+                                    hopper::desc_sw128(k_t + off, 16, 1024), kk > 0);
       }
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float sum0 = 0.f, sum1 = 0.f;
+      hopper::wgmma_commit();
+    };
+    auto issue_pv = [&](int it) {
+      const unsigned char* v_t = v_s + (it % kStages) * L::kTile;
+      hopper::mbar_wait(v_full + it % kStages, (it / kStages) & 1);
+      hopper::reg_fence(oacc);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - m0);
-      s[j][1] = exp2f(s[j][1] - m0);
-      s[j][2] = exp2f(s[j][2] - m1);
-      s[j][3] = exp2f(s[j][3] - m1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv = hopper::desc_sw128(v_t + kk * 16 * 128, kBoxBytes, 1024);
+        if constexpr (D == 128)
+          hopper::wgmma_m64n128k16_rs_tb(oacc, pa[kk], dv, 1);
+        else
+          hopper::wgmma_m64n64k16_rs_tb(oacc, pa[kk], dv, 1);
+      }
+      hopper::wgmma_commit();
+    };
+    // Softmax of S(it) in place: mask the diagonal tile and keys past S,
+    // update the running max (base 2) and sums, leave the fp32 p in s.
+    // Returns the factors that rescale O for rows row0 and row0 + 8.
+    auto softmax = [&](int it, float& alpha0, float& alpha1) {
+      hopper::reg_fence(s);
+      const int key0 = it * BK;
+      if ((CAUSAL && it == qi) || key0 + BK > S) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = key0 + 8 * j + 2 * t4 + (e & 1);
+            const int row = row0 + ((e >> 1) << 3);
+            if (col >= S || (CAUSAL && col > row)) s[4 * j + e] = kNegInf;
+          }
+      }
+      // The max of the unscaled scores (the scale is positive), then
+      // p = 2^(s * scale_log2 - m) in one multiply-add each.
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+      mx1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+      alpha0 = exp2_approx(m0 - mx0);
+      alpha1 = exp2_approx(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        s[4 * j] = exp2_approx(fmaf(s[4 * j], scale_log2, -m0));
+        s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -m0));
+        s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -m1));
+        s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], scale_log2, -m1));
+        sum0 += s[4 * j] + s[4 * j + 1];
+        sum1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+    };
+    // p rounded to bf16: the A fragments of keys 16 kk .. 16 kk + 15.
+    auto to_pa = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    // Each warp releases the stage of tile it once its reads are done.
+    auto release = [&](int it) {
+      if (lane == 0) hopper::mbar_arrive(empty + it % kStages);
+    };
+
+    // Ping-pong: the two consumer warpgroups take turns to issue their
+    // products (named barriers 1 and 2), so one's softmax runs while the
+    // other's products keep the tensor cores busy.
+    const int other = 1 - wg;
+    auto turn_wait = [&]() {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(256) : "memory");
+    };
+    auto turn_pass = [&]() {
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + other), "n"(256) : "memory");
+    };
+    if (wg == 1) asm volatile("bar.arrive %0, %1;\n" ::"r"(1), "n"(256) : "memory");
+
+    hopper::mbar_wait(q_full, 0);
+    float alpha0, alpha1;
+    turn_wait();
+    issue_s(0);
+    turn_pass();
+    hopper::wgmma_wait<0>();
+    softmax(0, alpha0, alpha1);  // O is still 0: no rescale
+    to_pa();
+    for (int it = 0; it + 1 < n_kv; ++it) {
+      turn_wait();
+      issue_s(it + 1);
+      issue_pv(it);             // reads pa until it lands
+      turn_pass();
+      hopper::wgmma_wait<1>();  // S(it + 1) has landed in s
+      softmax(it + 1, alpha0, alpha1);
+      hopper::wgmma_wait<0>();  // P(it) V(it) has landed in oacc
+      hopper::reg_fence(oacc);
+      release(it);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        oacc[4 * j] *= alpha0;
+        oacc[4 * j + 1] *= alpha0;
+        oacc[4 * j + 2] *= alpha1;
+        oacc[4 * j + 3] *= alpha1;
+      }
+      to_pa();
     }
-    l0 = l0 * alpha0 + sum0;
-    l1 = l1 * alpha1 + sum1;
+    turn_wait();
+    issue_pv(n_kv - 1);
+    if (wg == 0) turn_pass();  // warpgroup 1 took the first turn's pass
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(oacc);
+    release(n_kv - 1);
+
+    l0 = fmaxf(quad_sum(l0), 1e-30f);
+    l1 = fmaxf(quad_sum(l1), 1e-30f);
+    const float s0 = 1.f / l0, s1 = 1.f / l1;
+    const size_t q_stride = (size_t)H * D;
+    bf16* o_row = o + ((size_t)b * S + row0) * q_stride + (size_t)h * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha0;
-      acc[j][1] *= alpha0;
-      acc[j][2] *= alpha1;
-      acc[j][3] *= alpha1;
+      const int col = 8 * j + 2 * t4;
+      if (row0 < S)
+        *reinterpret_cast<uint32_t*>(o_row + col) =
+            pack_bf16(oacc[4 * j] * s0, oacc[4 * j + 1] * s0);
+      if (row0 + 8 < S)
+        *reinterpret_cast<uint32_t*>(o_row + 8 * q_stride + col) =
+            pack_bf16(oacc[4 * j + 2] * s1, oacc[4 * j + 3] * s1);
     }
-
-    // acc += P V, p rounded to bf16.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bfr[4];
-        load_b_rows_k<D>(bfr, v_s, kk, 16 * dn);
-        mma(acc[2 * dn], pa, bfr[0], bfr[1]);
-        mma(acc[2 * dn + 1], pa, bfr[2], bfr[3]);
-      }
+    if (t4 == 0) {
+      float* lse_row = lse + (size_t)bh * S;
+      if (row0 < S) lse_row[row0] = m0 * kLn2 + logf(l0);
+      if (row0 + 8 < S) lse_row[row0 + 8] = m1 * kLn2 + logf(l1);
     }
-    __syncthreads();  // every warp is done with this stage before it refills
-  }
-
-  l0 = fmaxf(quad_sum(l0), 1e-30f);
-  l1 = fmaxf(quad_sum(l1), 1e-30f);
-  bf16* o_rows = o + ((size_t)b * S + row0 - gr) * q_stride + (size_t)h * D;
-  store_rows<D>(o_rows, q_stride, acc, 1.f / l0, 1.f / l1);
-  if (t4 == 0) {
-    float* lse_row = lse + (size_t)bh * S;
-    lse_row[row0] = m0 * kLn2 + logf(l0);
-    lse_row[row0 + 8] = m1 * kLn2 + logf(l1);
   }
 }
 
 template <int D, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int S, int H, int KV, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<D, CAUSAL>;
-  const size_t smem = fwd_smem<D>();
-  cudaError_t e = allow_smem(kernel, smem);
+  CUtensorMap mq, mk, mv;
+  cudaError_t e = hopper::make_map(&mq, q, B, S, H, D, BQ);
+  if (e == cudaSuccess) e = hopper::make_map(&mk, k, B, S, KV, D, BK);
+  if (e == cudaSuccess) e = hopper::make_map(&mv, v, B, S, KV, D, BK);
   if (e != cudaSuccess) return e;
-  dim3 grid(S / BQ, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, S, H, KV, scale * kLog2e);
+  auto kernel = flash_fwd_kernel<D, CAUSAL>;
+  const size_t smem = Layout<D>::kBytes;
+  e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + BQ - 1) / BQ, B * H);
+  kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, static_cast<bf16*>(o), lse, S, H, KV,
+                                           scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -215,8 +352,7 @@ extern "C" {
 // KV divides H.  Returns a cudaError_t.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
               int H, int KV, int D, float scale, int causal, void* stream) {
-  if (B <= 0 || S <= 0 || S % BQ != 0 || S % BK != 0 || KV <= 0 || H % KV != 0 ||
-      B * H > 65535)
+  if (B <= 0 || S <= 0 || S % 64 != 0 || KV <= 0 || H % KV != 0 || B * H > 65535)
     return cudaErrorInvalidValue;
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -16,9 +16,12 @@ fallback between the two.
   at training lengths; :func:`flash_flops` counts them.
 - :func:`paged_attention` is the decode-step attention of the serving
   engine over a block-paged KV pool (``csrc/paged_decode.cu``, replacing
-  ``_paged_decode_kernel``).  It is memory-bound: a launch reads
-  ``sum_b ceil(len_b / BS) * BS * KV * Dh`` elements of K and as many of V,
-  once each; :func:`paged_bytes` counts them.
+  ``_paged_decode_kernel``), split over table columns across CTAs
+  (:func:`paged_splits`) and merged by log-sum-exp
+  (:func:`paged_attention_split_reference` is the algorithm in plain
+  PyTorch).  It is memory-bound: a launch reads ``sum_b ceil(len_b / BS) *
+  BS * KV * Dh`` elements of K and as many of V, once each;
+  :func:`paged_bytes` counts them.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ _ERR = (ctypes.c_char_p, [_I])
 # tensors, then B, S, H, KV, D, scale and causal.
 _SIGNATURES = {
     "paged_decode": {
-        "paged_decode": (_I, [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+        "paged_decode": (_I, [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
         "paged_decode_error_string": _ERR,
     },
     "flash_fwd": {
@@ -76,8 +79,9 @@ def _launch(lib_name: str, fn: str, device: torch.device, *args) -> None:
 
 #: Head dims the flash kernels are compiled for.
 FLASH_HEAD_DIMS = (64, 128)
-#: Rows of the query and key tiles of ``flash_fwd`` and ``flash_bwd_dq``,
-#: and the key tile of ``flash_bwd_dkv``; S must be a multiple of it.
+#: Rows of the query and key tiles of ``flash_bwd_dq`` and the key tile of
+#: ``flash_bwd_dkv``; S must be a multiple of it.  ``flash_fwd`` works on
+#: 128-row tiles and masks a half-full last one.
 FLASH_BLOCK = 64
 
 
@@ -103,10 +107,11 @@ def _mask(s: torch.Tensor, causal: bool) -> torch.Tensor:
 
 
 def default_blocks(seq_len: int) -> tuple[int, int]:
-    """(query rows, key rows) of a kernel tile.  Fixed by the kernels'
-    register and shared-memory budget on Hopper (4 warps of 16 query rows;
-    80-96 KB of shared memory a CTA at head dim 128, two CTAs an SM), not
-    by the TPU sweep of the JAX package."""
+    """(query rows, key rows) that S must be a multiple of: the tile of the
+    backward kernels (4 warps of 16 query rows, two CTAs an SM on Hopper).
+    ``flash_fwd`` covers 128 query rows and 128-key tiles a CTA and masks
+    the half-full last tile of such an S.  Fixed by the kernels' register
+    and shared-memory budget, not by the TPU sweep of the JAX package."""
     del seq_len
     return FLASH_BLOCK, FLASH_BLOCK
 
@@ -472,6 +477,99 @@ def paged_attention_reference(q, k_pool, v_pool, tables, lengths,
     return o.reshape(B, H, Dh).to(q.dtype)
 
 
+def paged_split_partials(q, k_pool, v_pool, tables, lengths, n_splits: int,
+                         scale: Optional[float] = None
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What each split of the kernel writes to scratch, in plain PyTorch:
+    split ``s`` covers table columns ``[s * cps, min((s + 1) * cps,
+    n_live))``, ``cps = ceil(n_cols / n_splits)``, and gives its max score
+    ``m``, its sum ``l = sum exp(score - m)`` and its unnormalised ``acc =
+    p . V`` with p rounded to q's dtype first.  A split with no live
+    column gives ``m = -1e30``, ``l = 0``, ``acc = 0``.  Returns ``(acc [B,
+    H, n_splits, Dh], m [B, H, n_splits], l [B, H, n_splits])`` in fp32."""
+    _check(q, k_pool, v_pool, tables, lengths)
+    B, H, Dh = q.shape
+    _, BS, KV, _ = k_pool.shape
+    n_cols = tables.shape[1]
+    if not 1 <= n_splits <= n_cols:
+        raise ValueError(f"n_splits must be in [1, {n_cols}]; got {n_splits}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dh)
+    T = n_cols * BS
+    idx = tables.long()
+    keys = k_pool[idx].reshape(B, T, KV, Dh).float()
+    vals = v_pool[idx].reshape(B, T, KV, Dh).float()
+    qg = q.float().reshape(B, KV, H // KV, Dh)
+    s = torch.einsum("bgrd,btgd->bgrt", qg, keys) * scale
+    lens = lengths.to(q.device).long().clamp_min(0)
+    n_live = ((lens + BS - 1) // BS).clamp_max(n_cols)
+    end = torch.minimum(lens, n_live * BS)                        # [B]
+    pos = torch.arange(T, device=q.device)
+    cps = -(-n_cols // n_splits)
+    accs, ms, ls = [], [], []
+    for sp in range(n_splits):
+        live = ((pos[None, :] >= sp * cps * BS)
+                & (pos[None, :] < torch.minimum(end, torch.tensor(
+                    (sp + 1) * cps * BS, device=q.device))[:, None]))
+        live = live[:, None, None, :]                              # [B,1,1,T]
+        m = torch.where(live, s, _NEG_INF).amax(dim=-1)
+        p = torch.where(live, torch.exp(s - m[..., None]), 0.0)
+        accs.append(torch.einsum("bgrt,btgd->bgrd",
+                                 p.to(q.dtype).float(), vals))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+    return (torch.stack(accs, dim=3).reshape(B, H, n_splits, Dh),
+            torch.stack(ms, dim=-1).reshape(B, H, n_splits),
+            torch.stack(ls, dim=-1).reshape(B, H, n_splits))
+
+
+def paged_attention_split_reference(q, k_pool, v_pool, tables, lengths,
+                                    n_splits: int,
+                                    scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """The kernel's split-and-merge algorithm in plain PyTorch: the
+    partials of :func:`paged_split_partials` merged by log-sum-exp, ``M =
+    max_s m_s``, ``L = sum_s l_s e^(m_s - M)``, ``O = sum_s acc_s e^(m_s -
+    M) / max(L, 1e-30)``.  Returns ``[B, H, Dh]`` in q's dtype."""
+    acc, m, l = paged_split_partials(q, k_pool, v_pool, tables, lengths,
+                                     n_splits, scale)
+    M = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - M)
+    L = (l * w).sum(dim=-1, keepdim=True)
+    o = (acc * w[..., None]).sum(dim=2) / L.clamp_min(1e-30)
+    return o.to(q.dtype)
+
+
+#: CTAs a launch of the paged decode kernel aims for on each SM, through
+#: its split over table columns (see :func:`paged_splits`).  4 against 2
+#: on an H100: faster at GQA, at the serve shape and with uniform long
+#: rows, a little slower at the 7B decode shape (PERF.md).
+PAGED_CTAS_PER_SM = 4
+
+
+def paged_splits(B: int, KV: int, n_cols: int, sm_count: int) -> int:
+    """How many splits of the table columns the paged decode kernel
+    launches: enough that ``B * KV * splits`` reaches
+    ``PAGED_CTAS_PER_SM * sm_count`` CTAs, never more than ``n_cols`` (one
+    page a split at least), and 1 when ``B * KV`` already fills the card.
+    Decided from shapes alone, never from the lengths, which live on the
+    card."""
+    want = -(-PAGED_CTAS_PER_SM * sm_count // max(1, B * KV))
+    return max(1, min(n_cols, want))
+
+
+_SM_COUNT: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, looked up once."""
+    n = _SM_COUNT.get(device)
+    if n is None:
+        n = _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, tables: torch.Tensor,
                     lengths: torch.Tensor, *,
@@ -503,11 +601,22 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
     q = q.contiguous()
+    if q.data_ptr() % 16:          # q's rows are read as 16-byte chunks
+        q = q.clone()
     out = torch.empty_like(q)
+    n_cols = tables.shape[1]
+    n_splits = paged_splits(B, KV, n_cols, _sm_count(q.device))
+    parts = [None] * 3
+    if n_splits > 1:               # per-split acc [B, H, n_splits, Dh], m, l
+        rows = B * H * n_splits
+        scratch = torch.empty(rows * (Dh + 2), dtype=torch.float32,
+                              device=q.device)
+        base = scratch.data_ptr()
+        parts = [base, base + 4 * rows * Dh, base + 4 * rows * (Dh + 1)]
     _launch("paged_decode", "paged_decode", q.device,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, H, KV, Dh, BS, tables.shape[1], float(scale),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *parts,
+            B, H, KV, Dh, BS, n_cols, n_splits, float(scale),
             _DTYPE_CODE[q.dtype])
     paged_attention.launches += 1
     return out

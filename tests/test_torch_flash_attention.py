@@ -28,30 +28,41 @@ B, S, H, D = 2, 256, 4, 64
 SCALE = 1.0 / np.sqrt(D)
 
 
-def _qkv(seed, kv):
+def _qkv(seed, kv, s=S):
     rng = np.random.RandomState(seed)
-    q = rng.randn(B, S, H, D).astype(np.float32)
-    k = rng.randn(B, S, kv, D).astype(np.float32)
-    v = rng.randn(B, S, kv, D).astype(np.float32)
-    do = rng.randn(B, S, H, D).astype(np.float32)
+    q = rng.randn(B, s, H, D).astype(np.float32)
+    k = rng.randn(B, s, kv, D).astype(np.float32)
+    v = rng.randn(B, s, kv, D).astype(np.float32)
+    do = rng.randn(B, s, H, D).astype(np.float32)
     return q, k, v, do
 
 
-def _jax_fwd(q, k, v, causal):
+def _jax_fwd(q, k, v, causal, block=128):
+    s = q.shape[1]
     o, lse = JFA._flash_forward(*map(jnp.asarray, (q, k, v)), scale=SCALE,
-                                causal=causal, block_q=128, block_k=128,
+                                causal=causal, block_q=block, block_k=block,
                                 interpret=True)
-    return np.array(o), np.array(lse).reshape(B, H, S)
+    return np.array(o), np.array(lse).reshape(B, H, s)
 
 
-@pytest.mark.parametrize("kv,causal", [(4, True), (4, False), (2, True),
-                                       (2, False)])
-def test_forward_reference_matches_pallas(kv, causal):
-    q, k, v, _ = _qkv(0, kv)
-    jo, jlse = _jax_fwd(q, k, v, causal)
+# S = 192 is a multiple of 64 but not of 128: `supported` takes it, and
+# flash_fwd's 128-row tiles then end half full (the JAX side runs it at
+# 64-row blocks).
+@pytest.mark.parametrize("kv,causal,s", [
+    pytest.param(4, True, S, id="4-True"),
+    pytest.param(4, False, S, id="4-False"),
+    pytest.param(2, True, S, id="2-True"),
+    pytest.param(2, False, S, id="2-False"),
+    pytest.param(2, True, 192, id="2-True-S192"),
+    pytest.param(4, False, 192, id="4-False-S192"),
+])
+def test_forward_reference_matches_pallas(kv, causal, s):
+    q, k, v, _ = _qkv(0, kv, s)
+    jo, jlse = _jax_fwd(q, k, v, causal, block=128 if s % 128 == 0 else 64)
+    assert FA.supported((B, s, H, D), torch.bfloat16, kv)
     to, tlse = FA.flash_forward(*map(torch.from_numpy, (q, k, v)), SCALE,
                                 causal)
-    assert tlse.dtype == torch.float32 and tuple(tlse.shape) == (B, H, S)
+    assert tlse.dtype == torch.float32 and tuple(tlse.shape) == (B, H, s)
     np.testing.assert_allclose(to.numpy(), jo, rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(tlse.numpy(), jlse, rtol=1e-5, atol=1e-5)
 
@@ -210,3 +221,45 @@ def test_kernel_sources_export_bound_symbols():
         assert '#include "flash_common.cuh"' in src, lib
     common = (_build.SRC_DIR / "flash_common.cuh").read_text()
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in common
+
+
+def test_forward_source_is_a_hopper_kernel():
+    """flash_fwd is built from wgmma products on TMA-loaded tiles, with its
+    tensor maps passed as __grid_constant__ kernel parameters, and
+    warp-specialised (a producer warpgroup hands its registers to the
+    consumers)."""
+    fwd = (_build.SRC_DIR / "flash_fwd.cu").read_text()
+    hop = (_build.SRC_DIR / "hopper_common.cuh").read_text()
+    both = fwd + hop
+    assert '#include "hopper_common.cuh"' in fwd
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                   "mbarrier.try_wait", "setmaxnreg",
+                   "cuTensorMapEncodeTiled"):
+        assert needle in both, needle
+    assert len(re.findall(r"__grid_constant__\s+CUtensorMap", fwd)) == 3
+    assert "mma.sync.aligned" not in fwd
+
+
+def test_build_hash_covers_the_hopper_header(tmp_path, monkeypatch):
+    """Editing csrc/hopper_common.cuh rebuilds flash_fwd: the library's
+    name carries a hash of every csrc/*.cuh."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in _build.SRC_DIR.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (src / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setenv("HOROVOD_TPU_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    before = _build._target("flash_fwd")[1]
+    hdr = src / "hopper_common.cuh"
+    hdr.write_text(hdr.read_text() + "\n// edited\n")
+    assert _build._target("flash_fwd")[1] != before
+
+
+def test_kernel_ab_needs_a_card(monkeypatch, capsys):
+    """The A/B tool builds and times kernels only on the card: without one
+    it exits 2 and prints no result."""
+    from horovod_tpu_torch.ops import kernel_ab
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_ab.main(["flash_fwd", "x.cu"]) == 2
+    assert capsys.readouterr().out == ""

@@ -9,6 +9,7 @@ card; ``chip_smoke.py`` holds it against the plain version there.
 
 from __future__ import annotations
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -188,3 +189,144 @@ def test_build_target_tracks_source_and_flags(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         _build._target("no_such_kernel")
     assert Path(_build.SRC_DIR).name == "csrc"
+
+
+# ---------------------------------------------------------------------------
+# The kernel's split over table columns, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+# Rows of 1, 9 and 50 tokens in 8-token pages: 1, 2 and 7 live columns of 8.
+# With 7 splits (2 columns each) the first row's splits 1-6 and the second
+# row's splits 1-6 hold no live column, and both rows have fewer live
+# columns than splits.
+_SPLIT_LENGTHS = [1, 9, 50]
+
+
+def _split_case(rep, dtype):
+    KV, Dh, BS = 2, 16, 8
+    q, kp, vp, tables, lens = _case(11 + rep, 3, KV * rep, KV, Dh, 24, BS, 8,
+                                    _SPLIT_LENGTHS)
+    return q, kp, vp, tables, lens, (
+        torch.from_numpy(q).to(dtype), torch.from_numpy(kp).to(dtype),
+        torch.from_numpy(vp).to(dtype), torch.from_numpy(tables),
+        torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("n_splits", [1, 2, 3, 7])
+def test_split_reference_matches_reference_and_pallas(n_splits, rep, dtype):
+    """Each split's (acc, m, l) over its columns, merged by log-sum-exp,
+    equals the unsplit plain version and the Pallas kernel.  fp32: 1e-5
+    (sums in another order).  bf16: the split version rounds p to bf16
+    before P.V, as the kernel and the Pallas kernel do, against its own
+    split's max; the unsplit plain version keeps p in fp32, so the two
+    differ by bf16 roundings of values of order 1 (atol 2e-2, as
+    ``test_paged_attention_bf16_cpu_rounds_once``)."""
+    q, kp, vp, tables, lens, args = _split_case(rep, dtype)
+    out = FA.paged_attention_split_reference(*args, n_splits)
+    ref = FA.paged_attention_reference(*args)
+    assert out.dtype == dtype and out.shape == ref.shape
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=0, atol=2e-2)
+    np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                               **tol)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jout = np.asarray(JFA.paged_attention(
+        jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+        jnp.asarray(tables), jnp.asarray(lens), interpret=True
+    ).astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), jout, **tol)
+
+
+@pytest.mark.parametrize("n_splits", [2, 7])
+def test_split_partials_of_empty_splits(n_splits):
+    """A split that holds no live column gives m = -1e30, l = 0, acc = 0;
+    the others hold the row's live tokens between them."""
+    *_, args = _split_case(1, torch.float32)
+    acc, m, l = FA.paged_split_partials(*args, n_splits)
+    B, H, Dh = args[0].shape
+    assert acc.shape == (B, H, n_splits, Dh) and m.shape == l.shape == \
+        (B, H, n_splits)
+    cps = -(-8 // n_splits)
+    for b, n in enumerate(_SPLIT_LENGTHS):
+        live_cols = -(-n // 8)
+        for s in range(n_splits):
+            if s * cps >= live_cols:
+                assert (m[b, :, s] == -1e30).all() and (l[b, :, s] == 0).all()
+                assert (acc[b, :, s] == 0).all()
+            else:
+                assert (l[b, :, s] >= 1).all()  # exp(max - max) = 1
+
+
+def test_split_reference_of_one_token_rows_is_v():
+    """A row of length 1 attends to its first token alone: the output is
+    that token's V for every split count."""
+    *_, args = _split_case(4, torch.float32)
+    q, kp, vp, tables, lens = args
+    first_v = vp[tables[0, 0].long(), 0]                  # [KV, Dh]
+    for n_splits in (1, 2, 7):
+        out = FA.paged_attention_split_reference(*args, n_splits)[0]
+        np.testing.assert_allclose(
+            out.numpy(), first_v.repeat_interleave(4, dim=0).numpy(),
+            rtol=1e-6, atol=1e-6)
+
+
+def test_split_reference_rejects_bad_split_counts():
+    *_, args = _split_case(1, torch.float32)
+    for n in (0, 9):
+        with pytest.raises(ValueError, match="n_splits"):
+            FA.paged_split_partials(*args, n)
+
+
+@pytest.mark.parametrize("B,KV,n_cols,sm", [
+    (8, 32, 128, 132), (8, 8, 128, 132), (1, 8, 256, 132), (8, 32, 64, 132),
+    (1, 1, 3, 132), (2, 4, 1, 132), (40, 8, 64, 132), (64, 8, 128, 132),
+    (3, 2, 1000, 114),
+])
+def test_paged_splits_policy(B, KV, n_cols, sm):
+    """At least 1 split and at most n_cols (a page a split at least); the
+    grid reaches about 2 CTAs an SM where the columns allow; 1 split when
+    B * KV already fills the card."""
+    n = FA.paged_splits(B, KV, n_cols, sm)
+    assert 1 <= n <= n_cols
+    target = FA.PAGED_CTAS_PER_SM * sm
+    if B * KV >= target:
+        assert n == 1
+    elif n < n_cols:
+        assert B * KV * n >= target
+        assert B * KV * (n - 1) < target       # no more splits than needed
+    assert FA.PAGED_CTAS_PER_SM >= 2
+
+
+def _c_params(src: str, fn: str) -> list:
+    """ctypes types of the parameters of C function ``fn`` in ``src``'s
+    extern "C" block: pointers, ints and floats."""
+    block = src[src.index('extern "C"'):]
+    m = re.search(rf"\b{fn}\s*\(([^)]*)\)", block)
+    kinds = []
+    for p in m.group(1).split(","):
+        p = " ".join(p.split())
+        if "*" in p:
+            kinds.append(ctypes.c_void_p)
+        elif p.startswith("int "):
+            kinds.append(ctypes.c_int)
+        elif p.startswith("float "):
+            kinds.append(ctypes.c_float)
+        else:
+            raise AssertionError(f"{fn}: unexpected parameter {p!r}")
+    return kinds
+
+
+@pytest.mark.parametrize("lib", ["paged_decode", "flash_fwd", "flash_bwd"])
+def test_c_entry_points_match_signatures(lib):
+    """Every C entry point's parameters (pointers, ints, floats, in order)
+    are the ctypes argtypes the wrapper binds: a scratch pointer or a size
+    added on one side only would shift every later argument."""
+    src = (_build.SRC_DIR / f"{lib}.cu").read_text()
+    for fn, (restype, argtypes) in FA._SIGNATURES[lib].items():
+        if fn.endswith("_error_string"):
+            continue
+        assert restype is ctypes.c_int
+        assert _c_params(src, fn) == list(argtypes), fn
+
