@@ -17,12 +17,15 @@ and checks them, phase by phase, printing one JSON line per phase:
    (fp32, TF32 off), in bf16 at the shapes the main paths give it, plus a
    flash shape whose S is a multiple of 64 but not of 128 (GQA) and one
    long paged-decode request, where the split over table columns matters
-   most (and ``paged_decode`` also in fp32 at the tiny model's shape):
+   most, and one split of more than 4096 columns, whose table stays in
+   device memory (and ``paged_decode`` also in fp32 at the tiny model's
+   shape):
    each output row (one position or request, one head) within a tolerance
    scaled to that row's largest value, and the kernel's, the plain
    version's and one library call's time (CUDA events around the device's
    own work, L2 flushed before every launch) beside the bound the card's
-   memory or tensor-core rate sets;
+   memory or tensor-core rate sets; at the serve shape also the host time
+   of one ``paged_attention`` call;
 4. ``serve``   Llama-2-7B at full width (random weights from a seeded
    ``torch.Generator``) served through ``serve()``: 8 requests of 64-512
    prompt tokens and 32 new tokens each.  Every kernel launch counter is
@@ -44,9 +47,11 @@ and checks them, phase by phase, printing one JSON line per phase:
 
 Then a ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
-before the last line; without a CUDA device the script exits 2.
-``--phases`` runs a subset (``device,build,kernel,serve,train,
-train_parity``).
+before the last line; without a CUDA device, or without the port's
+package beside the script, it exits 2.  ``--phases`` runs a subset
+(``device,build,kernel,serve,train,train_parity``); ``--root DIR`` drives
+the package of another checkout (an unpacked parent commit, say) with
+this script's shapes, checks and timers.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Published H100 SXM rates (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -87,10 +93,42 @@ def nvidia_smi_line() -> str:
 
 
 def time_cold(torch, fn, iters: int = 30, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` on the card, L2 flushed before each
-    launch, the device's own work only (``kernel_ab.time_cold``)."""
-    from horovod_tpu_torch.ops import kernel_ab
-    return kernel_ab.time_cold(fn, iters, warmup)
+    """Median milliseconds of ``fn()`` on the card, with the 50 MB L2
+    overwritten before each launch so every call finds it cold.  A spin of
+    the device (``torch.cuda._sleep``, about 0.25 ms) precedes the start
+    event, so the host's work to launch ``fn`` overlaps it and the events
+    time the device's work alone, not a gap waiting for the launch; the
+    host's share is :func:`host_us`."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(500_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host microseconds of one ``fn()``, the best of five runs of
+    ``calls``, with the device kept busy so that launches only enqueue."""
+    best = math.inf
+    for _ in range(5):
+        torch.cuda._sleep(50_000_000)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return best
 
 
 def _counters():
@@ -146,10 +184,11 @@ ROW_REL_TOL = {"bfloat16": 2.0 ** -5, "float32": 2.0 ** -14}
 
 
 def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
-                       n_cols, dtype=None, timed=True):
+                       n_cols, dtype=None, timed=True, host=False):
     """Kernel vs plain version at one shape: every output row within
     ``ROW_REL_TOL`` of its own largest value; then, if ``timed``, the
-    kernel, the plain version and the library yardstick timed."""
+    kernel, the plain version and the library yardstick timed, and if
+    ``host``, the host time of one wrapper call."""
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as FA
 
@@ -175,9 +214,10 @@ def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
         "phase": "kernel", "name": "paged_decode", "shape": label,
         "B": B, "H": H, "KV": KV, "Dh": Dh, "BS": BS, "n_cols": n_cols,
         "lengths": list(lengths), "dtype": dname,
+        # (a tree from before the split over table columns has none)
         "n_splits": FA.paged_splits(
             B, KV, n_cols, torch.cuda.get_device_properties(0)
-            .multi_processor_count),
+            .multi_processor_count) if hasattr(FA, "paged_splits") else 1,
         "max_abs_err": err,
         "worst_row_rel_err": ratio, "row_rel_tol": rel_tol,
     }
@@ -205,6 +245,9 @@ def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
         q, kp, vp, tables, lens))
     library_ms = time_cold(torch, lambda: F.scaled_dot_product_attention(
         q4, kg, vg, attn_mask=mask))
+    if host:
+        res["host_us_per_call"] = host_us(
+            torch, lambda: FA.paged_attention(q, kp, vp, tables, lens))
 
     # Least time for the same work: each input read once (q, the live
     # K/V pages, tables, lengths), the output written once; operations
@@ -395,7 +438,7 @@ def phase_kernel(torch) -> dict:
     check_paged_decode(torch, gen, label="serve_decode", B=8, H=32, KV=32,
                        Dh=128, BS=16,
                        lengths=[65, 129, 193, 257, 321, 385, 449, 513],
-                       n_cols=64)
+                       n_cols=64, host=True)
     # One long request, where the split over table columns matters most.
     check_paged_decode(torch, gen, label="long_gqa", B=1, H=32, KV=8,
                        Dh=128, BS=16, lengths=[4096], n_cols=256)
@@ -406,6 +449,14 @@ def phase_kernel(torch) -> dict:
                                                256, 300, 400, 480, 512] + [
                                                    33 * i + 1 for i in range(8)],
                        n_cols=32, timed=False)
+    # One split of more than 4096 table columns: too many to keep in
+    # shared memory, so every row reads its table from device memory, the
+    # short rows as well as the one past 4096 live columns.
+    check_paged_decode(torch, gen, label="long_table", B=17, H=32, KV=32,
+                       Dh=64, BS=8, lengths=[1, 9, 200, 777, 2048, 4096,
+                                             32800] + [100 * i + 3
+                                                       for i in range(10)],
+                       n_cols=4104, timed=False)
     # fp32 at LlamaConfig.tiny()'s shape (H4 KV2 Dh16, 8-token pages), as
     # the CPU parity tests serve it.
     check_paged_decode(torch, gen, label="tiny_fp32", B=3, H=4, KV=2,
@@ -781,12 +832,33 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--root", default=None,
+                    help="drive the horovod_tpu_torch package of the checkout "
+                    "at this directory (default: this script's own), to time "
+                    "two trees with one script in one call")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
+    # The checkout's own package, never an installed one: without it (the
+    # script alone in a directory) there is nothing to drive.
+    root = Path(args.root or __file__).resolve()
+    if not args.root:
+        root = root.parent
+    sys.path.insert(0, str(root))
+    try:
+        import horovod_tpu_torch
+    except ImportError as e:
+        print(f"chip_smoke: no horovod_tpu_torch under {root}: {e}",
+              file=sys.stderr)
+        return 2
+    if Path(horovod_tpu_torch.__file__).resolve().parent.parent != root:
+        print(f"chip_smoke: horovod_tpu_torch comes from "
+              f"{horovod_tpu_torch.__file__}, not from {root}",
+              file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)

@@ -226,9 +226,11 @@ paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
 
   uint4* stage = reinterpret_cast<uint4*>(smem);
   const size_t stage_chunks = (size_t)TT * C;  // of K, and as many of V
-  // The split's table columns, in shared memory when they fit.
+  // The split's table columns, in shared memory when a split's share fits:
+  // the host's own test (launch_cfg reserves the room only then), never
+  // this request's live columns.
   const int* tbl = tables + (size_t)b * n_cols + c0;
-  if (c1 - c0 <= kTableSmem) {
+  if (cps <= kTableSmem) {
     int* tbl_s = reinterpret_cast<int*>(stage + 2 * kStages * stage_chunks);
     for (int j = tid; j < c1 - c0; j += kThreads) tbl_s[j] = tbl[j];
     tbl = tbl_s;

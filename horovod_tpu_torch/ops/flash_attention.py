@@ -27,6 +27,7 @@ fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -62,12 +63,15 @@ _SIGNATURES = {
 }
 
 
-def _launch(lib_name: str, fn: str, device: torch.device, *args) -> None:
-    """Call ``fn`` of a kernel library with ``args`` and the current stream
-    of ``device``; raise if the runtime refuses the launch."""
+def _launch(lib_name: str, fn: str, device: torch.device, *args,
+            stream: Optional[int] = None) -> None:
+    """Call ``fn`` of a kernel library with ``args`` and ``stream`` (the
+    current stream of ``device`` if not given); raise if the runtime
+    refuses the launch."""
     lib = _build.load(lib_name, _SIGNATURES[lib_name])
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        if stream is None:
+            stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
     if rc != 0:
         msg = getattr(lib, f"{lib_name}_error_string")(rc).decode()
@@ -558,16 +562,32 @@ def paged_splits(B: int, KV: int, n_cols: int, sm_count: int) -> int:
     return max(1, min(n_cols, want))
 
 
-_SM_COUNT: dict = {}
+@functools.lru_cache(maxsize=256)
+def _paged_plan(device: torch.device, B: int, H: int, Dh: int, KV: int,
+                n_cols: int) -> tuple[int, int]:
+    """A launch's split count and the fp32 scratch it needs (0 for one
+    split: the main kernel then writes the output itself), decided once
+    per shape and device."""
+    sm = torch.cuda.get_device_properties(device).multi_processor_count
+    n_splits = paged_splits(B, KV, n_cols, sm)
+    return n_splits, (B * H * n_splits * (Dh + 2) if n_splits > 1 else 0)
 
 
-def _sm_count(device: torch.device) -> int:
-    """The SM count of a CUDA device, looked up once."""
-    n = _SM_COUNT.get(device)
-    if n is None:
-        n = _SM_COUNT[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return n
+# Per-split scratch of paged_attention: one fp32 buffer for each (device,
+# stream), grown when a launch needs more, so a decode tick allocates
+# nothing.  Launches on one stream run in order and may share it; a buffer
+# that is outgrown goes back to the caching allocator, which reuses it on
+# the same stream only after the work queued there.
+_PAGED_SCRATCH: dict = {}
+
+
+def _paged_scratch(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` fp32 values of scratch for launches on ``stream``."""
+    buf = _PAGED_SCRATCH.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = _PAGED_SCRATCH[device, stream] = torch.empty(
+            n, dtype=torch.float32, device=device)
+    return buf
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -605,19 +625,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         q = q.clone()
     out = torch.empty_like(q)
     n_cols = tables.shape[1]
-    n_splits = paged_splits(B, KV, n_cols, _sm_count(q.device))
+    n_splits, n_scratch = _paged_plan(q.device, B, H, Dh, KV, n_cols)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     parts = [None] * 3
     if n_splits > 1:               # per-split acc [B, H, n_splits, Dh], m, l
         rows = B * H * n_splits
-        scratch = torch.empty(rows * (Dh + 2), dtype=torch.float32,
-                              device=q.device)
-        base = scratch.data_ptr()
+        base = _paged_scratch(q.device, stream, n_scratch).data_ptr()
         parts = [base, base + 4 * rows * Dh, base + 4 * rows * (Dh + 1)]
     _launch("paged_decode", "paged_decode", q.device,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *parts,
             B, H, KV, Dh, BS, n_cols, n_splits, float(scale),
-            _DTYPE_CODE[q.dtype])
+            _DTYPE_CODE[q.dtype], stream=stream)
     paged_attention.launches += 1
     return out
 

@@ -13,6 +13,7 @@ versions there.  Tolerances are those of ``tests/test_flash_attention.py``:
 from __future__ import annotations
 
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -256,10 +257,34 @@ def test_build_hash_covers_the_hopper_header(tmp_path, monkeypatch):
     assert _build._target("flash_fwd")[1] != before
 
 
-def test_kernel_ab_needs_a_card(monkeypatch, capsys):
-    """The A/B tool builds and times kernels only on the card: without one
-    it exits 2 and prints no result."""
-    from horovod_tpu_torch.ops import kernel_ab
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_needs_a_card(monkeypatch, capsys):
+    """chip_smoke.py runs only on the card: without one it exits 2 and
+    prints no result."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert kernel_ab.main(["flash_fwd", "x.cu"]) == 2
+    assert _chip_smoke().main(["--phases", "device"]) == 2
     assert capsys.readouterr().out == ""
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """chip_smoke.py in a directory without the port's package exits
+    non-zero and prints no result: it drives the checkout's own package,
+    never an installed one."""
+    import shutil
+    import subprocess
+    import sys
+    shutil.copy(Path(__file__).resolve().parent.parent / "chip_smoke.py",
+                tmp_path)
+    p = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120,
+                       env={"PATH": "/usr/bin:/bin", "PYTHONPATH": ""})
+    assert p.returncode != 0
+    assert p.stdout == ""

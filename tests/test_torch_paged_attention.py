@@ -330,3 +330,31 @@ def test_c_entry_points_match_signatures(lib):
         assert restype is ctypes.c_int
         assert _c_params(src, fn) == list(argtypes), fn
 
+
+
+def test_paged_scratch_is_reused_and_grown():
+    """One scratch buffer for each (device, stream): a launch that needs no
+    more than the buffer holds reuses it (no allocation in a decode tick),
+    one that needs more replaces it, and another stream gets its own."""
+    dev = torch.device("cpu")
+    FA._PAGED_SCRATCH.clear()
+    try:
+        a = FA._paged_scratch(dev, 1, 100)
+        assert a.dtype == torch.float32 and a.numel() == 100
+        assert FA._paged_scratch(dev, 1, 60) is a
+        b = FA._paged_scratch(dev, 1, 200)
+        assert b.numel() == 200 and FA._paged_scratch(dev, 1, 100) is b
+        assert FA._paged_scratch(dev, 2, 10) is not b
+    finally:
+        FA._PAGED_SCRATCH.clear()
+
+
+def test_kernel_keeps_the_table_in_smem_only_where_the_host_made_room():
+    """The kernel copies a split's table columns to shared memory under the
+    same test on which the host reserves the room, ``cps <= kTableSmem``,
+    never on a request's own live columns: with one split of more than
+    kTableSmem columns a short request would write past the reservation."""
+    src = (_build.SRC_DIR / "paged_decode.cu").read_text()
+    tests = re.findall(r"(\S+)\s*<=\s*kTableSmem", src)
+    assert [t.strip("()") for t in tests] == ["cps", "cps"], tests
+    assert src.count("const int cps = (n_cols + n_splits - 1) / n_splits;") == 2
