@@ -14,12 +14,14 @@ and checks them, phase by phase, printing one JSON line per phase:
    ``flash_bwd``, built from ``csrc/`` (one ``nvcc`` each, all at once)
    and loaded, with the seconds each took;
 3. ``kernel``  each kernel against its plain PyTorch version on the card
-   (fp32, TF32 off), in bf16 at the shapes the main paths give it, plus a
-   flash shape whose S is a multiple of 64 but not of 128 (GQA) and one
-   long paged-decode request, where the split over table columns matters
-   most, and one split of more than 4096 columns, whose table stays in
-   device memory (and ``paged_decode`` also in fp32 at the tiny model's
-   shape):
+   (fp32, TF32 off), in bf16 at the shapes the main paths give it, plus
+   two flash shapes whose S is a multiple of 64 but not of 128 (causal
+   GQA, and full GQA at head dim 64) and one long paged-decode request,
+   where the split over table columns matters most, and one split of more
+   than 4096 columns, whose table stays in device memory (and
+   ``paged_decode`` also in fp32 at the tiny model's shape); at the 7B
+   training shape, two launches of each backward kernel must give bitwise
+   equal dq, dk and dv (no atomics, a fixed order of sums):
    each output row (one position or request, one head) within a tolerance
    scaled to that row's largest value, and the kernel's, the plain
    version's and one library call's time (CUDA events around the device's
@@ -328,12 +330,15 @@ def bound(nbytes: int, flops: int) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def check_flash(torch, gen, *, label, B, S, H, KV, D, causal) -> dict:
+def check_flash(torch, gen, *, label, B, S, H, KV, D, causal,
+                deterministic=False) -> dict:
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
     versions at one shape (the backward on the kernel forward's o and lse),
     then each timed beside its bound and the library yardstick: SDPA for
     the forward, one autograd.grad through SDPA's output (dq, dk and dv
-    together) for the backward pair.  The port never calls SDPA."""
+    together) for the backward pair.  The port never calls SDPA.  With
+    ``deterministic``, a second launch of each backward kernel must give
+    bitwise the same dq, dk and dv."""
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as FA
 
@@ -364,6 +369,17 @@ def check_flash(torch, gen, *, label, B, S, H, KV, D, causal) -> dict:
                              f"(limit {LSE_ABS_TOL})")
     res["flash_fwd"]["lse_max_abs_err"] = lse_err
     del ro, rlse, rdq, rdk, rdv
+    if deterministic:
+        dq2 = FA.flash_backward_dq(*args)
+        dk2, dv2 = FA.flash_backward_dkv(*args)
+        torch.cuda.synchronize()
+        for name, a, b in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+            if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                raise AssertionError(f"{label}: two launches gave different "
+                                     f"{name} bits")
+        res["flash_bwd_dq"]["bitwise_repeatable"] = True
+        res["flash_bwd_dkv"]["bitwise_repeatable"] = True
+        del dq2, dk2, dv2
 
     # Library yardsticks on [B, H, S, D] copies made outside the timed
     # calls (K/V repeated to H heads for GQA).
@@ -416,7 +432,7 @@ def phase_kernel(torch) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     flash7b = check_flash(torch, gen, label="llama2_7b_train", B=1, S=4096,
-                          H=32, KV=32, D=128, causal=True)
+                          H=32, KV=32, D=128, causal=True, deterministic=True)
     check_flash(torch, gen, label="gqa_rep4", B=2, S=2048, H=32, KV=8,
                 D=128, causal=True)
     check_flash(torch, gen, label="full_d64", B=2, S=1024, H=16, KV=16,
@@ -425,6 +441,10 @@ def phase_kernel(torch) -> dict:
     # tile, and GQA's kv heads as a coordinate of the tensor maps.
     check_flash(torch, gen, label="ragged_gqa", B=1, S=4160, H=32, KV=8,
                 D=128, causal=True)
+    # The same without the causal mask: nothing but S masks the half-full
+    # last 128-key CTA of flash_bwd_dkv and 128-row CTA of flash_bwd_dq.
+    check_flash(torch, gen, label="ragged_full", B=1, S=1088, H=16, KV=4,
+                D=64, causal=False)
     # Ragged lengths 1..2048, partial last pages, rows padded to 128
     # columns at block 0.
     ragged = [1, 17, 300, 777, 1024, 1500, 2000, 2048]

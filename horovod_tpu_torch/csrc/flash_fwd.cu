@@ -79,13 +79,6 @@ template <int D> struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
 };
 
-// 2^x in one MUFU instruction; results below 2^-126 flush to 0.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // [B, S, H, D]

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's warp-specialised kernels:
-// tensor maps and TMA loads (`cp.async.bulk.tensor`), `mbarrier` waits and
-// arrivals, `wgmma` shared-memory descriptors and products, and register
-// rebalancing between warpgroups (`setmaxnreg`).  flash_fwd.cu uses them;
-// they are kept apart so the backward kernels can share them.
+// tensor maps and TMA loads (`cp.async.bulk.tensor`), 1-D bulk copies,
+// `mbarrier` waits and arrivals, `wgmma` shared-memory descriptors and
+// products, and register rebalancing between warpgroups (`setmaxnreg`).
+// flash_fwd.cu and flash_bwd.cu use them.
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // and a box whose inner extent is 64 bf16 values (128 bytes): row r of a
@@ -16,14 +16,17 @@
 // wgmma descriptors (64 bits): start address >> 4 in bits 0-13, leading
 // byte offset >> 4 in bits 16-29, stride byte offset >> 4 in bits 32-45,
 // layout type in bits 62-63 (1 = 128-byte swizzle).
-// - K-major operand (Q and K in S = Q K^T; the k index is contiguous):
-//   rows 128 bytes apart, 8-row groups 1024 bytes apart (SBO = 1024); the
-//   leading offset is unused.  A k16 step moves the start 32 bytes along
-//   the row inside a 64-column half, and to the next half after four steps.
-// - MN-major operand (V in O = P V; the n index, the head dim, is
-//   contiguous): k rows 128 bytes apart, 8-row groups 1024 bytes apart
-//   (SBO = 1024), and the next 64 columns of n one half further on (LBO =
-//   the size of a half).  A k16 step moves the start 16 rows, 2048 bytes.
+// - K-major operand (the k index, the head dim, is contiguous: Q and K in
+//   S = Q K^T, K and Q in S^T = K Q^T): rows 128 bytes apart, 8-row groups
+//   1024 bytes apart (SBO = 1024); the leading offset is unused.  A k16
+//   step moves the start 32 bytes along the row inside a 64-column half,
+//   and to the next half (one box on) after four steps.
+// - MN-major operand (the n index, the head dim, is contiguous and k runs
+//   over rows: V in O = P V, K in dQ = dS K, Q and dO in dK = dS^T Q and
+//   dV = P^T dO): k rows 128 bytes apart, 8-row groups 1024 bytes apart
+//   (SBO = 1024), and the next 64 columns of n one box further on (LBO =
+//   the size of one box of the tile, 128 x its rows).  A k16 step moves
+//   the start 16 rows, 2048 bytes.
 
 #pragma once
 
@@ -87,6 +90,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Copy `bytes` contiguous bytes (a multiple of 16, both ends 16-byte
+// aligned) from device memory to shared memory at dst; completion is
+// counted on bar in bytes, as a TMA box's.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo_bytes,
@@ -126,6 +141,19 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[32] (+)= A . B for a 64 x 64 tile, k = 16: A and B both in shared
+// memory (descriptors, K-major); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

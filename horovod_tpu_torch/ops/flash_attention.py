@@ -83,9 +83,10 @@ def _launch(lib_name: str, fn: str, device: torch.device, *args,
 
 #: Head dims the flash kernels are compiled for.
 FLASH_HEAD_DIMS = (64, 128)
-#: Rows of the query and key tiles of ``flash_bwd_dq`` and the key tile of
-#: ``flash_bwd_dkv``; S must be a multiple of it.  ``flash_fwd`` works on
-#: 128-row tiles and masks a half-full last one.
+#: Rows of a consumer warpgroup's tile and of a streamed tile in every
+#: flash kernel; S must be a multiple of it.  A CTA covers 128 rows (two
+#: warpgroups), so at an S that is not a multiple of 128 the last CTA's
+#: second warpgroup lies past S and the kernels mask or skip it.
 FLASH_BLOCK = 64
 
 
@@ -111,11 +112,13 @@ def _mask(s: torch.Tensor, causal: bool) -> torch.Tensor:
 
 
 def default_blocks(seq_len: int) -> tuple[int, int]:
-    """(query rows, key rows) that S must be a multiple of: the tile of the
-    backward kernels (4 warps of 16 query rows, two CTAs an SM on Hopper).
-    ``flash_fwd`` covers 128 query rows and 128-key tiles a CTA and masks
-    the half-full last tile of such an S.  Fixed by the kernels' register
-    and shared-memory budget, not by the TPU sweep of the JAX package."""
+    """(query rows, key rows) that S must be a multiple of: the 64 rows of
+    one consumer warpgroup's ``wgmma`` tile.  ``flash_fwd`` covers 128
+    query rows and 128-key tiles a CTA, ``flash_bwd_dq`` 128 query rows and
+    64-key tiles, ``flash_bwd_dkv`` 128 keys and 64-row query tiles; each
+    masks or skips the half-full last CTA of such an S.  Fixed by the
+    kernels' register and shared-memory budget, not by the TPU sweep of the
+    JAX package."""
     del seq_len
     return FLASH_BLOCK, FLASH_BLOCK
 
@@ -148,8 +151,8 @@ def _check_qkv(q, k, v):
 def _check_flash_kernel_inputs(q, k, v, *others) -> None:
     """Raise ``ValueError`` for inputs the flash kernels do not take: a
     shape or dtype outside :func:`supported`, tensors that differ in dtype
-    or device, or a tensor that is not 16-byte aligned (every row is
-    staged as 16-byte copies)."""
+    or device, or a tensor that is not 16-byte aligned (TMA loads every
+    tile, and a tensor map's base must be 16-byte aligned)."""
     if not supported(tuple(q.shape), q.dtype, k.shape[2]):
         raise ValueError(
             f"flash kernels take bf16, head dim in {FLASH_HEAD_DIMS}, S a "
