@@ -19,8 +19,8 @@ and checks them, phase by phase, printing one JSON line per phase:
    GQA, and full GQA at head dim 64) and one long paged-decode request,
    where the split over table columns matters most, and one split of more
    than 4096 columns, whose table stays in device memory (and
-   ``paged_decode`` also in fp32 at the tiny model's shape); at the 7B
-   training shape, two launches of each backward kernel must give bitwise
+   ``paged_decode`` also in fp32 at the tiny model's shape); at every
+   flash shape two launches of each backward kernel must give bitwise
    equal dq, dk and dv (no atomics, a fixed order of sums):
    each output row (one position or request, one head) within a tolerance
    scaled to that row's largest value, and the kernel's, the plain
@@ -330,15 +330,14 @@ def bound(nbytes: int, flops: int) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def check_flash(torch, gen, *, label, B, S, H, KV, D, causal,
-                deterministic=False) -> dict:
+def check_flash(torch, gen, *, label, B, S, H, KV, D, causal) -> dict:
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
     versions at one shape (the backward on the kernel forward's o and lse),
     then each timed beside its bound and the library yardstick: SDPA for
     the forward, one autograd.grad through SDPA's output (dq, dk and dv
-    together) for the backward pair.  The port never calls SDPA.  With
-    ``deterministic``, a second launch of each backward kernel must give
-    bitwise the same dq, dk and dv."""
+    together) for the backward pair.  The port never calls SDPA.  A second
+    launch of each backward kernel must give bitwise the same dq, dk and
+    dv."""
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as FA
 
@@ -369,17 +368,16 @@ def check_flash(torch, gen, *, label, B, S, H, KV, D, causal,
                              f"(limit {LSE_ABS_TOL})")
     res["flash_fwd"]["lse_max_abs_err"] = lse_err
     del ro, rlse, rdq, rdk, rdv
-    if deterministic:
-        dq2 = FA.flash_backward_dq(*args)
-        dk2, dv2 = FA.flash_backward_dkv(*args)
-        torch.cuda.synchronize()
-        for name, a, b in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
-            if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
-                raise AssertionError(f"{label}: two launches gave different "
-                                     f"{name} bits")
-        res["flash_bwd_dq"]["bitwise_repeatable"] = True
-        res["flash_bwd_dkv"]["bitwise_repeatable"] = True
-        del dq2, dk2, dv2
+    dq2 = FA.flash_backward_dq(*args)
+    dk2, dv2 = FA.flash_backward_dkv(*args)
+    torch.cuda.synchronize()
+    for name, a, b in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            raise AssertionError(f"{label}: two launches gave different "
+                                 f"{name} bits")
+    res["flash_bwd_dq"]["bitwise_repeatable"] = True
+    res["flash_bwd_dkv"]["bitwise_repeatable"] = True
+    del dq2, dk2, dv2
 
     # Library yardsticks on [B, H, S, D] copies made outside the timed
     # calls (K/V repeated to H heads for GQA).
@@ -432,7 +430,7 @@ def phase_kernel(torch) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     flash7b = check_flash(torch, gen, label="llama2_7b_train", B=1, S=4096,
-                          H=32, KV=32, D=128, causal=True, deterministic=True)
+                          H=32, KV=32, D=128, causal=True)
     check_flash(torch, gen, label="gqa_rep4", B=2, S=2048, H=32, KV=8,
                 D=128, causal=True)
     check_flash(torch, gen, label="full_d64", B=2, S=1024, H=16, KV=16,

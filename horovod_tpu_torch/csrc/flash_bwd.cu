@@ -64,7 +64,7 @@
 // dkv ms; PERF.md): three-stage rings for both 0.414-0.418 / 0.567-0.574;
 // two stages 0.412 / 0.529-0.530, four 0.408-0.410 / 0.576-0.578, so dq
 // keeps four and dkv two; issuing the next tile's S and dP right behind
-// this tile's dQ (or dK and dV) products was slower, 0.479-0.484 /
+// this tile's dQ (or dK and dV) products was slower, 0.479-0.485 /
 // 0.722-0.735; ping-pong turns between the two warpgroups, as flash_fwd
 // takes them, gained nothing here (0.408-0.410 / 0.526-0.529) and are left
 // out.  Neither the loads nor the exponential is the limit: leaving out
@@ -86,7 +86,7 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kWgRows = 64;                     // rows a consumer warpgroup
 constexpr int BC = kWgRows * kConsumers;        // resident rows a CTA (128)
 constexpr int BT = 64;                          // rows a streamed tile
-constexpr int kDqStages = 4;                  // ring depths, tuned on the card
+constexpr int kDqStages = 4;                   // ring depths, tuned on the card
 constexpr int kDkvStages = 2;
 constexpr int kBoxC = 128 * BC;                 // a 64-column box of BC rows
 constexpr int kBoxT = 128 * BT;                 // a 64-column box of BT rows
@@ -154,21 +154,18 @@ __device__ __forceinline__ void to_frag(uint32_t (&a)[BT / 16][4], const float (
 }
 
 // Store a warpgroup's 64 x D fp32 accumulator as bf16 rows `stride`
-// elements apart, rows r and r + 8 of each warp only where they are
-// below `limit` (relative to dst).
+// elements apart: this thread's rows r and r + 8.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst, size_t stride, const float (&acc)[D / 2],
-                                           int r, int limit) {
+                                           int r) {
   const int t4 = (threadIdx.x % 32) & 3;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t4;
-    if (r < limit)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)r * stride + col) =
-          pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    if (r + 8 < limit)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)(r + 8) * stride + col) =
-          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    *reinterpret_cast<uint32_t*>(dst + (size_t)r * stride + col) =
+        pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(dst + (size_t)(r + 8) * stride + col) =
+        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
@@ -319,8 +316,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
       if (lane == 0) hopper::mbar_arrive(empty + st);
     }
     if (live)
-      store_rows<D>(dq + ((size_t)b * S + r0) * H * D + (size_t)h * D, (size_t)H * D, acc, rw,
-                    S - r0);
+      store_rows<D>(dq + ((size_t)b * S + r0) * H * D + (size_t)h * D, (size_t)H * D, acc, rw);
   }
 }
 
@@ -478,8 +474,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
     if (live) {
       const size_t stride = (size_t)KV * D;
       const size_t off = ((size_t)b * S + k0) * stride + (size_t)g * D;
-      store_rows<D>(dk + off, stride, dk_acc, rw, S - k0);
-      store_rows<D>(dv + off, stride, dv_acc, rw, S - k0);
+      store_rows<D>(dk + off, stride, dk_acc, rw);
+      store_rows<D>(dv + off, stride, dv_acc, rw);
     }
   }
 }
