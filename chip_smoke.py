@@ -5,8 +5,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It drives the port's two main paths on the card, serving and training,
-and checks them, phase by phase, printing one JSON line per phase:
+It drives the port's main paths on the card, serving, training and
+data-parallel training through Horovod's runtime, and checks them, phase
+by phase, printing one JSON line per phase:
 
 1. ``device``  the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
@@ -43,7 +44,18 @@ and checks them, phase by phase, printing one JSON line per phase:
    ``flash_bwd_dkv`` 32 times each, ``paged_decode`` never; the losses
    must be finite, start near ln(32000) and fall.  Then a profile of one
    step: device time, idle share, top kernels;
-6. ``train_parity``  two layers at full width, S=4096: loss and every
+6. ``train_dp``  the same model, weights and batch through the runtime at
+   one rank: ``hvd.init()`` (NCCL on cuda:0), ``broadcast_parameters``,
+   ``DistributedOptimizer`` over the same fused Adam, one warm-up and
+   three timed steps.  Per step exactly one allreduce entry per
+   trainable leaf (291), covering every gradient byte, with at least one
+   fused dispatch and NCCL dispatches; every gradient and NCCL buffer on
+   cuda:0; the flash launches of ``train``; the first loss bitwise equal
+   to ``train``'s, the others within ``DP_LOSS_REL``.  Then a profile of
+   one step (the engine stream's and NCCL's device time, the engine's
+   cycles) and every verb at world size 1 on CUDA tensors, with a 16 MB
+   allreduce timed;
+7. ``train_parity``  two layers at full width, S=4096: loss and every
    gradient through the kernels against the same call through their plain
    versions (``llama._FORCE_ATTENTION_REFERENCE``).
 
@@ -51,7 +63,8 @@ Then a ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line; without a CUDA device, or without the port's
 package beside the script, it exits 2.  ``--phases`` runs a subset
-(``device,build,kernel,serve,train,train_parity``); ``--root DIR`` drives
+(``device,build,kernel,serve,train,train_dp,train_parity``; ``train_dp``
+needs ``train``); ``--root DIR`` drives
 the package of another checkout (an unpacked parent commit, say) with
 this script's shapes, checks and timers.
 """
@@ -69,7 +82,8 @@ from pathlib import Path
 # Published H100 SXM rates (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-PHASES = ("device", "build", "kernel", "serve", "train", "train_parity")
+PHASES = ("device", "build", "kernel", "serve", "train", "train_dp",
+          "train_parity")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -743,7 +757,7 @@ def phase_train(torch, smi: str, steps: int = 3) -> dict:
     train_breakdown(torch, step, params, batch, med * 1e3, smi)
     del params, opt, step, batch
     _free_cuda(torch)
-    return counts
+    return res
 
 
 def train_breakdown(torch, step, params, batch, wall_ms: float,
@@ -776,6 +790,279 @@ def train_breakdown(torch, step, params, batch, wall_ms: float,
               "flash_bwd_dkv": flash_ms("flash_bwd_dkv_kernel")},
           "top_kernels_ms_per_step": {
               e.key[:80]: e.self_device_time_total / 1e3 for e in top},
+          "card": smi})
+
+
+# ---------------------------------------------------------------------------
+# data-parallel training through Horovod's runtime (one rank over NCCL)
+# ---------------------------------------------------------------------------
+
+# Losses of train_dp's steps 2-4 against train's.  At one rank the
+# allreduce hands every gradient back unchanged, so the two runs differ
+# only where a kernel sums in an order that varies between runs (the
+# embedding's backward adds rows by atomics); two builds of this step
+# whose backward kernels summed in different orders gave losses 2e-4
+# apart, and this allows ten times that.
+DP_LOSS_REL = 2e-3
+DP_VERB_DTYPES = ("float32", "bfloat16", "int32")
+
+
+def _engine_metrics():
+    """The engine's obs counters this phase reads, as plain numbers."""
+    from horovod_tpu_torch.ops import engine as E
+    fused = E._m_fusion_batch._default().cumulative_buckets()
+    return {"entries": E._m_coll_v["allreduce"].value,
+            "bytes": E._m_bytes_v["allreduce"].value,
+            "dispatches_nccl": E._m_dispatches.labels(backend="nccl").value,
+            "cycles": E._m_cycles.value,
+            "groups": fused[-1][1], "groups_of_one": fused[0][1]}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def dp_collectives_check(torch, hvd) -> dict:
+    """Every verb and ReduceOp of the runtime at one rank on the card:
+    each gives back its input, bitwise, in float32, bfloat16 and int32
+    (the world-1 result); then a 16 MB float32 allreduce through the
+    engine, on the host clock (one rank moves no bytes between cards, so
+    its bus bandwidth is 0 by definition)."""
+    import torch.distributed as dist
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    checked = []
+    for dt in DP_VERB_DTYPES:
+        dtype = getattr(torch, dt)
+        x = (torch.randn(8, 6, generator=gen, device="cuda") * 8).to(dtype)
+        outs = {f"allreduce.{op.value}": hvd.allreduce(x, op)
+                for op in (hvd.Average, hvd.Sum, hvd.Min, hvd.Max,
+                           hvd.Product)}
+        outs["allreduce_"] = hvd.allreduce_(x.clone(), hvd.Average)
+        outs.update({f"grouped.{i}": o for i, o in enumerate(
+            hvd.grouped_allreduce([x, x[:3], x[5:]], hvd.Average))})
+        outs["allgather"] = hvd.allgather(x)
+        outs["broadcast"] = hvd.broadcast(x, 0)
+        outs["broadcast_"] = hvd.broadcast_(x.clone(), 0)
+        outs["alltoall"] = hvd.alltoall(x)
+        outs["alltoall.splits"] = hvd.alltoall(x, splits=[8])
+        outs["reducescatter.sum"] = hvd.reducescatter(x, hvd.Sum)
+        outs["reducescatter.average"] = hvd.reducescatter(x, hvd.Average)
+        h = hvd.allreduce_async(x, hvd.Sum, name=f"dp_check.async.{dt}")
+        outs["allreduce_async"] = hvd.synchronize(h)
+        for name, got in outs.items():
+            want = {"grouped.1": x[:3], "grouped.2": x[5:]}.get(name, x)
+            if got.device != x.device or not torch.equal(got, want):
+                raise AssertionError(f"world-1 {name} in {dt}: got "
+                                     f"{got.device} {got.flatten()[:4]}")
+            checked.append(f"{name}.{dt}")
+    hvd.barrier()
+    if hvd.broadcast_object({"a": [1, 2]}) != {"a": [1, 2]} or \
+            hvd.allgather_object(7) != [7] or hvd.join() != 0:
+        raise AssertionError("world-1 object verbs or join")
+
+    buf = torch.randn(4 << 20, generator=gen, device="cuda")   # 16 MB
+    times, raw = [], []
+    for i in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hvd.allreduce_(buf, hvd.Sum, name="dp_check.16mb")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        dist.all_reduce(buf)
+        end.record()
+        end.synchronize()
+        raw.append(start.elapsed_time(end))
+    times, raw = sorted(times[3:]), sorted(raw[3:])
+    return {"verbs_checked": len(checked),
+            "allreduce_16mb_ms_host": times[len(times) // 2],
+            "dist_all_reduce_16mb_ms": raw[len(raw) // 2],
+            "busbw_gbs": 0.0}
+
+
+def _engine_device_ms(prof) -> tuple:
+    """(NCCL ms, engine-stream ms) of one profiled step: the device time
+    of NCCL's kernels, and of everything else on the engine's own stream
+    (packing a fusion buffer, the division, the copies out).  The
+    engine's stream is found by marker kernels (``torch.cuda._sleep``'s
+    ``spin_kernel``) launched on it before and after the step, since the
+    profiler does not see the engine thread's host side; None when no
+    marker or more than one stream shows up."""
+    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    marks = [e for e in device if "spin" in e.name]
+    streams = {getattr(e, "device_resource_id", None) for e in marks}
+    if len(streams) != 1 or None in streams:
+        return None, None
+
+    def ms(evts):
+        return sum(e.time_range.end - e.time_range.start for e in evts) / 1e3
+
+    stream = streams.pop()
+    return (ms(e for e in device if "nccl" in e.name.lower()),
+            ms(e for e in device if e.device_resource_id == stream
+               and "spin" not in e.name and "nccl" not in e.name.lower()))
+
+
+def phase_train_dp(torch, smi: str, trained: dict, steps: int = 3) -> None:
+    """The train phase's model, weights and batch, stepped through
+    Horovod's runtime at one rank: ``hvd.init()`` (NCCL on cuda:0),
+    ``broadcast_parameters``, ``DistributedOptimizer`` over fused Adam.
+    One warm-up and ``steps`` timed steps, every count checked per step;
+    then one profiled step and the verbs at world size 1."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+
+    _free_cuda(torch)
+    hvd.init()
+    try:
+        if dist.get_backend() != "nccl" or hvd.size() != 1 or \
+                hvd.global_state().device != torch.device("cuda", 0):
+            raise AssertionError(
+                f"runtime: backend {dist.get_backend()}, size {hvd.size()}, "
+                f"device {hvd.global_state().device}")
+        cfg = llama.LlamaConfig.llama2_7b()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = llama.init_params(cfg, gen, "cuda")
+        named = llama.named_trainable(params)
+        hvd.broadcast_parameters(named, root_rank=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.Adam([t for _, t in named], lr=TRAIN_LR, fused=True),
+            named_parameters=named)
+        step = llama.make_train_step(cfg, opt)
+        tokens = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(1, TRAIN_S + 1))
+        batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+        grad_bytes = sum(t.numel() * t.element_size() for _, t in named)
+
+        # Every buffer the engine hands NCCL, seen where it is handed over.
+        seen = []
+        real_all_reduce = dist.all_reduce
+
+        def spy(tensor, *a, **kw):
+            seen.append((tensor.device, tensor.numel() * tensor.element_size()))
+            return real_all_reduce(tensor, *a, **kw)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        dist.all_reduce = spy
+        try:
+            per_step, losses, step_s = [], [], []
+            for i in range(steps + 1):
+                before = _engine_metrics()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = step(params, batch)
+                torch.cuda.synchronize()
+                if i:
+                    step_s.append(time.perf_counter() - t0)
+                losses.append(loss.item())
+                per_step.append(_delta(_engine_metrics(), before))
+        finally:
+            dist.all_reduce = real_all_reduce
+        counts = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        grads_on_card = all(t.grad is not None and t.grad.device ==
+                            torch.device("cuda", 0) for _, t in named)
+
+        n_steps = steps + 1
+        want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers, "paged_decode": 0}
+        faults = []
+        if counts != {k: n_steps * v for k, v in want.items()}:
+            faults.append(f"launches {counts}, want per step {want}")
+        for i, m in enumerate(per_step):
+            if m["entries"] != len(named):
+                faults.append(f"step {i}: {m['entries']} allreduce entries, "
+                              f"want {len(named)}")
+            if m["bytes"] != grad_bytes:
+                faults.append(f"step {i}: {m['bytes']} bytes, want "
+                              f"{grad_bytes}")
+            if m["groups"] - m["groups_of_one"] < 1:
+                faults.append(f"step {i}: no fused dispatch of > 1 tensor")
+            if m["dispatches_nccl"] < 1:
+                faults.append(f"step {i}: no NCCL dispatch")
+        if not grads_on_card or {d for d, _ in seen} != \
+                {torch.device("cuda", 0)}:
+            faults.append(f"gradients on the card {grads_on_card}, NCCL "
+                          f"buffers on {sorted({str(d) for d, _ in seen})}")
+        base = trained["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[1:], base[1:])]
+        if losses[0] != base[0]:
+            faults.append(f"first loss {losses[0]!r} != train's {base[0]!r}")
+        if not all(math.isfinite(x) for x in losses) or max(rel) > DP_LOSS_REL:
+            faults.append(f"losses {losses} against train's {base}")
+
+        med = sorted(step_s)[len(step_s) // 2]
+        tok_s = TRAIN_S / med
+        res = {"phase": "train_dp", "model": "llama2_7b", "ranks": hvd.size(),
+               "backend": dist.get_backend(), "batch": 1, "seq": TRAIN_S,
+               "optimizer": f"DistributedOptimizer(Adam(lr={TRAIN_LR}, "
+               "fused=True))", "losses": losses, "train_losses": base,
+               "loss_rel_vs_train": rel, "loss_rel_tol": DP_LOSS_REL,
+               "step_s": step_s, "step_ms_median": med * 1e3,
+               "train_step_ms_median": trained["step_ms_median"],
+               "step_vs_train": med * 1e3 / trained["step_ms_median"],
+               "tokens_per_s": tok_s,
+               "mfu": tok_s * trained["flops_per_token"] / BF16_FLOPS,
+               "peak_mem_gb": peak_gb, "grad_leaves": len(named),
+               "grad_bytes": grad_bytes, "engine_per_step": per_step,
+               "nccl_calls": len(seen), "launches": counts, "card": smi}
+        emit(res)
+        if faults:
+            raise AssertionError("train_dp: " + "; ".join(faults))
+        dp_breakdown(torch, step, params, batch, med * 1e3, smi)
+        emit({"phase": "dp_collectives", **dp_collectives_check(torch, hvd),
+              "card": smi})
+        del params, named, opt, step, batch
+    finally:
+        hvd.shutdown()
+        _free_cuda(torch)
+
+
+def dp_breakdown(torch, step, params, batch, wall_ms: float,
+                 smi: str) -> None:
+    """One profiled data-parallel step: the device time of kernels, the
+    idle share against the timed steps' median, and the engine's part:
+    NCCL's kernels and the rest of what it launched (packing a fusion
+    buffer, the division, the copies out), with its dispatches and its
+    cycles in the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import horovod_tpu_torch as hvd
+
+    before = _engine_metrics()
+    stream = hvd.global_state().engine._stream
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(1000)                 # marks the stream
+        step(params, batch)
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    eng = _delta(_engine_metrics(), before)
+    kernels = [e for e in device_kernels(prof) if "spin" not in e.key]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    nccl_ms, copy_ms = _engine_device_ms(prof)
+    emit({"phase": "train_dp_breakdown", "wall_ms_per_step": wall_ms,
+          "device_ms_per_step": device_ms if kernels else "not measured",
+          "device_idle_share": (1 - device_ms / wall_ms) if kernels
+          else "not measured",
+          "engine_nccl_ms_per_step": "not measured" if nccl_ms is None
+          else nccl_ms,
+          "engine_pack_unpack_ms_per_step": "not measured"
+          if copy_ms is None else copy_ms,
+          "engine_dispatches_per_step": eng["dispatches_nccl"],
+          "engine_cycles_per_step": eng["cycles"],
+          "fused_groups_per_step": eng["groups"] - eng["groups_of_one"],
           "card": smi})
 
 
@@ -859,6 +1146,9 @@ def main(argv=None) -> int:
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
+    if "train_dp" in phases and "train" not in phases:
+        ap.error("train_dp is held against train's losses and step time: "
+                 "run both")
 
     # The checkout's own package, never an installed one: without it (the
     # script alone in a directory) there is nothing to drive.
@@ -902,12 +1192,15 @@ def main(argv=None) -> int:
     res = phase_kernel(torch) if "kernel" in phases else None
     served = phase_serve(torch, smi) if "serve" in phases else None
     trained = phase_train(torch, smi) if "train" in phases else None
+    if "train_dp" in phases:
+        phase_train_dp(torch, smi, trained)
     if "train_parity" in phases:
         phase_train_parity(torch, smi)
     if res is not None and served is not None and trained is not None:
         # launches: paged_decode on the serving path, the flash kernels on
         # the training path (each counted in its own run).
-        launches = dict(trained, paged_decode=served["paged_decode"])
+        launches = dict(trained["launches"],
+                        paged_decode=served["paged_decode"])
         keys = ("max_abs_err", "worst_row_rel_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
         emit({"kernels": [

@@ -493,6 +493,18 @@ def trainable(params: dict) -> list[torch.Tensor]:
     return leaves
 
 
+def named_trainable(params: dict) -> list[tuple[str, torch.Tensor]]:
+    """:func:`trainable`'s leaves with names that are the same in every
+    process: ``layers.<weight>.<layer>`` (``layers.wq.3``; nine stacked
+    weights a layer), then ``embed``, ``final_norm`` and ``lm_head``.
+    ``DistributedOptimizer`` negotiates each gradient by its name, and
+    ``broadcast_parameters`` takes the pairs as they are."""
+    names = [f"layers.{k}.{i}" for k, stack in params["layers"].items()
+             for i in range(stack.shape[0])]
+    names += ["embed", "final_norm", "lm_head"]
+    return list(zip(names, trainable(params)))
+
+
 def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer, *,
                     mesh=None) -> Callable[[dict, dict], torch.Tensor]:
     """A training step ``step(params, batch) -> loss``: zero the gradients,

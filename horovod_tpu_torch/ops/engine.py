@@ -1,0 +1,880 @@
+"""Asynchronous collective engine: tensor queue + background fusion cycle.
+
+The port of ``horovod_tpu/ops/engine.py``.  Reference architecture
+(† ``horovod/common/operations.cc``): framework ops enqueue a
+``TensorTableEntry`` and return immediately; a background thread
+(``BackgroundThreadLoop`` → ``RunLoopOnce`` every ``HOROVOD_CYCLE_TIME``
+ms) negotiates readiness across ranks, fuses ready tensors up to
+``HOROVOD_FUSION_THRESHOLD`` bytes, executes one collective per fused
+batch, and fires completion callbacks.  ``synchronize(handle)`` blocks the
+caller († ``horovod/torch/mpi_ops_v2.cc HandleManager``).
+
+Kept from the JAX engine: the cycle thread, the urgent nudge from
+``synchronize``, duplicate-name rejection, fusion by (op, dtype, process
+set, prescale, postscale) up to ``fusion_threshold``, negotiation through
+a pluggable :class:`Negotiator` (the native controller across processes,
+:mod:`.negotiator`), ``join()`` zero participation, stall attribution,
+the timeline's QUEUE → NEGOTIATE → DISPATCH phases and the ``obs``
+counters.  One rank's engine never skips its collective, not even alone:
+at one rank it still issues every NCCL call.
+
+What torch needs that JAX did not:
+
+- **Streams.**  JAX ordered device work by its async dispatch; here the
+  engine owns a CUDA stream.  ``enqueue`` records an event on the
+  caller's current stream (the stream that produced the tensor), and the
+  engine's stream waits on it before it reads the tensor.  The engine
+  packs, reduces and unpacks on its own stream, records a completion
+  event there, and :meth:`Handle.wait` makes the caller's current stream
+  wait on that event: no host synchronisation of the device anywhere.
+  Tensors the engine's stream touches but did not allocate are
+  ``record_stream``-ed to it, so freeing one early (``zero_grad(
+  set_to_none=True)``) cannot hand its memory to other work while the
+  engine still reads it.
+- **Fusion buffers.**  Where XLA folded the flatten and concat into the
+  compiled program, a fused group here is packed into one flat buffer on
+  the device (``torch.cat``), reduced by one collective and copied back
+  out, the division of an ``AVERAGE`` folded into that copy.  A group of
+  one runs in place with no copy.
+
+Not ported: the performance-model hook of the reference's dispatch path
+(ROADMAP section A item 10) and the wire-precision and schedule fields
+(items 6 and 7), whose knobs ``init`` refuses.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
+
+import torch
+
+from . import collectives as C
+from .. import chaos
+from ..context import HorovodInternalError
+from ..obs import REGISTRY as _obs
+from ..obs import flightrec as _frec
+from ..obs import trace as _trace
+from ..utils import logging as hvd_logging
+
+log = hvd_logging.get_logger()
+
+_m_collectives = _obs.counter(
+    "hvd_collectives_total", "collectives dispatched by the engine",
+    ("verb",))
+_m_bytes = _obs.counter(
+    "hvd_collective_bytes_total",
+    "payload bytes through engine-dispatched collectives", ("verb",))
+_m_errors = _obs.counter(
+    "hvd_collective_errors_total",
+    "collectives that completed with an error", ("verb",))
+_m_fusion_batch = _obs.histogram(
+    "hvd_fusion_batch_tensors", "tensors per fused allreduce dispatch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+_m_dispatches = _obs.counter(
+    "hvd_engine_dispatches_total",
+    "collective groups the engine issued to torch.distributed",
+    ("backend",))
+_m_cycles = _obs.counter(
+    "hvd_engine_cycles_total",
+    "engine cycles that negotiated at least one tensor")
+_m_cycle = _obs.histogram(
+    "hvd_cycle_seconds",
+    "engine cycle wall time (drain -> negotiate -> fuse -> dispatch)")
+_m_queue_depth = _obs.gauge(
+    "hvd_engine_queue_depth",
+    "entries left pending in the tensor queue after a cycle")
+
+_VERBS = ("allreduce", "allgather", "broadcast", "alltoall", "reducescatter")
+_m_coll_v = {v: _m_collectives.labels(verb=v) for v in _VERBS}
+_m_bytes_v = {v: _m_bytes.labels(verb=v) for v in _VERBS}
+_m_errors_v = {v: _m_errors.labels(verb=v) for v in _VERBS}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"``: the dtype field of a
+    negotiation meta, which a joined rank turns back with
+    ``getattr(torch, name)``."""
+    return str(dtype).rpartition(".")[2]
+
+
+@dataclass
+class TensorTableEntry:
+    """† ``horovod/common/common.h TensorTableEntry`` (name, tensor,
+    output, callback).  ``payload`` is this rank's tensor, detached;
+    ``output`` is the tensor the result is written into (``payload``
+    itself for the in-place verbs), or None for a result the engine
+    allocates.  ``ready`` is the CUDA event recorded on the enqueueing
+    stream after the payload was produced (None on the CPU)."""
+    name: str
+    verb: str                      # allreduce | allgather | broadcast | alltoall | reducescatter
+    payload: Any
+    output: Any = None
+    op: C.ReduceOp = C.ReduceOp.AVERAGE
+    root_rank: int = 0
+    splits: Optional[Sequence[int]] = None
+    prescale: float = 1.0
+    postscale: float = 1.0
+    process_set: Any = None
+    # The engine leaves its loop after the round that makes this ready.
+    last: bool = False
+    enqueue_time: float = field(default_factory=time.monotonic)
+    ready: Any = field(default=None, compare=False)
+    # Timeline phase currently open for this entry ("" | QUEUE | NEGOTIATE).
+    tl_phase: str = field(default="", compare=False)
+    # Timeline-v2 flow id linking the QUEUE span to the DISPATCH span.
+    tl_flow: int = field(default=0, compare=False)
+
+    def meta(self) -> str:
+        """Serialized descriptor carried through negotiation so a joined
+        rank can construct zero-payload participation († the Response's
+        tensor metadata behind ``RequestType::JOIN``).  Empty for
+        process-set entries, which a joined rank cannot rebuild."""
+        if self.process_set is not None:
+            return ""
+        m: dict = {"v": self.verb, "d": dtype_name(self.payload.dtype),
+                   "s": list(self.payload.shape), "o": self.op.value}
+        if self.root_rank:
+            m["r"] = self.root_rank
+        if self.splits is not None:
+            m["sp"] = [int(s) for s in self.splits]
+        if self.prescale != 1.0:
+            m["ps"] = self.prescale
+        if self.postscale != 1.0:
+            m["po"] = self.postscale
+        return json.dumps(m, separators=(",", ":"))
+
+
+def _joinable_entry(e: TensorTableEntry) -> bool:
+    """Can a joined rank stand in for this entry with zeros?  Allreduce
+    outside a process set only († reference join semantics); must agree
+    with :func:`_parse_joinable_meta`, the joined ranks' half."""
+    return e.verb == "allreduce" and e.process_set is None
+
+
+def _parse_joinable_meta(meta: str) -> Optional[dict]:
+    """Parse an echoed descriptor; None unless it fully describes a
+    joinable (allreduce) entry, so :meth:`CollectiveEngine._zero_entry`
+    is total on accepted metas."""
+    if not meta:
+        return None
+    try:
+        m = json.loads(meta)
+        if m.get("v") != "allreduce":
+            return None
+        m["s"] = [int(d) for d in m["s"]]
+        C.ReduceOp(m["o"])
+        if not isinstance(getattr(torch, m["d"], None), torch.dtype):
+            return None
+    except (ValueError, TypeError, KeyError):
+        return None
+    return m
+
+
+class Handle:
+    """Async completion handle († ``handle_manager.cc``: handle +
+    ``synchronize``).  The host side completes when the engine has issued
+    the collective; on the card ``_done`` is the event that marks the end
+    of its device work."""
+
+    __slots__ = ("_event", "_result", "_error", "_done", "_device", "_owned",
+                 "name")
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._event = threading.Event()
+        self._result: Any = None
+        self._error: Optional[BaseException] = None
+        self._done = None
+        self._device = None
+        self._owned = False
+
+    def _complete(self, result: Any = None,
+                  error: Optional[BaseException] = None, done=None,
+                  device=None, owned: bool = False) -> None:
+        self._result = result
+        self._error = error
+        self._done = done
+        self._device = device
+        self._owned = owned
+        self._event.set()
+
+    def poll(self) -> bool:
+        """Non-blocking completion check († ``hvd.poll``): issued, and on
+        the card also finished there."""
+        if not self._event.is_set():
+            return False
+        return self._done is None or self._done.query()
+
+    def wait(self, timeout: Optional[float] = None) -> Any:
+        """Block until the collective is issued and return its output
+        († ``hvd.synchronize``).  On the card the caller's current stream
+        then waits on the collective's completion event; the host does
+        not wait for the device."""
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"collective {self.name!r} still pending")
+        if self._error is not None:
+            raise HorovodInternalError(
+                f"collective {self.name!r} failed: {self._error}"
+            ) from self._error
+        if self._done is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(self._done)
+            if self._owned:
+                # Allocated on the engine's stream, used from here on.
+                self._result.record_stream(stream)
+        return self._result
+
+
+@dataclass
+class NegotiationOutcome:
+    """One round's agreed result († ``Response`` list); the fields are the
+    JAX engine's (ready order, stalled names, echoed metas, join state,
+    join-covered names, stall attribution)."""
+    ready: list[str]
+    stalled: list[str] = field(default_factory=list)
+    metas: dict = field(default_factory=dict)
+    all_joined: bool = False
+    last_join_rank: int = 0
+    join_covered: set = field(default_factory=set)
+    stall_info: dict = field(default_factory=dict)
+
+
+class Negotiator:
+    """Readiness protocol interface († ``Controller::ComputeResponseList``)."""
+
+    # Distributed protocols are round barriers: every process checks in
+    # every cycle, even with an empty queue.
+    always_check_in = False
+
+    def negotiate(self, entries: list[TensorTableEntry], *,
+                  joined: bool = False) -> NegotiationOutcome:
+        """Return the agreed ready set (ordered) for this cycle."""
+        raise NotImplementedError
+
+    def stall_attribution(self, name: str) -> Optional[str]:
+        """Straggler attribution for a stalled tensor, when this protocol
+        can know it; None otherwise."""
+        return None
+
+    def close(self) -> None:
+        pass
+
+
+class SingleControllerNegotiator(Negotiator):
+    """One rank: everything is ready immediately."""
+
+    def negotiate(self, entries: list[TensorTableEntry], *,
+                  joined: bool = False) -> NegotiationOutcome:
+        if entries:
+            chaos.fire("negotiate")
+        return NegotiationOutcome(ready=[e.name for e in entries])
+
+
+class CollectiveEngine:
+    """Background cycle thread owning the tensor queue; the only thread
+    that issues collectives."""
+
+    def __init__(self, state, negotiator: Optional[Negotiator] = None) -> None:
+        self._state = state
+        self._negotiator = negotiator or SingleControllerNegotiator()
+        self._device = state.device
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device.type == "cuda" else None)
+        self._queue: list[tuple[TensorTableEntry, Handle]] = []
+        self._names_pending: set[str] = set()
+        self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
+        self._urgent = False
+        self._paused = False
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+        self._cycle_count = 0
+        self._last_cycle_ts = time.monotonic()
+        self._last_stall_warn = 0.0
+        self._join_requested = False
+        self._join_result = -1
+        self._join_event = threading.Event()
+        # Set when a join finishes with no caller waiting; consumed by the
+        # next join() call.
+        self._join_pending_consume = False
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> None:
+        self._running = True
+        self._thread = threading.Thread(
+            target=self._loop, name="hvdtpu-torch-engine", daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout: float = 10.0) -> None:
+        """Stop the cycle thread.  Across processes every rank first
+        submits one tiny allreduce, ``hvd.shutdown``, and each engine
+        leaves its loop right after the round that makes it ready
+        († upstream's negotiated shutdown request): all ranks leave at
+        the same round, so none is left blocked in a round its peers never
+        join.  A peer that never shuts down (or is gone) costs
+        ``timeout`` seconds, then the thread is abandoned."""
+        if self.distributed and self.alive:
+            zeros = torch.zeros(1, dtype=torch.int32, device=self._device)
+            entry = TensorTableEntry(name="hvd.shutdown", verb="allreduce",
+                                     payload=zeros, output=zeros,
+                                     op=C.ReduceOp.SUM, last=True)
+            self.enqueue(entry)
+            self.nudge()
+            if self._thread is not None:
+                self._thread.join(timeout)
+        with self._wake:
+            self._running = False
+            self._wake.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            if self._thread.is_alive():
+                # Still blocked in a negotiation round whose peers have
+                # stopped: closing the client under it would free what it
+                # is using, so leave both to the process's exit.
+                log.warning("engine thread still in a negotiation round "
+                            "at shutdown; leaving it to exit with the "
+                            "process")
+                self._negotiator = SingleControllerNegotiator()
+            self._thread = None
+        self._negotiator.close()
+        # Fail any stragglers so synchronize() callers don't hang.
+        with self._lock:
+            for entry, handle in self._queue:
+                self._tl_close(entry)
+                handle._complete(error=RuntimeError("engine shut down"))
+            self._queue.clear()
+            self._names_pending.clear()
+
+    def _tl_close(self, e: TensorTableEntry) -> None:
+        """End any open timeline span for an entry leaving on an error
+        path, keeping Chrome-trace B/E events balanced."""
+        if e.tl_phase:
+            tl = self._state.timeline
+            if tl is not None and tl.enabled:
+                tl.end_activity(e.name)
+            e.tl_phase = ""
+
+    def nudge(self) -> None:
+        """Request an immediate cycle (``synchronize`` does, so a blocking
+        caller doesn't wait out the cycle time)."""
+        with self._wake:
+            self._urgent = True
+            self._wake.notify_all()
+
+    def pause(self) -> None:
+        """Hold queue processing (deterministic tests)."""
+        with self._wake:
+            self._paused = True
+
+    def resume(self) -> None:
+        with self._wake:
+            self._paused = False
+            self._urgent = True
+            self._wake.notify_all()
+
+    # -- enqueue († EnqueueTensorAllreduce et al.) --------------------------
+    def enqueue(self, entry: TensorTableEntry) -> Handle:
+        handle = Handle(entry.name)
+        if self._stream is not None:
+            # Marks the end of the work that produced the payload, on the
+            # stream that produced it; the engine's stream waits on it.
+            entry.ready = torch.cuda.Event()
+            entry.ready.record(torch.cuda.current_stream(self._device))
+        with self._wake:
+            if not self._running:
+                handle._complete(error=RuntimeError("engine not running"))
+                return handle
+            if entry.name in self._names_pending:
+                # † TensorQueue rejects duplicate in-flight names.
+                handle._complete(error=ValueError(
+                    f"a collective named {entry.name!r} is already pending"))
+                return handle
+            self._names_pending.add(entry.name)
+            self._queue.append((entry, handle))
+            sp = _trace.current_span()
+            if sp is not None:
+                sp.event("collective.enqueue", tensor=entry.name,
+                         verb=entry.verb)
+            tl = self._state.timeline
+            if tl is not None and tl.enabled:
+                tl.start_activity(entry.name, "QUEUE")
+                entry.tl_phase = "QUEUE"
+                entry.tl_flow = tl.new_flow()
+                tl.flow_start(entry.name, entry.tl_flow)
+        return handle
+
+    # -- background loop († RunLoopOnce) ------------------------------------
+    def _loop(self) -> None:
+        if self._stream is not None:
+            torch.cuda.set_device(self._device)
+        while True:
+            with self._wake:
+                if not self._running:
+                    return
+                if not self._urgent:
+                    self._wake.wait(
+                        timeout=self._state.config.cycle_time_ms / 1000.0)
+                if not self._running:
+                    return
+                self._urgent = False
+                if self._paused:
+                    continue
+                batch = self._queue
+                self._queue = []
+            try:
+                self._run_cycle(batch)
+            except Exception:  # pragma: no cover - defensive
+                log.exception("engine cycle crashed")
+            try:
+                self._check_stalls()
+            except HorovodInternalError as err:
+                # Stall shutdown: fail every pending handle so all callers
+                # raise († error Response to all ranks), then stop.
+                with self._lock:
+                    pending = self._queue
+                    self._queue = []
+                    self._names_pending.clear()
+                    self._running = False
+                for entry, handle in pending:
+                    self._tl_close(entry)
+                    handle._complete(error=err)
+                log.error("engine stopped by stall shutdown: %s", err)
+                _frec.RECORDER.record("stall_shutdown", error=str(err))
+                _frec.RECORDER.maybe_dump(
+                    "stall_shutdown",
+                    stall=getattr(self._negotiator,
+                                  "last_stall_info", None),
+                    extra={"error": str(err),
+                           "pending": [e.name for e, _ in pending]})
+                return
+
+    @property
+    def distributed(self) -> bool:
+        return self._negotiator.always_check_in
+
+    @property
+    def alive(self) -> bool:
+        """Cycle thread running — the readiness half of ``/healthz``."""
+        return bool(self._running and self._thread is not None
+                    and self._thread.is_alive())
+
+    @property
+    def last_negotiation_age_s(self) -> float:
+        """Seconds since the last completed negotiation (multi-process)
+        or engine cycle (one rank)."""
+        ts = getattr(self._negotiator, "last_negotiate_ts", None)
+        return time.monotonic() - (ts if ts is not None
+                                   else self._last_cycle_ts)
+
+    def _run_cycle(self, batch: list[tuple[TensorTableEntry, Handle]]) -> None:
+        self._cycle_count += 1
+        self._last_cycle_ts = time.monotonic()
+        tl = self._state.timeline
+        if tl is not None:
+            tl.mark_cycle()
+        if not batch and not self._negotiator.always_check_in:
+            return
+        t0 = time.monotonic()
+        entries = [e for e, _ in batch]
+        handles = {id(e): h for e, h in batch}
+        if entries:
+            _m_cycles.inc()
+        if tl is not None and tl.enabled:
+            for e in entries:
+                if e.tl_phase == "QUEUE":
+                    tl.end_activity(e.name)
+                    tl.start_activity(e.name, "NEGOTIATE")
+                    e.tl_phase = "NEGOTIATE"
+        join_req = self._join_requested
+        try:
+            outcome = self._negotiator.negotiate(entries, joined=join_req)
+        except Exception as err:
+            # Negotiation transport failure (controller died, TCP error):
+            # fail every handle in the batch so waiters raise instead of
+            # hanging († error Response to all ranks).
+            for e, h in batch:
+                with self._lock:
+                    self._names_pending.discard(e.name)
+                self._tl_close(e)
+                e_err = err
+                attr = self._negotiator.stall_attribution(e.name)
+                if attr is not None:
+                    try:
+                        e_err = type(err)(
+                            f"{err} [stalled tensor {e.name!r}: {attr}]")
+                    except Exception:   # exotic ctor: keep the original
+                        e_err = err
+                h._complete(error=e_err)
+            if join_req:
+                with self._lock:
+                    self._join_requested = False
+                    self._join_result = -1
+                    self._join_pending_consume = True
+                self._join_event.set()
+            log.error("negotiation failed; %d collectives errored: %s",
+                      len(batch), err)
+            _frec.RECORDER.record("round_abort", error=str(err))
+            _frec.RECORDER.maybe_dump(
+                "round_abort",
+                stall=getattr(self._negotiator, "last_stall_info", None),
+                extra={"error": str(err),
+                       "entries": [e.name for e, _ in batch]})
+            return
+        by_name = {e.name: e for e in entries}
+        ready: list[TensorTableEntry] = []
+        errored: set[int] = set()
+        for name in outcome.ready:
+            e = by_name.get(name)
+            if e is not None:
+                if name in outcome.join_covered and not _joinable_entry(e):
+                    # † Join supports allreduce only: zeros in an
+                    # allgather/broadcast/alltoall would corrupt the
+                    # result, so every rank errors the entry; the joined
+                    # rank skips it by the same rule.
+                    errored.add(id(e))
+                    with self._lock:
+                        self._names_pending.discard(e.name)
+                    self._tl_close(e)
+                    handles[id(e)]._complete(error=HorovodInternalError(
+                        f"collective {name!r} ({e.verb}"
+                        + (", process-set" if e.process_set is not None
+                           else "")
+                        + ") became ready through a joined rank, but only "
+                        "allreduce supports join zero-participation "
+                        "(† reference join semantics)"))
+                    continue
+                ready.append(e)
+            elif join_req:
+                # Another rank's tensor became ready because we joined:
+                # participate with zeros († JoinOp) when the verb allows.
+                meta = _parse_joinable_meta(outcome.metas.get(name, ""))
+                if meta is None:
+                    log.warning(
+                        "join: skipping non-joinable ready tensor %r "
+                        "(it errors on the ranks that submitted it)", name)
+                    continue
+                try:
+                    e = self._zero_entry(name, meta)
+                except Exception as err:  # never kill the cycle
+                    log.error(
+                        "join: failed to build zero participation for %r "
+                        "(%s); skipping — peers may stall (stall inspector "
+                        "will report)", name, err)
+                    continue
+                handles[id(e)] = Handle(e.name)  # result dropped
+                ready.append(e)
+        # Errored entries are consumed too: re-queueing them would
+        # renegotiate a dead tensor every cycle.
+        consumed_ids = {id(e) for e in ready} | errored
+        deferred = [(e, h) for e, h in batch if id(e) not in consumed_ids]
+        if deferred:
+            with self._lock:
+                self._queue = deferred + self._queue
+        for group in self._fuse(ready):
+            self._execute_group(group, handles)
+        if any(e.last for e in ready):
+            with self._lock:
+                self._running = False
+        _m_cycle.observe(time.monotonic() - t0)
+        with self._lock:
+            depth = len(self._queue)
+        _m_queue_depth.set(depth)
+        if tl is not None and tl.enabled:
+            tl.counter("hvd.engine", {
+                "queue_depth": depth,
+                "collectives_total": _m_collectives.total(),
+                "collective_bytes_total": _m_bytes.total(),
+            })
+        if join_req and outcome.all_joined:
+            with self._lock:
+                self._join_requested = False
+                self._join_result = outcome.last_join_rank
+                self._join_pending_consume = True
+            self._join_event.set()
+
+    # -- join († RequestType::JOIN, hvd.join()) ------------------------------
+    def join(self, timeout: Optional[float] = None) -> int:
+        """Signal this rank has no more input; participate as zeros in
+        other ranks' allreduces until every rank joins.  Returns the last
+        rank to join († ``horovod/torch/__init__.py join()``)."""
+        if not self.distributed:
+            raise RuntimeError(
+                "engine.join() requires more than one rank; one rank "
+                "joins by a barrier")
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._lock:
+            if self._join_pending_consume:
+                return self._consume_join_locked()
+            resuming = self._join_requested
+        if not resuming:
+            # Drain our own pending collectives first: JOIN is ordered
+            # after every prior submission, as in the reference.
+            while True:
+                with self._lock:
+                    if not self._queue and not self._names_pending:
+                        break
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutError(
+                        "join(): pending collectives never drained")
+                self.nudge()
+                time.sleep(0.005)
+            self._join_event.clear()
+            with self._wake:
+                self._join_requested = True
+                self._urgent = True
+                self._wake.notify_all()
+        remaining = None if deadline is None else \
+            max(0.0, deadline - time.monotonic())
+        if not self._join_event.wait(remaining):
+            # The JOIN flag already sent is irrevocable: stay joined; a
+            # later join() resumes this phase.
+            raise TimeoutError(
+                "join(): not all ranks joined in time (this rank remains "
+                "joined; call join() again to keep waiting)")
+        with self._lock:
+            return self._consume_join_locked()
+
+    def _consume_join_locked(self) -> int:
+        self._join_pending_consume = False
+        result = self._join_result
+        self._join_result = -1
+        self._join_event.clear()
+        if result < 0:
+            raise HorovodInternalError("join(): failed mid-join (see log)")
+        return result
+
+    def _zero_entry(self, name: str, m: dict) -> TensorTableEntry:
+        """The zero payload a joined rank contributes († JoinOp: zeros of
+        the same shape and dtype; ``AVERAGE`` still divides by the whole
+        world)."""
+        zeros = torch.zeros(m["s"], dtype=getattr(torch, m["d"]),
+                            device=self._device)
+        e = TensorTableEntry(
+            name=name, verb=m["v"], payload=zeros, output=zeros,
+            op=C.ReduceOp(m["o"]), root_rank=m.get("r", 0),
+            splits=m.get("sp"), prescale=m.get("ps", 1.0),
+            postscale=m.get("po", 1.0))
+        if self._stream is not None:
+            e.ready = torch.cuda.Event()
+            e.ready.record(torch.cuda.current_stream(self._device))
+        return e
+
+    @staticmethod
+    def _entry_bytes(e: TensorTableEntry) -> int:
+        return e.payload.numel() * e.payload.element_size()
+
+    def _fuse(self, entries: list[TensorTableEntry]
+              ) -> list[list[TensorTableEntry]]:
+        """Group fusable entries; split at the fusion threshold.
+
+        † fusion_buffer_manager.cc: same dtype+op tensors share a fused
+        dispatch up to ``fusion_threshold`` bytes.  Only allreduce fuses
+        (other verbs execute per tensor)."""
+        threshold = self._state.config.fusion_threshold
+        groups: dict[tuple, list[TensorTableEntry]] = {}
+        order: list[tuple] = []
+        singles: list[list[TensorTableEntry]] = []
+        for e in entries:
+            if e.verb == "allreduce" and e.op is not C.ReduceOp.ADASUM:
+                key = ("allreduce", e.op, e.payload.dtype,
+                       id(e.process_set), e.prescale, e.postscale)
+                if key not in groups:
+                    groups[key] = []
+                    order.append(key)
+                groups[key].append(e)
+            else:
+                singles.append([e])
+        fused: list[list[TensorTableEntry]] = []
+        for key in order:
+            current: list[TensorTableEntry] = []
+            current_bytes = 0
+            for e in groups[key]:
+                nbytes = self._entry_bytes(e)
+                if current and current_bytes + nbytes > threshold:
+                    fused.append(current)
+                    current, current_bytes = [], 0
+                current.append(e)
+                current_bytes += nbytes
+            if current:
+                fused.append(current)
+        return fused + singles
+
+    def _execute_group(self, group: list[TensorTableEntry],
+                       handles: dict[int, Handle]) -> None:
+        tl = self._state.timeline
+        try:
+            if tl is not None and tl.enabled:
+                for e in group:
+                    if e.tl_phase == "NEGOTIATE":
+                        tl.end_activity(e.name)
+                    tl.start_activity(e.name, "DISPATCH")
+                    e.tl_phase = "DISPATCH"
+                    if e.tl_flow:
+                        tl.flow_end(e.name, e.tl_flow)
+                        e.tl_flow = 0
+            label = (group[0].name if len(group) == 1
+                     else f"hvd.fused[{len(group)}].{group[0].name}")
+            chaos.fire("dispatch")
+            done = None
+            with torch.profiler.record_function(
+                    f"hvd.{group[0].verb}:{label}"):
+                if self._stream is None:
+                    results = self._dispatch(group)
+                else:
+                    with torch.cuda.stream(self._stream):
+                        results = self._dispatch(group)
+                        done = torch.cuda.Event()
+                        done.record(self._stream)
+            _m_dispatches.labels(backend=self._state.backend).inc()
+            if tl is not None and tl.enabled:
+                for e in group:
+                    tl.end_activity(e.name)
+                    e.tl_phase = ""
+            if group[0].verb == "allreduce":
+                _m_fusion_batch.observe(len(group))
+            _frec.RECORDER.record(
+                "dispatch", name=label, verb=group[0].verb,
+                tensors=len(group),
+                bytes=sum(self._entry_bytes(e) for e in group))
+            for e, r in zip(group, results):
+                _m_coll_v[e.verb].inc()
+                _m_bytes_v[e.verb].inc(self._entry_bytes(e))
+                with self._lock:
+                    self._names_pending.discard(e.name)
+                # A result the engine allocated is "owned": the caller's
+                # stream takes it over in Handle.wait.
+                handles[id(e)]._complete(result=r, done=done,
+                                         device=self._device,
+                                         owned=e.output is None)
+        except Exception as err:
+            # † error Response delivered to every participating rank so
+            # all raise rather than some hanging.
+            _frec.RECORDER.record(
+                "collective_error", name=group[0].name,
+                verb=group[0].verb, error=repr(err))
+            for e in group:
+                (_m_errors_v.get(e.verb)
+                 or _m_errors.labels(verb=e.verb)).inc()
+                with self._lock:
+                    self._names_pending.discard(e.name)
+                self._tl_close(e)
+                handles[id(e)]._complete(error=err)
+
+    def _group_of(self, e: TensorTableEntry) -> tuple[Any, int, int]:
+        """(torch.distributed group, its size, this rank's index in it)."""
+        ps, state = e.process_set, self._state
+        if ps is None:
+            return None, state.size, state.rank
+        return ps.group, ps.size(), ps.rank_of(state.rank)
+
+    def _dispatch(self, group: list[TensorTableEntry]) -> list:
+        """Issue one group's collective; returns one result per entry:
+        its ``output``, or a tensor the engine allocated when that is
+        None."""
+        if self._stream is not None:
+            for e in group:
+                self._stream.wait_event(e.ready)
+                e.payload.record_stream(self._stream)
+        e0 = group[0]
+        pg, n, me = self._group_of(e0)
+        if e0.verb == "allreduce":
+            return self._allreduce(group, pg, n)
+        assert len(group) == 1
+        if e0.verb == "allgather":
+            return [C.allgather(e0.payload, pg, n)]
+        if e0.verb == "broadcast":
+            root = (e0.process_set.ranks[e0.root_rank]
+                    if e0.process_set is not None else e0.root_rank)
+            return self._in_place(
+                e0, lambda buf: C.broadcast_(buf, root, pg))
+        if e0.verb == "alltoall":
+            return [C.alltoall(e0.payload, e0.splits, pg, n, me)]
+        if e0.verb == "reducescatter":
+            return [C.reducescatter(e0.payload, e0.op, pg, n)]
+        raise ValueError(f"unknown verb {e0.verb!r}")
+
+    @staticmethod
+    def _in_place(e: TensorTableEntry, fn) -> list:
+        """Run ``fn(buf)`` on a contiguous buffer holding the payload:
+        the caller's tensor itself for an in-place verb on a contiguous
+        tensor (no copy), else a copy, written back for in-place verbs."""
+        if e.output is not None and e.output.is_contiguous():
+            fn(e.output)
+            return [e.output]
+        buf = e.payload.clone(memory_format=torch.contiguous_format)
+        fn(buf)
+        if e.output is None:
+            return [buf]
+        e.output.copy_(buf)
+        return [e.output]
+
+    def _allreduce(self, group: list[TensorTableEntry], pg,
+                   n: int) -> list:
+        e0 = group[0]
+        kw = dict(prescale=e0.prescale, postscale=e0.postscale)
+        if len(group) == 1:
+            return self._in_place(
+                e0, lambda buf: C.allreduce_(buf, e0.op, pg, n, **kw))
+        # The fusion buffer: pack, one collective, unpack with the
+        # AVERAGE's division and the postscale folded into the copy out.
+        flat = torch.cat([e.payload.reshape(-1) for e in group])
+        C.allreduce_(flat, e0.op, pg, n, divide=False, **kw)
+        outs = []
+        offset = 0
+        for e in group:
+            k = e.payload.numel()
+            piece = flat[offset:offset + k].view(e.payload.shape)
+            offset += k
+            out = e.output if e.output is not None else torch.empty_like(
+                piece)
+            if e0.op is C.ReduceOp.AVERAGE:
+                C.average_(out, piece, n)
+            else:
+                out.copy_(piece)
+            C._scale_(out, e0.postscale)
+            outs.append(out)
+        return outs
+
+    # -- stall inspector († stall_inspector.cc) ----------------------------
+    def _check_stalls(self) -> None:
+        cfg = self._state.config
+        if not cfg.stall_check:
+            return
+        now = time.monotonic()
+        if now - self._last_stall_warn < cfg.stall_warning_time_s:
+            return
+        with self._lock:
+            stalled = [(e.name, now - e.enqueue_time)
+                       for e, _ in self._queue
+                       if now - e.enqueue_time > cfg.stall_warning_time_s]
+        if not stalled:
+            return
+        self._last_stall_warn = now
+
+        def _desc(n: str, age: float) -> str:
+            attr = self._negotiator.stall_attribution(n)
+            return (f"{n} ({age:.0f}s; {attr})" if attr
+                    else f"{n} ({age:.0f}s)")
+        desc = ", ".join(_desc(n, age) for n, age in stalled)
+        _frec.RECORDER.record("stall_warning", desc=desc)
+        log.warning(
+            "Stall detected: collectives pending > %.0fs without "
+            "completing negotiation: %s. One or more ranks may have "
+            "diverged (e.g. rank-dependent conditionals).",
+            cfg.stall_warning_time_s, desc)
+        if cfg.stall_shutdown_time_s > 0:
+            worst = max(age for _, age in stalled)
+            if worst > cfg.stall_shutdown_time_s:
+                raise HorovodInternalError(
+                    f"stalled collectives exceeded shutdown time "
+                    f"({cfg.stall_shutdown_time_s}s): {desc}")
+
+    # -- stats --------------------------------------------------------------
+    @property
+    def cycle_count(self) -> int:
+        """Cycles run, idle ones included."""
+        return self._cycle_count

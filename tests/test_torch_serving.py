@@ -191,16 +191,20 @@ def test_migration_raises_not_implemented(models):
 
 def test_init_reads_launcher_env_and_serve_borrows_its_timeline(
         models, monkeypatch, tmp_path):
+    # init now starts torch.distributed, so a lone process is rank 0 of 1
+    # (on the CPU when asked); the per-rank timeline names of a two-rank
+    # job are held by tests/test_torch_engine.py.
     _, _, tcfg, tparams = models
-    monkeypatch.setenv("HVDTPU_CROSS_RANK", "1")
-    monkeypatch.setenv("HVDTPU_CROSS_SIZE", "2")
+    monkeypatch.setenv("HVDTPU_CROSS_RANK", "0")
+    monkeypatch.setenv("HVDTPU_CROSS_SIZE", "1")
     monkeypatch.setenv("HVDTPU_LOCAL_RANK", "0")
+    monkeypatch.setenv("HVDTPU_PLATFORM", "cpu")
     path = tmp_path / "tl.json"
     context.init(timeline=str(path))
     try:
         assert context.is_initialized()
         assert (context.rank(), context.size(), context.local_rank()) \
-            == (1, 2, 0)
+            == (0, 1, 0)
         tl = context.global_state().timeline
         assert tl.enabled
         with tserving.serve(tparams, tcfg, device="cpu", block_size=4,
@@ -212,7 +216,7 @@ def test_init_reads_launcher_env_and_serve_borrows_its_timeline(
     assert not context.is_initialized()
     with pytest.raises(RuntimeError, match="init"):
         context.rank()
-    text = (tmp_path / "tl.r1.json").read_text()
+    text = path.read_text()
     assert "QUEUE" in text and "DECODE" in text
 
 
