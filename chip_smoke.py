@@ -55,7 +55,21 @@ by phase, printing one JSON line per phase:
    one step (the engine stream's and NCCL's device time, the engine's
    cycles) and every verb at world size 1 on CUDA tensors, with a 16 MB
    allreduce timed;
-7. ``train_parity``  two layers at full width, S=4096: loss and every
+7. ``hvdrun``  the same data-parallel step as a job of the port's launcher,
+   ``python -m horovod_tpu_torch.runner -np 1 -- python chip_smoke.py
+   --hvdrun-worker OUT``, with ``HVDTPU_METRICS_PORT`` set, once this
+   process has released the card.  The worker checks the launcher's env
+   (the job's secret, the controller's and the KV store's addresses),
+   loads the kernels this process built (no rebuild), runs ``hvd.init()``
+   (NCCL on cuda:0), and holds everything ``train_dp`` holds; then the
+   metrics plane: ``/metrics`` byte-identical to ``hvd.metrics
+   ("prometheus")``, ``cluster_metrics()``'s ``rank="0"`` series of
+   ``hvd_collectives_total`` equal to the registry's, a flight-recorder
+   bundle naming rank 0 of 1.  This process requires the launcher's exit
+   code 0, the first loss bitwise equal to ``train``'s and the later ones
+   within ``DP_LOSS_REL``, and prints the step median beside
+   ``train_dp``'s and the launcher's wall seconds;
+8. ``train_parity``  two layers at full width, S=4096: loss and every
    gradient through the kernels against the same call through their plain
    versions (``llama._FORCE_ATTENTION_REFERENCE``).
 
@@ -63,8 +77,8 @@ Then a ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line; without a CUDA device, or without the port's
 package beside the script, it exits 2.  ``--phases`` runs a subset
-(``device,build,kernel,serve,train,train_dp,train_parity``; ``train_dp``
-needs ``train``); ``--root DIR`` drives
+(``device,build,kernel,serve,train,train_dp,hvdrun,train_parity``;
+``train_dp`` needs ``train``, ``hvdrun`` needs both); ``--root DIR`` drives
 the package of another checkout (an unpacked parent commit, say) with
 this script's shapes, checks and timers.
 """
@@ -83,7 +97,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 PHASES = ("device", "build", "kernel", "serve", "train", "train_dp",
-          "train_parity")
+          "hvdrun", "train_parity")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -906,122 +920,156 @@ def _engine_device_ms(prof) -> tuple:
                and "spin" not in e.name and "nccl" not in e.name.lower()))
 
 
-def phase_train_dp(torch, smi: str, trained: dict, steps: int = 3) -> None:
+def _dp_steps(torch, hvd, steps: int) -> dict:
+    """The train phase's model, weights and batch, stepped through the
+    initialized runtime: ``broadcast_parameters``, ``DistributedOptimizer``
+    over fused Adam, one warm-up and ``steps`` timed steps, every count
+    read per step.  Returns what was measured, the faults found (all but
+    the losses, which the caller holds against train's) and the step,
+    parameters and batch."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import llama
+
+    faults = []
+    if dist.get_backend() != "nccl" or hvd.size() != 1 or \
+            hvd.global_state().device != torch.device("cuda", 0):
+        faults.append(f"runtime: backend {dist.get_backend()}, size "
+                      f"{hvd.size()}, device {hvd.global_state().device}")
+    cfg = llama.LlamaConfig.llama2_7b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, "cuda")
+    named = llama.named_trainable(params)
+    hvd.broadcast_parameters(named, root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam([t for _, t in named], lr=TRAIN_LR, fused=True),
+        named_parameters=named)
+    step = llama.make_train_step(cfg, opt)
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(1, TRAIN_S + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    grad_bytes = sum(t.numel() * t.element_size() for _, t in named)
+
+    # Every buffer the engine hands NCCL, seen where it is handed over.
+    seen = []
+    real_all_reduce = dist.all_reduce
+
+    def spy(tensor, *a, **kw):
+        seen.append((tensor.device, tensor.numel() * tensor.element_size()))
+        return real_all_reduce(tensor, *a, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    dist.all_reduce = spy
+    try:
+        per_step, losses, step_s = [], [], []
+        for i in range(steps + 1):
+            before = _engine_metrics()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(params, batch)
+            torch.cuda.synchronize()
+            if i:
+                step_s.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            per_step.append(_delta(_engine_metrics(), before))
+    finally:
+        dist.all_reduce = real_all_reduce
+    counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    grads_on_card = all(t.grad is not None and t.grad.device ==
+                        torch.device("cuda", 0) for _, t in named)
+
+    n_steps = steps + 1
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "paged_decode": 0}
+    if counts != {k: n_steps * v for k, v in want.items()}:
+        faults.append(f"launches {counts}, want per step {want}")
+    for i, m in enumerate(per_step):
+        if m["entries"] != len(named):
+            faults.append(f"step {i}: {m['entries']} allreduce entries, "
+                          f"want {len(named)}")
+        if m["bytes"] != grad_bytes:
+            faults.append(f"step {i}: {m['bytes']} bytes, want "
+                          f"{grad_bytes}")
+        if m["groups"] - m["groups_of_one"] < 1:
+            faults.append(f"step {i}: no fused dispatch of > 1 tensor")
+        if m["dispatches_nccl"] < 1:
+            faults.append(f"step {i}: no NCCL dispatch")
+    if not grads_on_card or {d for d, _ in seen} != \
+            {torch.device("cuda", 0)}:
+        faults.append(f"gradients on the card {grads_on_card}, NCCL "
+                      f"buffers on {sorted({str(d) for d, _ in seen})}")
+
+    med = sorted(step_s)[len(step_s) // 2]
+    res = {"ranks": hvd.size(), "backend": dist.get_backend(), "batch": 1,
+           "seq": TRAIN_S, "optimizer": f"DistributedOptimizer(Adam(lr="
+           f"{TRAIN_LR}, fused=True))", "losses": losses, "step_s": step_s,
+           "step_ms_median": med * 1e3,
+           "peak_mem_gb": peak_gb, "grad_leaves": len(named),
+           "grad_bytes": grad_bytes, "engine_per_step": per_step,
+           "nccl_calls": len(seen), "launches": counts}
+    return {"res": res, "faults": faults, "step": step, "params": params,
+            "batch": batch}
+
+
+def _loss_rel(losses: list, base: list) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(losses[1:], base[1:])]
+
+
+def _against_train(res: dict, trained: dict) -> dict:
+    """Throughput and losses of a data-parallel run beside train's."""
+    tok_s = TRAIN_S / (res["step_ms_median"] / 1e3)
+    return {"tokens_per_s": tok_s,
+            "mfu": tok_s * trained["flops_per_token"] / BF16_FLOPS,
+            "train_losses": trained["losses"],
+            "loss_rel_vs_train": _loss_rel(res["losses"], trained["losses"]),
+            "loss_rel_tol": DP_LOSS_REL,
+            "train_step_ms_median": trained["step_ms_median"]}
+
+
+def _loss_faults(losses: list, base: list) -> list:
+    """The first loss bitwise equal to ``base``'s, the later ones within
+    ``DP_LOSS_REL``, all finite."""
+    faults = []
+    if losses[0] != base[0]:
+        faults.append(f"first loss {losses[0]!r} != train's {base[0]!r}")
+    if not all(math.isfinite(x) for x in losses) or \
+            max(_loss_rel(losses, base)) > DP_LOSS_REL:
+        faults.append(f"losses {losses} against train's {base}")
+    return faults
+
+
+def phase_train_dp(torch, smi: str, trained: dict, steps: int = 3) -> dict:
     """The train phase's model, weights and batch, stepped through
     Horovod's runtime at one rank: ``hvd.init()`` (NCCL on cuda:0),
     ``broadcast_parameters``, ``DistributedOptimizer`` over fused Adam.
     One warm-up and ``steps`` timed steps, every count checked per step;
     then one profiled step and the verbs at world size 1."""
-    import numpy as np
-    import torch.distributed as dist
-
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.models import llama
 
     _free_cuda(torch)
     hvd.init()
     try:
-        if dist.get_backend() != "nccl" or hvd.size() != 1 or \
-                hvd.global_state().device != torch.device("cuda", 0):
-            raise AssertionError(
-                f"runtime: backend {dist.get_backend()}, size {hvd.size()}, "
-                f"device {hvd.global_state().device}")
-        cfg = llama.LlamaConfig.llama2_7b()
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(0)
-        params = llama.init_params(cfg, gen, "cuda")
-        named = llama.named_trainable(params)
-        hvd.broadcast_parameters(named, root_rank=0)
-        opt = hvd.DistributedOptimizer(
-            torch.optim.Adam([t for _, t in named], lr=TRAIN_LR, fused=True),
-            named_parameters=named)
-        step = llama.make_train_step(cfg, opt)
-        tokens = np.random.RandomState(0).randint(
-            0, cfg.vocab_size, size=(1, TRAIN_S + 1))
-        batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
-        grad_bytes = sum(t.numel() * t.element_size() for _, t in named)
-
-        # Every buffer the engine hands NCCL, seen where it is handed over.
-        seen = []
-        real_all_reduce = dist.all_reduce
-
-        def spy(tensor, *a, **kw):
-            seen.append((tensor.device, tensor.numel() * tensor.element_size()))
-            return real_all_reduce(tensor, *a, **kw)
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        zero_launches()
-        dist.all_reduce = spy
-        try:
-            per_step, losses, step_s = [], [], []
-            for i in range(steps + 1):
-                before = _engine_metrics()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                loss = step(params, batch)
-                torch.cuda.synchronize()
-                if i:
-                    step_s.append(time.perf_counter() - t0)
-                losses.append(loss.item())
-                per_step.append(_delta(_engine_metrics(), before))
-        finally:
-            dist.all_reduce = real_all_reduce
-        counts = read_launches()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        grads_on_card = all(t.grad is not None and t.grad.device ==
-                            torch.device("cuda", 0) for _, t in named)
-
-        n_steps = steps + 1
-        want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
-                "flash_bwd_dkv": cfg.n_layers, "paged_decode": 0}
-        faults = []
-        if counts != {k: n_steps * v for k, v in want.items()}:
-            faults.append(f"launches {counts}, want per step {want}")
-        for i, m in enumerate(per_step):
-            if m["entries"] != len(named):
-                faults.append(f"step {i}: {m['entries']} allreduce entries, "
-                              f"want {len(named)}")
-            if m["bytes"] != grad_bytes:
-                faults.append(f"step {i}: {m['bytes']} bytes, want "
-                              f"{grad_bytes}")
-            if m["groups"] - m["groups_of_one"] < 1:
-                faults.append(f"step {i}: no fused dispatch of > 1 tensor")
-            if m["dispatches_nccl"] < 1:
-                faults.append(f"step {i}: no NCCL dispatch")
-        if not grads_on_card or {d for d, _ in seen} != \
-                {torch.device("cuda", 0)}:
-            faults.append(f"gradients on the card {grads_on_card}, NCCL "
-                          f"buffers on {sorted({str(d) for d, _ in seen})}")
-        base = trained["losses"]
-        rel = [abs(a - b) / abs(b) for a, b in zip(losses[1:], base[1:])]
-        if losses[0] != base[0]:
-            faults.append(f"first loss {losses[0]!r} != train's {base[0]!r}")
-        if not all(math.isfinite(x) for x in losses) or max(rel) > DP_LOSS_REL:
-            faults.append(f"losses {losses} against train's {base}")
-
-        med = sorted(step_s)[len(step_s) // 2]
-        tok_s = TRAIN_S / med
-        res = {"phase": "train_dp", "model": "llama2_7b", "ranks": hvd.size(),
-               "backend": dist.get_backend(), "batch": 1, "seq": TRAIN_S,
-               "optimizer": f"DistributedOptimizer(Adam(lr={TRAIN_LR}, "
-               "fused=True))", "losses": losses, "train_losses": base,
-               "loss_rel_vs_train": rel, "loss_rel_tol": DP_LOSS_REL,
-               "step_s": step_s, "step_ms_median": med * 1e3,
-               "train_step_ms_median": trained["step_ms_median"],
-               "step_vs_train": med * 1e3 / trained["step_ms_median"],
-               "tokens_per_s": tok_s,
-               "mfu": tok_s * trained["flops_per_token"] / BF16_FLOPS,
-               "peak_mem_gb": peak_gb, "grad_leaves": len(named),
-               "grad_bytes": grad_bytes, "engine_per_step": per_step,
-               "nccl_calls": len(seen), "launches": counts, "card": smi}
+        run = _dp_steps(torch, hvd, steps)
+        res = {"phase": "train_dp", "model": "llama2_7b", **run["res"],
+               **_against_train(run["res"], trained),
+               "step_vs_train": run["res"]["step_ms_median"]
+               / trained["step_ms_median"], "card": smi}
         emit(res)
+        faults = run["faults"] + _loss_faults(res["losses"],
+                                              trained["losses"])
         if faults:
             raise AssertionError("train_dp: " + "; ".join(faults))
-        dp_breakdown(torch, step, params, batch, med * 1e3, smi)
+        dp_breakdown(torch, run["step"], run["params"], run["batch"],
+                     res["step_ms_median"], smi)
         emit({"phase": "dp_collectives", **dp_collectives_check(torch, hvd),
               "card": smi})
-        del params, named, opt, step, batch
+        del run
+        return res
     finally:
         hvd.shutdown()
         _free_cuda(torch)
@@ -1064,6 +1112,194 @@ def dp_breakdown(torch, step, params, batch, wall_ms: float,
           "engine_cycles_per_step": eng["cycles"],
           "fused_groups_per_step": eng["groups"] - eng["groups_of_one"],
           "card": smi})
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel step as a job of the port's launcher (hvdrun)
+# ---------------------------------------------------------------------------
+
+HVDRUN_TIMEOUT_S = 420      # the launcher, its worker's 7B init and 4 steps
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_hvdrun(torch, smi: str, trained: dict, dp: dict,
+                 root: Path) -> None:
+    """``python -m horovod_tpu_torch.runner -np 1 -- python chip_smoke.py
+    --hvdrun-worker OUT`` with ``HVDTPU_METRICS_PORT`` set: the script is
+    its own worker (:func:`hvdrun_worker`).  This process has released the
+    card first (train_dp's runtime shut down, no live tensor of the train
+    phases).  The launcher must exit 0, the worker's first loss must
+    equal train's bitwise and the later ones be within ``DP_LOSS_REL``;
+    its step median is printed beside train_dp's of this call."""
+    import os
+    import signal
+    import tempfile
+
+    _free_cuda(torch)
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
+    allocated_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"hvdrun: this process holds {reserved_gb:.3f} GB reserved, "
+          f"{allocated_gb:.3f} GB allocated before the launch",
+          file=sys.stderr, flush=True)
+    if reserved_gb > 1.0:
+        raise AssertionError(f"hvdrun: this process still holds "
+                             f"{reserved_gb:.1f} GB of the card; the worker "
+                             "needs train_dp's 54 GB")
+    tmp = Path(tempfile.mkdtemp(prefix="hvdrun-"))
+    out = tmp / "worker.json"
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HVDTPU_", "HOROVOD_"))}
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    env["HVDTPU_METRICS_PORT"] = str(_free_port())
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
+           "--verbose", "--", sys.executable, str(Path(__file__).resolve()),
+           "--hvdrun-worker", str(out), "--root", str(root)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=str(root),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        text, _ = proc.communicate(timeout=HVDRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)     # the launcher ends its worker
+        try:
+            text, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+    wall_s = time.perf_counter() - t0
+    sys.stderr.write(text)
+    sys.stderr.flush()
+    if proc.returncode != 0 or not out.is_file():
+        raise AssertionError(f"hvdrun: the launcher exited "
+                             f"{proc.returncode}; its output ends\n"
+                             f"{text[-4000:]}")
+    w = json.loads(out.read_text())
+    faults = w["faults"] + _loss_faults(w["losses"], trained["losses"])
+    med = w["step_ms_median"]
+    emit({"phase": "hvdrun", "model": "llama2_7b",
+          "command": "python -m horovod_tpu_torch.runner -np 1 -- python "
+          "chip_smoke.py --hvdrun-worker OUT",
+          "launcher_rc": proc.returncode, "launcher_wall_s": wall_s,
+          "parent_memory_reserved_gb": reserved_gb,
+          "parent_memory_allocated_gb": allocated_gb,
+          **{k: w[k] for k in (
+              "ranks", "backend", "device", "launcher_env", "kernels_reused",
+              "losses", "step_s", "peak_mem_gb", "grad_leaves", "grad_bytes",
+              "engine_per_step", "nccl_calls", "launches", "metrics")},
+          **_against_train(w, trained),
+          "step_ms_median": med,
+          "train_dp_step_ms_median": dp["step_ms_median"],
+          "step_vs_train_dp": med / dp["step_ms_median"],
+          "card": smi})
+    if faults:
+        raise AssertionError("hvdrun: " + "; ".join(faults))
+    out.unlink()
+    (tmp / "flight.json").unlink(missing_ok=True)
+    tmp.rmdir()
+
+
+def _settled_metrics(hvd) -> str:
+    """``hvd.metrics("prometheus")`` once two reads 0.2 s apart agree: the
+    engine's thread may still be closing the cycle that finished the last
+    step (its cycle histogram), and then the registry is still."""
+    text = hvd.metrics("prometheus")
+    for _ in range(50):
+        time.sleep(0.2)
+        again = hvd.metrics("prometheus")
+        if again == text:
+            break
+        text = again
+    return text
+
+
+def _metrics_plane_check(hvd, bundle_path: Path) -> tuple:
+    """``/metrics`` byte-identical to ``hvd.metrics("prometheus")`` read
+    just before it; ``cluster_metrics()``'s ``rank="0"`` series of
+    ``hvd_collectives_total`` equal to the registry's; a flight-recorder
+    bundle that parses and names rank 0 of 1.  Returns (what was read,
+    faults)."""
+    import urllib.request
+
+    faults = []
+    srv = hvd.global_state().metrics_server
+    if srv is None:
+        return {}, ["HVDTPU_METRICS_PORT: init bound no endpoint"]
+    text = _settled_metrics(hvd)
+    with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/metrics",
+                                timeout=30) as r:
+        served = r.read().decode()
+    if served != text:
+        faults.append(f"/metrics ({len(served)} bytes) differs from "
+                      f"hvd.metrics('prometheus') ({len(text)} bytes)")
+
+    def collectives(snap, rank=None):
+        [fam] = [f for f in snap if f["name"] == "hvd_collectives_total"]
+        return {s["labels"]["verb"]: s["value"] for s in fam["samples"]
+                if s["labels"].get("rank") == rank}
+
+    cluster = collectives(hvd.cluster_metrics(), "0")
+    own = collectives(hvd.metrics())
+    if not cluster or cluster != own:
+        faults.append(f"cluster_metrics rank 0 {cluster}, registry {own}")
+    path = hvd.flight_record(str(bundle_path))
+    bundle = json.loads(Path(path).read_text()) if path else {}
+    if (bundle.get("rank"), bundle.get("size")) != (0, 1):
+        faults.append(f"flight record {path}: rank {bundle.get('rank')} of "
+                      f"{bundle.get('size')}")
+    return {"endpoint_port": srv.port, "metrics_bytes": len(text),
+            "metrics_equal_served": served == text,
+            "cluster_rank0_collectives": cluster,
+            "flight_record_events": len(bundle.get("events", ()))}, faults
+
+
+def hvdrun_worker(torch, out: Path, steps: int = 3) -> int:
+    """The worker of the hvdrun phase, run by the port's launcher: the
+    launcher's env, the kernels the parent built (no rebuild), ``hvd.init``
+    over NCCL on cuda:0, train_dp's model, weights, batch, optimizer and
+    checks, then the metrics plane.  Writes what it found to ``out`` and
+    exits non-zero on any fault."""
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import flash_attention as FA
+
+    faults = []
+    env = ("HVDTPU_SECRET", "HVDTPU_CONTROLLER_ADDR",
+           "HVDTPU_RENDEZVOUS_ADDR")
+    missing = [k for k in env if not os.environ.get(k)]
+    if missing:
+        faults.append(f"the launcher's env lacks {missing}")
+    built = {lib: _build._target(lib)[1] for lib in KERNEL_LIBS}
+    reused = all(so.is_file() for so in built.values())
+    if not reused:
+        faults.append(f"kernels not built by the parent: {built}")
+    for lib in KERNEL_LIBS:
+        _build.load(lib, FA._SIGNATURES[lib])
+    hvd.init()
+    try:
+        run = _dp_steps(torch, hvd, steps)
+        res = run["res"]
+        faults += run["faults"]       # the parent holds the losses
+        metrics, mfaults = _metrics_plane_check(hvd, out.parent /
+                                                "flight.json")
+        faults += mfaults
+        res.update(device=str(hvd.global_state().device),
+                   launcher_env=[k for k in env if k not in missing],
+                   kernels_reused=reused, metrics=metrics, faults=faults)
+        del run
+    finally:
+        hvd.shutdown()
+    out.write_text(json.dumps(res))
+    print(f"hvdrun worker: {len(faults)} fault(s)", flush=True)
+    return 1 if faults else 0
 
 
 # Tolerance of train_parity.  Both runs are bf16; the kernels round p and
@@ -1141,6 +1377,9 @@ def main(argv=None) -> int:
                     help="drive the horovod_tpu_torch package of the checkout "
                     "at this directory (default: this script's own), to time "
                     "two trees with one script in one call")
+    ap.add_argument("--hvdrun-worker", default=None, metavar="OUT",
+                    help="run as the hvdrun phase's worker (started by the "
+                    "port's launcher) and write what it found to OUT")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1149,6 +1388,9 @@ def main(argv=None) -> int:
     if "train_dp" in phases and "train" not in phases:
         ap.error("train_dp is held against train's losses and step time: "
                  "run both")
+    if "hvdrun" in phases and "train_dp" not in phases:
+        ap.error("hvdrun is held against train's losses and train_dp's "
+                 "step time: run train, train_dp and hvdrun")
 
     # The checkout's own package, never an installed one: without it (the
     # script alone in a directory) there is nothing to drive.
@@ -1171,6 +1413,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    if args.hvdrun_worker:
+        return hvdrun_worker(torch, Path(args.hvdrun_worker))
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as FA
 
@@ -1192,8 +1436,10 @@ def main(argv=None) -> int:
     res = phase_kernel(torch) if "kernel" in phases else None
     served = phase_serve(torch, smi) if "serve" in phases else None
     trained = phase_train(torch, smi) if "train" in phases else None
-    if "train_dp" in phases:
-        phase_train_dp(torch, smi, trained)
+    dp = phase_train_dp(torch, smi, trained) if "train_dp" in phases \
+        else None
+    if "hvdrun" in phases:
+        phase_hvdrun(torch, smi, trained, dp, root)
     if "train_parity" in phases:
         phase_train_parity(torch, smi)
     if res is not None and served is not None and trained is not None:

@@ -55,7 +55,7 @@ configs, ``remat="dots"``, the blockwise cross-entropy
 (``blockwise_ce=True``; ``ops/losses.py``), the prefix cache, speculative
 decoding, KV migration, the elastic rejoin after a collective failure,
 Adasum, the quantized wires and the knobs :func:`.config.check_ported`
-lists.  The launcher ``hvdrun`` and elastic mode are later slices.
+lists.  Elastic mode is a later slice.
 """
 
 from __future__ import annotations
@@ -94,6 +94,7 @@ from .ops.collectives import (  # noqa: F401
     ReduceOp,
     Sum,
 )
+from . import obs
 from .ops.compression import Compression, check_supported
 from .ops.engine import Handle, TensorTableEntry
 
@@ -292,6 +293,13 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
     return [h.wait() for h in handles]
 
 
+def grouped_allreduce_sync(tensors: Sequence[torch.Tensor],
+                           op: ReduceOp = Average, **kw) -> list[torch.Tensor]:
+    """† ``hvd.grouped_allreduce``: the fused sync variant, under the name
+    the JAX package gives it; the same as :func:`grouped_allreduce`."""
+    return grouped_allreduce(tensors, op, **kw)
+
+
 def allgather(tensor: torch.Tensor, *, name: Optional[str] = None,
               process_set=None) -> torch.Tensor:
     """Concatenate every rank's tensor along dim 0 († ``hvd.allgather``);
@@ -422,6 +430,56 @@ def global_process_set():
     if not state.initialized:
         raise NotInitializedError()
     return state.process_set_table.global_set
+
+
+# ---------------------------------------------------------------------------
+# Telemetry (horovod_tpu_torch.obs; beyond the reference, whose surface
+# stops at the timeline)
+# ---------------------------------------------------------------------------
+
+def metrics(fmt: str = "dict"):
+    """Snapshot of the process-wide metrics registry, every layer's
+    counters, gauges and histograms: ``fmt="dict"`` the plain data,
+    ``"json"`` the ``/metrics.json`` body, ``"prometheus"`` the text
+    exposition, byte-identical to ``GET :$HVDTPU_METRICS_PORT/metrics``.
+    Works before and without ``init()``."""
+    return _format_snapshot(obs.REGISTRY.snapshot(), fmt)
+
+
+def cluster_metrics(fmt: str = "dict"):
+    """The job's merged view of every rank's registry, formatted as
+    :func:`metrics`: each rank publishes its snapshot into the job's KV
+    store (armed by ``init()`` under the launcher), and this merges them —
+    counters per rank (a ``rank`` label) plus their sum, gauges per rank,
+    histogram buckets merged where the edges agree.  Served as
+    ``/cluster`` and ``/cluster.json`` too.  A process started without a
+    launcher is the world-size-1 cluster, labeled ``rank="0"``."""
+    return _format_snapshot(obs.aggregate.cluster_snapshot(), fmt)
+
+
+def flight_record(path: Optional[str] = None) -> Optional[str]:
+    """Write a flight-recorder bundle now and return its path
+    (:mod:`.obs.flightrec`): the recent event ring, a registry snapshot,
+    the process identity and, across processes, the controller's last
+    straggler attribution.  ``path=None`` names a file under the armed
+    directory (or the working directory).  None only when the dump itself
+    failed (logged, never raised).  Works before and without ``init()``."""
+    state = global_state()
+    stall = None
+    if state.engine is not None:
+        stall = getattr(state.engine._negotiator, "last_stall_info", None)
+    return obs.flightrec.RECORDER.dump(path, reason="manual", stall=stall)
+
+
+def _format_snapshot(snap, fmt: str):
+    if fmt == "dict":
+        return snap
+    if fmt == "json":
+        return obs.export.to_json(snap)
+    if fmt == "prometheus":
+        return obs.export.to_prometheus(snap)
+    raise ValueError(
+        f"fmt must be 'dict', 'json' or 'prometheus', got {fmt!r}")
 
 
 # ---------------------------------------------------------------------------

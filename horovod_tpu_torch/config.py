@@ -464,24 +464,28 @@ def from_yaml(path: str, base: Optional[Config] = None) -> Config:
     return cfg
 
 
-# Knobs whose feature the port does not have yet: field -> the ROADMAP
-# section A item that ports it.  Set away from its default, each one
-# raises at ``init`` rather than being quietly ignored.
+# Knobs whose feature the port does not have yet: field -> the ROADMAP.md
+# section A item that ports it, named by its title (titles outlive the
+# items' numbers).  Set away from its default, each one raises at
+# ``init`` rather than being quietly ignored.
+_WIRE = "'Wire precision'"
+_SCHED = "'Schedule IR, hierarchy and buckets'"
+_ELASTIC = "'Elastic and autoscale'"
+_OBS = "'Observability'"
 _NOT_PORTED = {
-    "wire_precision": "item 6 (wire precision)",
-    "sched_mode": "item 7 (schedule IR)",
-    "hierarchical_allreduce": "item 7 (hierarchy)",
-    "hierarchical_allgather": "item 7 (hierarchy)",
-    "hierarchical_local_size": "item 7 (hierarchy)",
-    "hierarchical_cross_precision": "item 7 (hierarchy)",
-    "bucket_bytes": "item 7 (buckets)",
-    "zero": "item 8 (ZeRO)",
-    "elastic": "item 9 (elastic runtime)",
-    "autoscale": "item 9 (autoscale)",
-    "autotune": "item 10 (autotune)",
-    "metrics_port": "item 10 (metrics endpoint)",
-    "slo": "item 10 (SLO engine)",
-    "alerts": "item 10 (alerting)",
+    "wire_precision": _WIRE,
+    "sched_mode": _SCHED,
+    "hierarchical_allreduce": _SCHED,
+    "hierarchical_allgather": _SCHED,
+    "hierarchical_local_size": _SCHED,
+    "hierarchical_cross_precision": _SCHED,
+    "bucket_bytes": _SCHED,
+    "zero": "'ZeRO-1 and Adasum'",
+    "elastic": _ELASTIC,
+    "autoscale": _ELASTIC,
+    "autotune": _OBS,
+    "slo": _OBS,
+    "alerts": _OBS,
 }
 
 

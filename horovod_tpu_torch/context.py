@@ -18,9 +18,14 @@ Rendezvous: with more than one rank, ``coordinator_addr``
 (``HVDTPU_COORDINATOR_ADDR``, ``host:port``) names the TCP store rank 0
 listens on, and ``controller_addr`` the native negotiation controller
 the launcher started; one rank with no address uses an in-process store.
-Then :func:`init` starts the collective engine (:mod:`.ops.engine`) and
-the process-set table.  :func:`shutdown` stops both and destroys the
-process group, and a later :func:`init` starts afresh.
+Then :func:`init` starts the collective engine (:mod:`.ops.engine`), the
+process-set table and the metrics plane: the HTTP endpoint when
+``metrics_port`` is set (``HVDTPU_METRICS_PORT``), this rank's snapshot
+publisher into the job's KV store (``HVDTPU_RENDEZVOUS_ADDR``, which the
+launcher injects) with the cluster aggregator behind ``/cluster``, the
+time-series tier and the ``/healthz`` provider.  :func:`shutdown` stops
+all of it and destroys the process group, and a later :func:`init` starts
+afresh.
 
 Also here: the component-health table that ``/healthz`` reads (a serving
 session reports into it while it drains after an engine failure), and the
@@ -33,6 +38,7 @@ import atexit
 import os
 import socket
 import threading
+import time
 from datetime import timedelta
 from typing import Optional
 
@@ -101,6 +107,7 @@ class _GlobalState:
         # _start_process_group), and the count of inits that used them.
         self.stores: dict = {}
         self.generation = 0
+        self.metrics_server = None          # obs.server, when init bound it
 
 
 _state = _GlobalState()
@@ -247,13 +254,89 @@ def _start_runtime(cfg, rank: int, size: int, local_rank: int,
     _state.process_set_table = ProcessSetTable(_state)
     _state.engine = CollectiveEngine(_state, negotiator)
     _state.engine.start()
+    _start_metrics_plane(cfg, rank, size, dev)
     _state.initialized = True
+
+
+def _start_metrics_plane(cfg, rank: int, size: int,
+                         dev: torch.device) -> None:
+    """The endpoint (when ``metrics_port`` is set), the build-info gauge,
+    this rank's snapshot publisher and the cluster aggregator, the
+    time-series tier and the ``/healthz`` provider († the reference's
+    ``context._arm_obs_plane``).  Telemetry never fails ``init``: a port
+    another process holds (every rank of a job on one host sees the same
+    knob) is a warning."""
+    from . import __version__
+    from .obs import REGISTRY, aggregate, server, tsdb
+    if cfg.metrics_port is not None:
+        try:
+            _state.metrics_server = server.start(cfg.metrics_port)
+        except OSError as e:
+            log.warning("metrics endpoint not started on port %d: %s",
+                        cfg.metrics_port, e)
+    g = REGISTRY.gauge(
+        "horovod_tpu_build_info",
+        "always 1; labels self-identify the scraped process "
+        "(version/rank/world size/device kind)",
+        ("version", "rank", "size", "device_kind"))
+    g.zero_all()
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    g.labels(version=__version__, rank=str(rank), size=str(size),
+             device_kind=kind).set(1)
+    aggregate.start_for_rank(rank, size)
+    if cfg.tsdb_interval_s > 0:
+        tsdb.arm(interval_s=cfg.tsdb_interval_s,
+                 retention_s=cfg.tsdb_retention_s)
+    else:
+        tsdb.disarm()
+    server.set_health_provider(_health_snapshot)
+
+
+def _stop_metrics_plane() -> None:
+    from .obs import aggregate, server, tsdb
+    server.set_health_provider(None)
+    aggregate.stop()
+    tsdb.disarm()
+    if _state.metrics_server is not None:
+        server.stop()
+        _state.metrics_server = None
+
+
+def _health_snapshot() -> dict:
+    """The ``/healthz`` payload: is this rank able to train or serve now,
+    and how fresh is its view of the job († the reference's)."""
+    eng = _state.engine
+    alive = bool(eng is not None and eng.alive)
+    ready = bool(_state.initialized and alive)
+    status = "ok" if ready else "unready"
+    d = {"rank": _state.rank, "size": _state.size, "engine_alive": alive,
+         "uptime_s": round(time.monotonic() - _START_MONO, 3)}
+    if eng is not None:
+        age = eng.last_negotiation_age_s
+        d["last_negotiation_age_s"] = round(age, 3)
+        limit = _state.config.health_max_negotiation_age_s
+        if ready and limit > 0 and age > limit:
+            # A wedged negotiation means this rank cannot make progress.
+            ready, status = False, "stalled"
+    with _component_lock:
+        comps = {k: dict(v) for k, v in _components.items()}
+    if comps:
+        d["components"] = comps
+        down = sorted(k for k, v in comps.items() if not v.get("ready"))
+        if ready and down:
+            ready, status = False, "degraded:" + ",".join(down)
+    d["ready"], d["status"] = ready, status
+    return d
+
+
+_START_MONO = time.monotonic()
 
 
 def _stop_runtime() -> None:
     """Undo :func:`_start_runtime` and the process group (the lock held)."""
     import torch.distributed as dist
     _state.initialized = False
+    _stop_metrics_plane()
     if _state.engine is not None:
         _state.engine.stop()
         _state.engine = None

@@ -17,10 +17,11 @@ take.  The flight recorder is the black box for that moment:
   the stall attribution of the native controller (missing-rank list
   **and** bitmap per stalled tensor), so the file alone names the
   straggler;
-- **wiring**: a serving session dumps when it gives up after repeated
-  engine failures, an installed ``sys.excepthook`` dumps on an unhandled
-  crash, and :meth:`FlightRecorder.dump` dumps on demand.  The collective
-  engine's and elastic loop's dumps arrive with their slices.
+- **wiring**: the collective engine dumps on stall-shutdown, a serving
+  session dumps when it gives up after repeated engine failures, an
+  installed ``sys.excepthook`` dumps on an unhandled crash, and
+  ``hvd.flight_record(path)`` dumps on demand.  The elastic loop's dump
+  arrives with its slice.
 
 Auto-dumps require arming (:meth:`FlightRecorder.arm`) so crashing jobs don't surprise-write
 files; the manual API always works.  Dumping never raises — the
@@ -211,6 +212,7 @@ class FlightRecorder:
                 "events": self.snapshot(),
                 "stall": format_stall(stall) if stall else {},
                 "metrics": _jsonsafe(REGISTRY.snapshot()),
+                "tsdb": self._tsdb_summary(),
             }
             if extra:
                 bundle["extra"] = _jsonsafe(dict(extra))
@@ -234,6 +236,18 @@ class FlightRecorder:
             except Exception:
                 pass
             return None
+
+    @staticmethod
+    def _tsdb_summary() -> dict:
+        """Recent raw time-series tail for the curated crash set (queue
+        depth, cycle time) — the minutes *leading up to* the event, not
+        just its instant ({} when the tsdb tier is not armed).  Guarded:
+        no bundle is ever lost to the tsdb tier."""
+        try:
+            from .tsdb import flight_summary
+            return flight_summary()
+        except Exception:
+            return {}
 
     def maybe_dump(self, reason: str, *, stall: Optional[dict] = None,
                    extra: Optional[dict] = None) -> Optional[str]:

@@ -86,7 +86,8 @@ def allreduce_(buf: torch.Tensor, op: ReduceOp, group, n: int, *,
     import torch.distributed as dist
     if op is ReduceOp.ADASUM:
         raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP section A item 8)")
+            "Adasum is not ported yet (ROADMAP section A "
+            "'ZeRO-1 and Adasum')")
     _scale_(buf, prescale)
     if op is ReduceOp.PRODUCT:
         parts = [torch.empty_like(buf) for _ in range(n)]

@@ -8,7 +8,8 @@ bfloat16 (fp32's exponent range, no loss scaling) and ``fp16_ieee`` to
 IEEE float16; ``bf16`` names the bfloat16 cast outright.
 
 The block-scaled quantized wires (``int8``, ``fp8``) quantize inside the
-collective and wait for ROADMAP section A item 6: naming them raises.
+collective and wait for ROADMAP section A 'Wire precision': naming them
+raises.
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ class _QuantizedCompressor(Compressor):
     def compress(cls, tensor):
         raise NotImplementedError(
             f"the {cls.wire_mode} wire quantizes inside the collective and "
-            "is not ported yet (ROADMAP section A item 6)")
+            "is not ported yet (ROADMAP section A 'Wire precision')")
 
     decompress = compress
 

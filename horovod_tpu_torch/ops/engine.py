@@ -38,8 +38,9 @@ What torch needs that JAX did not:
   one runs in place with no copy.
 
 Not ported: the performance-model hook of the reference's dispatch path
-(ROADMAP section A item 10) and the wire-precision and schedule fields
-(items 6 and 7), whose knobs ``init`` refuses.
+(ROADMAP section A 'Observability') and the wire-precision and schedule
+fields ('Wire precision'; 'Schedule IR, hierarchy and buckets'), whose
+knobs ``init`` refuses.
 """
 
 from __future__ import annotations

@@ -21,7 +21,8 @@ named by its position in ``param_groups`` (the reference's fallback,
 
 from __future__ import annotations
 
-from typing import Any
+import weakref
+from typing import Any, Optional
 
 import torch
 
@@ -100,10 +101,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def __init__(self, optimizer: torch.optim.Optimizer,
                  named_parameters=None, op: ReduceOp = Average,
                  compression=Compression.none,
-                 backward_passes_per_step: int = 1) -> None:
+                 backward_passes_per_step: int = 1,
+                 bucket_cap_bytes: Optional[int] = None) -> None:
+        if bucket_cap_bytes is not None and (
+                isinstance(bucket_cap_bytes, bool)
+                or not isinstance(bucket_cap_bytes, int)
+                or bucket_cap_bytes < 1):
+            raise ValueError(f"bucket_cap_bytes must be None or a positive "
+                             f"int, got {bucket_cap_bytes!r}")
         if op is Adasum:
             raise NotImplementedError(
-                "Adasum is not ported yet (ROADMAP section A item 8)")
+                "Adasum is not ported yet (ROADMAP section A "
+                "'ZeRO-1 and Adasum')")
         check_supported(compression)
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
@@ -111,6 +120,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self.op = op
         self._compression = compression
         self._bpps = backward_passes_per_step
+        self.bucket_cap_bytes = bucket_cap_bytes
         params = [p for group in optimizer.param_groups
                   for p in group["params"]]
         if named_parameters is not None:
@@ -135,7 +145,19 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._pass_counts: dict = {}
         # param -> (handle, compression ctx, wire tensor) of this step
         self._handles: dict = {}
-        self._hook_handles = [p.register_post_accumulate_grad_hook(self._hook)
+        # The hook holds the optimizer weakly: a parameter's hook that held
+        # it strongly would make a cycle through the autograd hooks, which
+        # the garbage collector does not see, and a dropped model with its
+        # optimizer (parameters, gradients, Adam's moments) would never be
+        # freed.
+        me = weakref.ref(self)
+
+        def hook(p: torch.Tensor) -> None:
+            opt = me()
+            if opt is not None:
+                opt._hook(p)
+
+        self._hook_handles = [p.register_post_accumulate_grad_hook(hook)
                               for p in self._params]
 
     # the wrapped optimizer's surface
@@ -226,14 +248,25 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None, op: ReduceOp = Average,
                          compression=Compression.none,
-                         backward_passes_per_step: int = 1
+                         backward_passes_per_step: int = 1,
+                         bucket_cap_bytes: Optional[int] = None
                          ) -> _DistributedOptimizer:
     """† ``hvd.DistributedOptimizer`` for torch: wrap ``optimizer`` so
     that every gradient is averaged (``op``) across ranks before its
     update.  ``compression`` casts gradients for the wire
     (``Compression.fp16``/``bf16``); ``backward_passes_per_step`` sums
-    that many backward passes locally before one allreduce."""
+    that many backward passes locally before one allreduce.
+
+    ``bucket_cap_bytes`` is accepted for the JAX package's signature and
+    checked (None or a positive int), and it governs nothing here: the
+    reference staged gradients into host buckets of that size, one
+    transfer and one collective each.  In the port gradients never leave
+    the card, and the engine's fusion threshold (``fusion_threshold``,
+    ``HVDTPU_FUSION_THRESHOLD``) decides which gradients share one
+    collective, so the averaged gradients are the same with or without
+    it."""
     return _DistributedOptimizer(
         optimizer, named_parameters=named_parameters, op=op,
         compression=compression,
-        backward_passes_per_step=backward_passes_per_step)
+        backward_passes_per_step=backward_passes_per_step,
+        bucket_cap_bytes=bucket_cap_bytes)

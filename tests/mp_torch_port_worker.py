@@ -1,12 +1,17 @@
 """Multi-process worker of the port's runtime parity tests.
 
-``launch(mode, outdir)`` plays the launcher: it starts the port's native
-negotiation controller, picks a free port for rank 0's ``torch.distributed``
-store, and runs ``np`` copies of this script, one rank each, on the CPU
-over Gloo (``HVDTPU_PLATFORM=cpu``), with the env ``hvdrun`` injects.
-Every rank runs the battery of ``mode`` and writes what it got to
-``outdir/<mode>.rank<r>.npz`` (arrays) and ``.json`` (everything else);
-the test files compare that with the JAX package run in-process.
+``launch(mode, outdir)`` runs ``np`` copies of this script, one rank each,
+through the port's launcher::
+
+    python -m horovod_tpu_torch.runner -np 2 --platform cpu --verbose \
+        -- python tests/mp_torch_port_worker.py <mode> <outdir>
+
+so every rank gets the env ``hvdrun`` injects (the native controller and KV
+store with the job's secret, rank 0's store port, ``HVDTPU_LOCAL_RANK``)
+and runs on the CPU over Gloo.  Every rank runs the battery of ``mode`` and
+writes what it got to ``outdir/<mode>.rank<r>.npz`` (arrays) and ``.json``
+(everything else); the test files compare that with the JAX package run
+in-process.
 
 The worker imports the port and never jax: each rank also records
 whether ``jax`` reached ``sys.modules`` after ``init``.
@@ -19,7 +24,6 @@ from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import zlib
@@ -50,6 +54,7 @@ COLLECTIVE_CASES = (
        _case("allreduce.process_set", "allreduce", op="sum", ps="all"),
        _case("allreduce.one_rank_set", "allreduce", op="sum", ps="one"),
        _case("grouped_allreduce", "grouped_allreduce", op="average"),
+       _case("grouped_allreduce_sync", "grouped_allreduce_sync", op="sum"),
        _case("reducescatter.sum", "reducescatter", op="sum", rows=4),
        _case("reducescatter.average", "reducescatter", op="average",
              rows=4),
@@ -92,6 +97,7 @@ def engine_input(tag: str, rank: int, i: int, n: int = 5) -> np.ndarray:
     return np.random.RandomState(seed).randn(n).astype(np.float32)
 
 
+OBS_ALLREDUCES = 3         # allreduces of the obs battery before publishing
 ENGINE_FUSED = 20          # tensors enqueued in one cycle
 ENGINE_THRESHOLD = 4       # tensors of 8 floats under a 40-byte threshold
 JOIN_STEPS = (3, 5)        # steps of rank 0 and rank 1 before join()
@@ -101,48 +107,54 @@ JOIN_STEPS = (3, 5)        # steps of rank 0 and rank 1 before join()
 # ---------------------------------------------------------------------------
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _rank_outputs(stdout: str, stderr: str, np_: int) -> list:
+    """Split the launcher's output by its ``[r]<stdout>: `` prefixes and
+    read each rank's exit code from its ``[launcher] rank r exited c``
+    lines (``--verbose``); a rank with no such line did not exit by
+    itself (None).  The launcher's own stderr ends every rank's text."""
+    texts: list = [[] for _ in range(np_)]
+    for line in stdout.splitlines(keepends=True):
+        head, sep, rest = line.partition("]<stdout>: ")
+        if sep and head.startswith("[") and head[1:].isdigit() \
+                and int(head[1:]) < np_:
+            texts[int(head[1:])].append(rest)
+    codes: list = [None] * np_
+    for line in stderr.splitlines():
+        words = line.split()
+        if words[:2] == ["[launcher]", "rank"] and len(words) == 5 \
+                and words[3] == "exited":
+            codes[int(words[2])] = int(words[4])
+    return [(codes[r], "".join(texts[r]) + "\n[launcher stderr]\n" + stderr)
+            for r in range(np_)]
 
 
 def launch(mode: str, outdir: str, *, np_: int = NP, timeout: float = 120,
            extra_env: dict | None = None) -> list:
-    """Run ``mode`` on ``np_`` ranks; returns each rank's (exit code,
-    output).  A rank still running at ``timeout`` seconds is killed and
-    reported with exit code None, so a hang fails its test instead of
+    """Run ``mode`` on ``np_`` ranks through the port's launcher; returns
+    each rank's (exit code, output).  At ``timeout`` seconds the launcher
+    is sent SIGTERM, on which it kills every rank still running, and those
+    ranks report exit code None, so a hang fails its test instead of
     eating the suite's time."""
-    sys.path.insert(0, REPO)
-    from horovod_tpu_torch._native import ControllerServer
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HVDTPU_", "HOROVOD_"))}
     env.update(extra_env or {})
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    with ControllerServer(size=np_) as ctrl:
-        store = _free_port()
-        procs = []
-        for r in range(np_):
-            renv = dict(env, HVDTPU_CROSS_RANK=str(r),
-                        HVDTPU_CROSS_SIZE=str(np_), HVDTPU_LOCAL_RANK=str(r),
-                        HVDTPU_PLATFORM="cpu",
-                        HVDTPU_COORDINATOR_ADDR=f"127.0.0.1:{store}",
-                        HVDTPU_CONTROLLER_ADDR=f"127.0.0.1:{ctrl.port}")
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), mode, outdir],
-                env=renv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        out = []
-        for p in procs:
-            try:
-                text, _ = p.communicate(timeout=timeout)
-                out.append((p.returncode, text))
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                text, _ = p.communicate()
-                out.append((None, text))
-        return out
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
+           str(np_), "--platform", "cpu", "--verbose", "--",
+           sys.executable, os.path.abspath(__file__), mode, outdir]
+    proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            out, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        err += f"\n[test] launcher stopped after {timeout} s\n"
+    return _rank_outputs(out, err, np_)
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +200,9 @@ def run_collectives(hvd, me: int, arrays: dict, info: dict) -> None:
                                 prescale_factor=case.get("prescale", 1.0),
                                 postscale_factor=case.get("postscale", 1.0),
                                 name=name, process_set=ps)
-        elif verb == "grouped_allreduce":
+        elif verb.startswith("grouped_allreduce"):
             xs = [_t(case_input(case, me, part), dt) for part in range(3)]
-            for i, o in enumerate(hvd.grouped_allreduce(
+            for i, o in enumerate(getattr(hvd, verb)(
                     xs, _op(hvd, case["op"]), name=name)):
                 arrays[f"{name}.{i}"] = _np(o)
             continue
@@ -304,6 +316,11 @@ def run_engine(hvd, me: int, arrays: dict, info: dict) -> None:
 
 def run_runtime(hvd, me: int, arrays: dict, info: dict) -> None:
     import torch
+    info["launcher_env"] = sorted(
+        k for k in ("HVDTPU_SECRET", "HVDTPU_CONTROLLER_ADDR",
+                    "HVDTPU_RENDEZVOUS_ADDR", "HVDTPU_COORDINATOR_ADDR",
+                    "HVDTPU_LOCAL_RANK", "HVDTPU_PLATFORM")
+        if os.environ.get(k))
     info.update(rank=hvd.rank(), size=hvd.size(),
                 local_rank=hvd.local_rank(), local_size=hvd.local_size(),
                 cross_rank=hvd.cross_rank(), cross_size=hvd.cross_size(),
@@ -370,6 +387,19 @@ def run_optimizer(hvd, me: int, arrays: dict, info: dict,
     for name, t in named:
         arrays[f"llama.{name}"] = _np(t)
 
+    # bucket_cap_bytes: accepted, and the averaged gradients are those of
+    # the same optimizer without it
+    for cap in (None, 64):
+        torch.manual_seed(0)
+        lin = torch.nn.Linear(4, 3)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(lin.parameters(), lr=0.5),
+            named_parameters=lin.named_parameters(), bucket_cap_bytes=cap)
+        x = torch.from_numpy(engine_input("bucket", me, 0, 8)).reshape(2, 4)
+        lin(x).square().sum().backward()
+        opt.synchronize()
+        arrays[f"bucket_cap.{cap}.grad"] = _np(lin.weight.grad)
+
     # backward_passes_per_step: two local passes, one allreduce
     torch.manual_seed(0)
     model = torch.nn.Linear(4, 3)
@@ -433,8 +463,70 @@ def run_optimizer(hvd, me: int, arrays: dict, info: dict,
         arrays[f"sbn.{k}"] = _np(v)
 
 
+def run_obs(hvd, me: int, arrays: dict, info: dict, outdir: str) -> None:
+    """The metrics plane under the launcher: every rank publishes its
+    registry after ``OBS_ALLREDUCES`` named allreduces; rank 0 reads the
+    merged view; the rank that bound ``HVDTPU_METRICS_PORT`` (if any)
+    holds its ``/metrics`` against ``hvd.metrics("prometheus")``; every
+    rank writes a flight-recorder bundle."""
+    import time
+    import urllib.request
+
+    import torch
+
+    from horovod_tpu_torch.obs import aggregate
+
+    info["launcher_env"] = sorted(
+        k for k in ("HVDTPU_SECRET", "HVDTPU_CONTROLLER_ADDR",
+                    "HVDTPU_RENDEZVOUS_ADDR") if os.environ.get(k))
+    for i in range(OBS_ALLREDUCES):
+        hvd.allreduce(torch.ones(4), hvd.Sum, name=f"obs.{i}")
+    info["published"] = aggregate.publish_now()
+    info["own"] = _collectives(hvd.metrics())
+    hvd.barrier(process_set=hvd.global_process_set())  # all published
+    if me == 0:
+        info["cluster"] = _collectives(hvd.cluster_metrics(), by_rank=True)
+        info["registry_at_cluster"] = _collectives(hvd.metrics())
+    srv = hvd.global_state().metrics_server
+    info["bound_metrics_port"] = srv is not None
+    if srv is not None:
+        # Let the engine's thread close the cycle that served the barrier
+        # (its cycle histogram): two equal reads 0.2 s apart.
+        text = hvd.metrics("prometheus")
+        for _ in range(50):
+            time.sleep(0.2)
+            again, text = text, hvd.metrics("prometheus")
+            if again == text:
+                break
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/metrics", timeout=10) as r:
+            info["metrics_equal"] = r.read().decode() == text
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/cluster", timeout=10) as r:
+            info["cluster_http_ok"] = r.status == 200
+    path = hvd.flight_record(os.path.join(outdir, f"flight.rank{me}.json"))
+    with open(path) as fh:
+        bundle = json.load(fh)
+    info["flight"] = [bundle["rank"], bundle["size"], bundle["reason"]]
+    hvd.barrier(process_set=hvd.global_process_set())  # rank 0 has read
+
+
+def _collectives(snap: list, by_rank: bool = False) -> dict:
+    """``hvd_collectives_total`` of a snapshot: verb -> count, or with
+    ``by_rank`` "<rank label or sum>.<verb>" -> count."""
+    [fam] = [f for f in snap if f["name"] == "hvd_collectives_total"]
+    out = {}
+    for smp in fam["samples"]:
+        lab = smp["labels"]
+        key = lab["verb"] if not by_rank else \
+            f"{lab.get('rank', 'sum')}.{lab['verb']}"
+        out[key] = smp["value"]
+    return out
+
+
 BATTERIES = {"collectives": run_collectives, "engine": run_engine,
-             "runtime": run_runtime, "optimizer": run_optimizer}
+             "runtime": run_runtime, "optimizer": run_optimizer,
+             "obs": run_obs}
 
 
 def main(mode: str, outdir: str) -> int:
@@ -447,7 +539,7 @@ def main(mode: str, outdir: str) -> int:
         m == "jax" or m.startswith(("jax.", "jaxlib"))
         or m.split(".")[0] == "horovod_tpu" for m in sys.modules)}
     fn = BATTERIES[mode]
-    if mode == "optimizer":
+    if mode in ("optimizer", "obs"):
         fn(hvd, me, arrays, info, outdir)
     else:
         fn(hvd, me, arrays, info)

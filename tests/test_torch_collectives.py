@@ -4,7 +4,8 @@ Two processes, one rank each, run every verb of the port on the CPU over
 Gloo (``tests/mp_torch_port_worker.py``, mode ``collectives``): allreduce
 with every ReduceOp in float32, bfloat16 and int32 (int32 AVERAGE on
 negative values, where floor division and truncation differ), prescale
-and postscale, grouped allreduce, reducescatter, alltoall with and without
+and postscale, grouped allreduce (and its ``grouped_allreduce_sync``
+name), reducescatter, alltoall with and without
 splits, allgather (equal and ragged rows), broadcast from rank 1, the
 in-place forms, a two-rank and a one-rank process set.
 
@@ -97,8 +98,8 @@ def _jax_reference(case, sets) -> list:
             prescale_factor=case.get("prescale", 1.0),
             postscale_factor=case.get("postscale", 1.0), process_set=ps))
         return [out] * W.NP
-    if verb == "grouped_allreduce":
-        outs = hvd.grouped_allreduce(
+    if verb.startswith("grouped_allreduce"):
+        outs = getattr(hvd, verb)(
             [_per_rank(case, ps, part) for part in range(3)], op,
             process_set=ps)
         return [[_f32(o) for o in outs]] * W.NP
@@ -135,7 +136,7 @@ def test_verb_matches_jax(port, sets, name):
             assert "not in ProcessSet" in info[f"{name}.error"]
             assert name not in arrays
             continue
-        if case["verb"] == "grouped_allreduce":
+        if case["verb"].startswith("grouped_allreduce"):
             for i, w in enumerate(want[r]):
                 _close(case, arrays[f"{name}.{i}"].astype(np.float32), w,
                        f"{name}.{i} rank {r}")

@@ -140,6 +140,24 @@ def test_backward_passes_per_step(run):
                                    atol=1e-6)
 
 
+def test_bucket_cap_bytes_gives_the_same_average(run):
+    """The reference's host-bucket cap is accepted; the averaged
+    gradients are those of the same optimizer without it, and the
+    average over both ranks' inputs."""
+    ranks, _, _ = run
+    torch.manual_seed(0)
+    lin = torch.nn.Linear(4, 3)
+    for r in range(W.NP):
+        x = torch.from_numpy(W.engine_input("bucket", r, 0, 8)).reshape(2, 4)
+        lin(x).square().sum().backward()
+    want = (lin.weight.grad / W.NP).numpy()
+    for arrays, _ in ranks:
+        np.testing.assert_array_equal(arrays["bucket_cap.64.grad"],
+                                      arrays["bucket_cap.None.grad"])
+        np.testing.assert_allclose(arrays["bucket_cap.64.grad"], want,
+                                   rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("key,match", [
     ("too_early", "requires exactly 2"),
     ("missing", "before every gradient was reduced")])
@@ -265,3 +283,35 @@ def test_optimizer_rejects_what_is_not_ported(one_rank):
         one_rank.DistributedOptimizer(
             torch.optim.SGD(params, lr=0.1),
             named_parameters=[("w", params[0])])
+
+
+def test_dropped_model_and_optimizer_are_freed(one_rank):
+    """Parameters, gradients and the optimizer's state go with the last
+    reference to the model and its DistributedOptimizer: the gradient
+    hooks must not keep the optimizer alive (a cycle through autograd's
+    hooks, which the garbage collector does not see, once held a dropped
+    7B model's 54 GB on the card)."""
+    import gc
+    import weakref
+    model = torch.nn.Linear(4, 3)
+    opt = one_rank.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=0.1),
+        named_parameters=model.named_parameters())
+    model(torch.ones(2, 4)).sum().backward()
+    opt.step()
+    refs = [weakref.ref(model.weight), weakref.ref(opt),
+            weakref.ref(opt.state[model.weight]["exp_avg"])]
+    del model, opt
+    gc.collect()
+    assert [r() for r in refs] == [None, None, None]
+
+
+@pytest.mark.parametrize("cap", [0, -1, 1.5, "64", True])
+def test_bucket_cap_bytes_is_checked(one_rank, cap):
+    params = list(torch.nn.Linear(2, 2).parameters())
+    with pytest.raises(ValueError, match="bucket_cap_bytes"):
+        one_rank.DistributedOptimizer(torch.optim.SGD(params, lr=0.1),
+                                      bucket_cap_bytes=cap)
+    opt = one_rank.DistributedOptimizer(torch.optim.SGD(params, lr=0.1),
+                                        bucket_cap_bytes=1 << 20)
+    assert opt.bucket_cap_bytes == 1 << 20

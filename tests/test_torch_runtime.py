@@ -117,7 +117,7 @@ _NOT_PORTED = {
     "hierarchical_allreduce": True, "hierarchical_allgather": True,
     "hierarchical_local_size": 4, "hierarchical_cross_precision": "int8",
     "bucket_bytes": 1 << 20, "zero": True, "elastic": True,
-    "autoscale": True, "autotune": True, "metrics_port": 9137,
+    "autoscale": True, "autotune": True,
     "slo": "p99(ttft) < 250ms", "alerts": "x: y > 1 : warn"}
 
 
@@ -129,9 +129,20 @@ def test_not_ported_table_is_complete():
 def test_unported_knob_raises_at_init(knob):
     import horovod_tpu_torch as hvd
     cfg = port_config.Config(platform="cpu", **{knob: _NOT_PORTED[knob]})
-    with pytest.raises(NotImplementedError, match="ROADMAP section A item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP section A '"):
         hvd.init(config=cfg)
     assert not hvd.is_initialized()
+
+
+def test_not_ported_items_name_roadmap_titles():
+    """Each refusal names its ROADMAP section A item by a title that is
+    there, so a renumbering cannot stale the messages."""
+    import re
+    with open(os.path.join(REPO, "ROADMAP.md")) as fh:
+        titles = set(re.findall(r"^\d+\. \*\*(.+?)\*\*", fh.read(), re.M))
+    for field, item in port_config._NOT_PORTED.items():
+        assert item.startswith("'") and item.endswith("'"), (field, item)
+        assert item[1:-1] in titles, (field, item, sorted(titles))
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +260,16 @@ def test_two_rank_objects_and_sets(two_ranks):
         assert info["object"] == {"from": 1, "x": [1, 1, 1]}
         assert info["objects"] == [["rank", 0], ["rank", 1]]
         assert info["set"] == [1, r == 1, 1]
+
+
+def test_two_rank_job_holds_the_launchers_env(two_ranks):
+    """The launcher's env reached both ranks, the job's secret among it,
+    so the control plane of this run was the authenticated one."""
+    for _, info in two_ranks:
+        assert info["launcher_env"] == sorted(
+            ["HVDTPU_SECRET", "HVDTPU_CONTROLLER_ADDR",
+             "HVDTPU_RENDEZVOUS_ADDR", "HVDTPU_COORDINATOR_ADDR",
+             "HVDTPU_LOCAL_RANK", "HVDTPU_PLATFORM"])
 
 
 def test_two_rank_reinit(two_ranks):
