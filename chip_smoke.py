@@ -54,7 +54,9 @@ by phase, printing one JSON line per phase:
    to ``train``'s, the others within ``DP_LOSS_REL``.  Then a profile of
    one step (the engine stream's and NCCL's device time, the engine's
    cycles) and every verb at world size 1 on CUDA tensors, with a 16 MB
-   allreduce timed;
+   allreduce timed, and the engine's CUDA-event timing of a group for
+   the performance model (which times nothing at one rank, so the rank
+   poses as two for one call);
 7. ``hvdrun``  the same data-parallel step as a job of the port's launcher,
    ``python -m horovod_tpu_torch.runner -np 1 -- python chip_smoke.py
    --hvdrun-worker OUT``, with ``HVDTPU_METRICS_PORT`` set, once this
@@ -65,11 +67,30 @@ by phase, printing one JSON line per phase:
    metrics plane: ``/metrics`` byte-identical to ``hvd.metrics
    ("prometheus")``, ``cluster_metrics()``'s ``rank="0"`` series of
    ``hvd_collectives_total`` equal to the registry's, a flight-recorder
-   bundle naming rank 0 of 1.  This process requires the launcher's exit
+   bundle naming rank 0 of 1 (the sampling profiler, which counts its
+   ticks into the registry, pauses around the byte comparison).  This
+   process requires the launcher's exit
    code 0, the first loss bitwise equal to ``train``'s and the later ones
    within ``DP_LOSS_REL``, and prints the step median beside
    ``train_dp``'s and the launcher's wall seconds;
-8. ``train_parity``  two layers at full width, S=4096: loss and every
+8. ``hvdrun_obs``  the same job with the rest of the observability plane
+   armed: ``python -m horovod_tpu_torch.runner -np 1 --autotune
+   --autotune-log D/autotune.log -- python chip_smoke.py --hvdrun-worker
+   OUT --obs``, with an SLO on the engine's cycle time, an alert rule that
+   fires while collectives run (no hold), a 0.5 s time-series interval and
+   a tuner that scores every two busy cycles.  The worker takes train's
+   four steps, each inside one span of the port's tracer, and holds every
+   ``train_dp`` check; then the plane: tuner trials and every committed
+   knob on the tuner's grid; ``hvd_slo_attainment{slo="cycle"}`` equal to
+   the good fraction this script computes from the registry's cycle
+   histogram; the rule firing on ``/alertz.json`` and its transition in
+   the flight bundle; profiler samples and engine phases on ``/profz.json``,
+   its peak device memory within 1% of ``torch.cuda.max_memory_allocated``
+   and its ring in the bundle; no performance-model observation at one
+   rank; the step spans on ``/tracez``'s rank-0 lane.  This process
+   requires every loss bitwise equal to ``train``'s and prints the step
+   median beside ``train_dp``'s and ``hvdrun``'s;
+9. ``train_parity``  two layers at full width, S=4096: loss and every
    gradient through the kernels against the same call through their plain
    versions (``llama._FORCE_ATTENTION_REFERENCE``).
 
@@ -77,8 +98,9 @@ Then a ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line; without a CUDA device, or without the port's
 package beside the script, it exits 2.  ``--phases`` runs a subset
-(``device,build,kernel,serve,train,train_dp,hvdrun,train_parity``;
-``train_dp`` needs ``train``, ``hvdrun`` needs both); ``--root DIR`` drives
+(``device,build,kernel,serve,train,train_dp,hvdrun,hvdrun_obs,
+train_parity``; ``train_dp`` and ``hvdrun_obs`` need ``train``, ``hvdrun``
+needs ``train`` and ``train_dp``); ``--root DIR`` drives
 the package of another checkout (an unpacked parent commit, say) with
 this script's shapes, checks and timers.
 """
@@ -97,7 +119,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 PHASES = ("device", "build", "kernel", "serve", "train", "train_dp",
-          "hvdrun", "train_parity")
+          "hvdrun", "hvdrun_obs", "train_parity")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -894,7 +916,48 @@ def dp_collectives_check(torch, hvd) -> dict:
     return {"verbs_checked": len(checked),
             "allreduce_16mb_ms_host": times[len(times) // 2],
             "dist_all_reduce_16mb_ms": raw[len(raw) // 2],
-            "busbw_gbs": 0.0}
+            "busbw_gbs": 0.0, **_perf_timing_check(torch, hvd, buf)}
+
+
+def _perf_timing_check(torch, hvd, buf) -> dict:
+    """The engine times a group with CUDA events on its stream, read in a
+    later cycle, only where the performance model has a wire to time (two
+    ranks or more), which one card cannot host.  So the one rank poses as
+    two for one AVERAGE allreduce (NCCL at world size 1 hands the buffer
+    back, and the engine's stream halves it: exact in float32), and a
+    later cycle must feed the model one observation whose time lies
+    inside the host's window around the call.  What it reports is no bus
+    bandwidth: no byte crossed a link."""
+    from horovod_tpu_torch.obs import perfmodel
+
+    obs = perfmodel._m_obs.labels(verb="allreduce")
+    state = hvd.global_state()
+    before = obs.value
+    want = buf / 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state.size = 2
+    try:
+        hvd.allreduce_(buf, hvd.Average, name="dp_check.timed")
+        torch.cuda.synchronize()
+    finally:
+        state.size = 1
+    host_s = time.perf_counter() - t0
+    for _ in range(50):           # the engine reads the events after it
+        if obs.value > before:    # completes the handle
+            break
+        hvd.allreduce_(buf[:1].clone(), hvd.Sum, name="dp_check.next")
+        time.sleep(0.1)
+    rows = [r for r in perfmodel.MODEL.summary()
+            if r["verb"] == "allreduce" and r["n"] == 2]
+    seconds = rows[0]["seconds"] if rows else None
+    if obs.value - before != 1 or not seconds or seconds > host_s or \
+            not torch.equal(buf, want):
+        raise AssertionError(
+            f"engine timing: {obs.value - before} observations, event "
+            f"seconds {seconds} against the host's {host_s}")
+    return {"timed_group_ms_events": seconds * 1e3,
+            "timed_group_ms_host": host_s * 1e3}
 
 
 def _engine_device_ms(prof) -> tuple:
@@ -920,17 +983,21 @@ def _engine_device_ms(prof) -> tuple:
                and "spin" not in e.name and "nccl" not in e.name.lower()))
 
 
-def _dp_steps(torch, hvd, steps: int) -> dict:
+def _dp_steps(torch, hvd, steps: int, span: str = "") -> dict:
     """The train phase's model, weights and batch, stepped through the
     initialized runtime: ``broadcast_parameters``, ``DistributedOptimizer``
     over fused Adam, one warm-up and ``steps`` timed steps, every count
-    read per step.  Returns what was measured, the faults found (all but
-    the losses, which the caller holds against train's) and the step,
+    read per step, each step inside a trace span named ``span`` when one
+    is given.  Returns what was measured, the faults found (all but the
+    losses, which the caller holds against train's) and the step,
     parameters and batch."""
+    import contextlib
+
     import numpy as np
     import torch.distributed as dist
 
     from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.obs import trace
 
     faults = []
     if dist.get_backend() != "nccl" or hvd.size() != 1 or \
@@ -970,8 +1037,10 @@ def _dp_steps(torch, hvd, steps: int) -> dict:
             before = _engine_metrics()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loss = step(params, batch)
-            torch.cuda.synchronize()
+            with (trace.start_trace(span, lane="steps", step=i) if span
+                  else contextlib.nullcontext()):
+                loss = step(params, batch)
+                torch.cuda.synchronize()
             if i:
                 step_s.append(time.perf_counter() - t0)
             losses.append(loss.item())
@@ -1119,6 +1188,19 @@ def dp_breakdown(torch, step, params, batch, wall_ms: float,
 # ---------------------------------------------------------------------------
 
 HVDRUN_TIMEOUT_S = 420      # the launcher, its worker's 7B init and 4 steps
+# hvdrun_obs: the plane's knobs.  The alert rule fires (no hold) once the
+# time-series tier has two samples with collectives between them; the
+# tuner scores every two busy cycles after one warm-up sample, so the
+# 30-60 busy cycles a step give it several trials a step.
+OBS_SLO = "cycle=p99(cycle) < 250ms over 5m"
+OBS_ALERT = "busy"
+OBS_ALERTS = f"{OBS_ALERT}: rate(hvd_collectives_total[10s]) > 0 : info"
+OBS_ENV = {"HVDTPU_SLO": OBS_SLO, "HVDTPU_ALERTS": OBS_ALERTS,
+           "HVDTPU_TSDB_INTERVAL": "0.5",
+           "HVDTPU_AUTOTUNE_WARMUP_SAMPLES": "1",
+           "HVDTPU_AUTOTUNE_STEPS_PER_SAMPLE": "2"}
+OBS_SPAN = "hvdrun_obs.step"
+OBS_DEVMEM_REL = 0.01       # the profiler's peak against torch's
 
 
 def _free_port() -> int:
@@ -1128,38 +1210,45 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_hvdrun(torch, smi: str, trained: dict, dp: dict,
-                 root: Path) -> None:
-    """``python -m horovod_tpu_torch.runner -np 1 -- python chip_smoke.py
-    --hvdrun-worker OUT`` with ``HVDTPU_METRICS_PORT`` set: the script is
-    its own worker (:func:`hvdrun_worker`).  This process has released the
-    card first (train_dp's runtime shut down, no live tensor of the train
-    phases).  The launcher must exit 0, the worker's first loss must
-    equal train's bitwise and the later ones be within ``DP_LOSS_REL``;
-    its step median is printed beside train_dp's of this call."""
+def _launch_worker(torch, root: Path, name: str, *, obs: bool = False
+                   ) -> dict:
+    """Run ``python -m horovod_tpu_torch.runner -np 1 -- python
+    chip_smoke.py --hvdrun-worker OUT`` with ``HVDTPU_METRICS_PORT`` set
+    (with ``obs``, also the launcher's ``--autotune --autotune-log``,
+    ``OBS_ENV`` and the worker's ``--obs``), once this process has
+    released the card (no runtime up, no live tensor of the train phases).
+    The launcher must exit 0 and the worker write OUT; returns what it
+    wrote with the launcher's wall seconds and this process's memory
+    before the launch."""
     import os
+    import shutil
     import signal
     import tempfile
 
     _free_cuda(torch)
     reserved_gb = torch.cuda.memory_reserved() / 1e9
     allocated_gb = torch.cuda.memory_allocated() / 1e9
-    print(f"hvdrun: this process holds {reserved_gb:.3f} GB reserved, "
+    print(f"{name}: this process holds {reserved_gb:.3f} GB reserved, "
           f"{allocated_gb:.3f} GB allocated before the launch",
           file=sys.stderr, flush=True)
     if reserved_gb > 1.0:
-        raise AssertionError(f"hvdrun: this process still holds "
+        raise AssertionError(f"{name}: this process still holds "
                              f"{reserved_gb:.1f} GB of the card; the worker "
                              "needs train_dp's 54 GB")
-    tmp = Path(tempfile.mkdtemp(prefix="hvdrun-"))
+    tmp = Path(tempfile.mkdtemp(prefix=f"{name}-"))
     out = tmp / "worker.json"
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("HVDTPU_", "HOROVOD_"))}
     env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
     env["HVDTPU_METRICS_PORT"] = str(_free_port())
+    flags = []
+    if obs:
+        env.update(OBS_ENV)
+        flags = ["--autotune", "--autotune-log", str(tmp / "autotune.log")]
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
-           "--verbose", "--", sys.executable, str(Path(__file__).resolve()),
-           "--hvdrun-worker", str(out), "--root", str(root)]
+           "--verbose", *flags, "--", sys.executable,
+           str(Path(__file__).resolve()), "--hvdrun-worker", str(out),
+           "--root", str(root), *(["--obs"] if obs else [])]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, env=env, cwd=str(root),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1176,23 +1265,42 @@ def phase_hvdrun(torch, smi: str, trained: dict, dp: dict,
     wall_s = time.perf_counter() - t0
     sys.stderr.write(text)
     sys.stderr.flush()
-    if proc.returncode != 0 or not out.is_file():
-        raise AssertionError(f"hvdrun: the launcher exited "
-                             f"{proc.returncode}; its output ends\n"
-                             f"{text[-4000:]}")
-    w = json.loads(out.read_text())
+    try:
+        if proc.returncode != 0 or not out.is_file():
+            raise AssertionError(f"{name}: the launcher exited "
+                                 f"{proc.returncode}; its output ends\n"
+                                 f"{text[-4000:]}")
+        w = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    w.update(launcher_rc=proc.returncode, launcher_wall_s=wall_s,
+             parent_memory_reserved_gb=reserved_gb,
+             parent_memory_allocated_gb=allocated_gb)
+    return w
+
+
+_WORKER_KEYS = ("launcher_rc", "launcher_wall_s", "parent_memory_reserved_gb",
+                "parent_memory_allocated_gb", "ranks", "backend", "device",
+                "launcher_env", "kernels_reused", "losses", "step_s",
+                "peak_mem_gb", "grad_leaves", "grad_bytes", "engine_per_step",
+                "nccl_calls", "launches", "metrics")
+
+
+def phase_hvdrun(torch, smi: str, trained: dict, dp: dict,
+                 root: Path) -> float:
+    """``python -m horovod_tpu_torch.runner -np 1 -- python chip_smoke.py
+    --hvdrun-worker OUT`` with ``HVDTPU_METRICS_PORT`` set: the script is
+    its own worker (:func:`hvdrun_worker`).  The launcher must exit 0, the
+    worker's first loss must equal train's bitwise and the later ones be
+    within ``DP_LOSS_REL``; its step median is printed beside train_dp's
+    of this call, and returned."""
+    w = _launch_worker(torch, root, "hvdrun")
     faults = w["faults"] + _loss_faults(w["losses"], trained["losses"])
     med = w["step_ms_median"]
     emit({"phase": "hvdrun", "model": "llama2_7b",
           "command": "python -m horovod_tpu_torch.runner -np 1 -- python "
           "chip_smoke.py --hvdrun-worker OUT",
-          "launcher_rc": proc.returncode, "launcher_wall_s": wall_s,
-          "parent_memory_reserved_gb": reserved_gb,
-          "parent_memory_allocated_gb": allocated_gb,
-          **{k: w[k] for k in (
-              "ranks", "backend", "device", "launcher_env", "kernels_reused",
-              "losses", "step_s", "peak_mem_gb", "grad_leaves", "grad_bytes",
-              "engine_per_step", "nccl_calls", "launches", "metrics")},
+          **{k: w[k] for k in _WORKER_KEYS},
           **_against_train(w, trained),
           "step_ms_median": med,
           "train_dp_step_ms_median": dp["step_ms_median"],
@@ -1200,9 +1308,37 @@ def phase_hvdrun(torch, smi: str, trained: dict, dp: dict,
           "card": smi})
     if faults:
         raise AssertionError("hvdrun: " + "; ".join(faults))
-    out.unlink()
-    (tmp / "flight.json").unlink(missing_ok=True)
-    tmp.rmdir()
+    return med
+
+
+def phase_hvdrun_obs(torch, smi: str, trained: dict, dp, hvdrun_ms,
+                     root: Path) -> None:
+    """The hvdrun job with the rest of the observability plane armed (the
+    launcher's ``--autotune``, ``OBS_ENV``) and the worker's ``--obs``
+    checks.  Every loss must equal train's bitwise: at one rank every
+    knob the tuner tries hands each gradient back unchanged.  The step
+    median is printed beside train_dp's and hvdrun's of this call; no
+    time is asserted."""
+    w = _launch_worker(torch, root, "hvdrun_obs", obs=True)
+    faults = list(w["faults"])
+    if w["losses"] != trained["losses"]:
+        faults.append(f"losses {w['losses']} not bitwise equal to train's "
+                      f"{trained['losses']}")
+    med = w["step_ms_median"]
+    emit({"phase": "hvdrun_obs", "model": "llama2_7b",
+          "command": "python -m horovod_tpu_torch.runner -np 1 --autotune "
+          "--autotune-log D/autotune.log -- python chip_smoke.py "
+          "--hvdrun-worker OUT --obs",
+          "env": OBS_ENV, **{k: w[k] for k in _WORKER_KEYS}, "obs": w["obs"],
+          **_against_train(w, trained),
+          "step_ms_median": med,
+          "train_dp_step_ms_median": dp and dp["step_ms_median"],
+          "hvdrun_step_ms_median": hvdrun_ms,
+          "step_vs_train_dp": dp and med / dp["step_ms_median"],
+          "step_vs_hvdrun": hvdrun_ms and med / hvdrun_ms,
+          "card": smi})
+    if faults:
+        raise AssertionError("hvdrun_obs: " + "; ".join(faults))
 
 
 def _settled_metrics(hvd) -> str:
@@ -1221,20 +1357,33 @@ def _settled_metrics(hvd) -> str:
 
 def _metrics_plane_check(hvd, bundle_path: Path) -> tuple:
     """``/metrics`` byte-identical to ``hvd.metrics("prometheus")`` read
-    just before it; ``cluster_metrics()``'s ``rank="0"`` series of
-    ``hvd_collectives_total`` equal to the registry's; a flight-recorder
-    bundle that parses and names rank 0 of 1.  Returns (what was read,
-    faults)."""
+    just before it and just after it; ``cluster_metrics()``'s ``rank="0"``
+    series of ``hvd_collectives_total`` equal to the registry's; a
+    flight-recorder bundle that parses and names rank 0 of 1.  The
+    sampling profiler counts its ticks into the registry ten times a
+    second, so it pauses around the byte comparison; the time-series
+    tier and the alert engine write on their own cadence, so a read
+    during which the registry moved is taken again.  Returns (what was
+    read, faults, the bundle)."""
     import urllib.request
+
+    from horovod_tpu_torch.obs import prof
 
     faults = []
     srv = hvd.global_state().metrics_server
     if srv is None:
-        return {}, ["HVDTPU_METRICS_PORT: init bound no endpoint"]
-    text = _settled_metrics(hvd)
-    with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/metrics",
-                                timeout=30) as r:
-        served = r.read().decode()
+        return {}, ["HVDTPU_METRICS_PORT: init bound no endpoint"], {}
+    prof.PROFILER.stop()
+    try:
+        for attempt in range(5):
+            text = _settled_metrics(hvd)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/metrics", timeout=30) as r:
+                served = r.read().decode()
+            if hvd.metrics("prometheus") == text:
+                break
+    finally:
+        prof.PROFILER.start()
     if served != text:
         faults.append(f"/metrics ({len(served)} bytes) differs from "
                       f"hvd.metrics('prometheus') ({len(text)} bytes)")
@@ -1255,16 +1404,167 @@ def _metrics_plane_check(hvd, bundle_path: Path) -> tuple:
                       f"{bundle.get('size')}")
     return {"endpoint_port": srv.port, "metrics_bytes": len(text),
             "metrics_equal_served": served == text,
+            "metrics_reads": attempt + 1,
             "cluster_rank0_collectives": cluster,
-            "flight_record_events": len(bundle.get("events", ()))}, faults
+            "flight_record_events": len(bundle.get("events", ()))}, \
+        faults, bundle
 
 
-def hvdrun_worker(torch, out: Path, steps: int = 3) -> int:
-    """The worker of the hvdrun phase, run by the port's launcher: the
+def _family(snap: list, name: str) -> list:
+    return next((f["samples"] for f in snap if f["name"] == name), [])
+
+
+def _good_fraction(edges, cum, threshold: float) -> float:
+    """Share of a histogram's observations at or under ``threshold``, by
+    linear interpolation inside the bucket that holds it (the
+    ``histogram_quantile`` convention; 1 on no observation, and what lies
+    past the last finite edge counts as over)."""
+    total = cum[-1]
+    if total <= 0:
+        return 1.0
+    i = next((j for j, e in enumerate(edges) if e >= threshold), len(edges))
+    if i == len(edges):
+        good = cum[-2]
+    elif edges[i] == threshold:
+        good = cum[i]
+    else:
+        lo, below = (edges[i - 1], cum[i - 1]) if i else (0.0, 0)
+        good = below + (cum[i] - below) * (threshold - lo) / (edges[i] - lo)
+    return min(1.0, max(0.0, good / total))
+
+
+def _autotune_check(hvd, log_path: Path) -> tuple:
+    """Tuner trials happened, the log holds its samples, and every knob it
+    committed, in the log and in the live config, is on its grid."""
+    import re
+
+    from horovod_tpu_torch.utils import autotune as AT
+
+    faults = []
+    trials = sum(s["value"] for s in _family(hvd.metrics(),
+                                             "hvd_autotune_trials_total"))
+    lines = log_path.read_text().splitlines() if log_path.is_file() else []
+    commits = [tuple(m.groups()) for m in (re.search(
+        r"threshold=(\d+) cycle_ms=([\d.]+) .* bucket=(\d+)", ln)
+        for ln in lines if "-> next" in ln or "converged:" in ln) if m]
+    cfg = hvd.global_state().config
+    commits.append((cfg.fusion_threshold, cfg.cycle_time_ms,
+                    cfg.bucket_bytes))
+    off = [c for c in commits if int(c[0]) not in AT._THRESHOLDS
+           or float(c[1]) not in AT._CYCLE_TIMES
+           or int(c[2]) not in AT._BUCKET_BYTES]
+    samples = sum("sample #" in ln for ln in lines)
+    if trials <= 0 or samples <= 0:
+        faults.append(f"autotune: {trials} trials, {samples} sample lines")
+    if off:
+        faults.append(f"autotune: knobs off the grid {off[:4]}")
+    return {"trials": trials, "sample_lines": samples,
+            "commits": len(commits) - 1,
+            "converged": any("converged:" in ln for ln in lines),
+            "final": list(commits[-1])}, faults
+
+
+def _obs_plane_check(torch, hvd) -> tuple:
+    """The plane this phase arms, read on the running worker before its
+    metrics-plane check: the profiler (``/profz.json``, its device-memory
+    poll against torch's peak), the alert rule on ``/alertz.json``, the
+    step spans on ``/tracez``.  Returns (what was read, faults)."""
+    import urllib.request
+
+    from horovod_tpu_torch.obs import REGISTRY
+
+    faults = []
+    port = hvd.global_state().metrics_server.port
+
+    def get(path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return json.loads(r.read().decode())
+
+    # The profiler polls every 20th tick (2 s at 10 Hz): wait for a poll
+    # taken after the steps, whose peak is then torch's own.
+    want = torch.cuda.max_memory_allocated(0)
+    got = None
+    for _ in range(30):
+        fam = REGISTRY.get("hvd_prof_device_memory_bytes")
+        got = fam and fam.labels(device="cuda:0",
+                                 kind="peak_bytes_in_use").value
+        if got == want:
+            break
+        time.sleep(0.2)
+    if not got or abs(got - want) > OBS_DEVMEM_REL * want:
+        faults.append(f"profiler peak device memory {got}, torch {want}")
+    profz = get("/profz.json")
+    phases = profz["engine_phases"]
+    if profz["samples"] <= 0 or sum(phases.values()) <= 0:
+        faults.append(f"/profz.json: {profz['samples']} samples, engine "
+                      f"phases {phases}")
+    alertz = get("/alertz.json")
+    state = {a["alert"]: a for a in alertz["alerts"]}.get(OBS_ALERT, {})
+    if state.get("state") != "firing":
+        faults.append(f"/alertz.json: {alertz}")
+    tracez = get("/tracez")
+    steps = [e for e in tracez["traceEvents"]
+             if e.get("name") == OBS_SPAN and e.get("pid") == 0]
+    names = [e for e in tracez["traceEvents"] if e.get("ph") == "M"
+             and e.get("name") == "process_name" and e.get("pid") == 0]
+    if not steps or not names:
+        faults.append(f"/tracez: {len(steps)} step spans on pid 0, "
+                      f"process_name {names}")
+    return {"profiler_samples": profz["samples"], "engine_phases": phases,
+            "profiler_self_seconds": profz["self_seconds"],
+            "devmem_peak_prof": got, "devmem_peak_torch": want,
+            "alert": {k: state.get(k) for k in ("state", "value",
+                                                "fired_total")},
+            "tracez_events": len(tracez["traceEvents"]),
+            "tracez_step_spans": len(steps)}, faults
+
+
+def _obs_bundle_and_slo_check(hvd, bundle: dict) -> tuple:
+    """After the metrics-plane check (the registry settled): the flight
+    bundle carries the profiler's ring and the alert's transition; the SLO
+    gauge equals the good fraction of the registry's cycle histogram
+    (this process's whole run lies inside the SLO's 5 m window); the
+    performance model took no observation at one rank."""
+    from horovod_tpu_torch.obs import slo
+
+    faults = []
+    fired = [e for e in bundle.get("events", ())
+             if e["kind"] == "alert_fired" and e["name"] == OBS_ALERT]
+    profile = bundle.get("profile") or {}
+    if not fired or not profile.get("ring"):
+        faults.append(f"flight bundle: {len(fired)} alert_fired events, "
+                      f"profile keys {sorted(profile)}")
+    slo.status()                  # a fresh sample and evaluation
+    snap = hvd.metrics()
+    att = [s["value"] for s in _family(snap, "hvd_slo_attainment")
+           if s["labels"] == {"slo": "cycle"}]
+    [hist] = [f for f in snap if f["name"] == "hvd_cycle_seconds"]
+    edges = [b for b, _ in hist["samples"][0]["buckets"]][:-1]
+    cum = [sum(s["buckets"][i][1] for s in hist["samples"])
+           for i in range(len(edges) + 1)]
+    want = _good_fraction(edges, cum, 0.25)
+    if len(att) != 1 or abs(att[0] - want) > 1e-9:
+        faults.append(f"hvd_slo_attainment{{slo=\"cycle\"}} {att}, good "
+                      f"fraction of hvd_cycle_seconds {want}")
+    perf = sum(s["value"] for s in _family(snap,
+                                           "hvd_perf_observations_total"))
+    if perf != 0:
+        faults.append(f"{perf} performance-model observations at one rank")
+    return {"slo_attainment": att, "slo_good_fraction": want,
+            "cycles": cum[-1], "alert_fired_events": len(fired),
+            "profile_ring": len(profile.get("ring", ())),
+            "perf_observations": perf}, faults
+
+
+def hvdrun_worker(torch, out: Path, steps: int = 3,
+                  obs: bool = False) -> int:
+    """The worker of the hvdrun phases, run by the port's launcher: the
     launcher's env, the kernels the parent built (no rebuild), ``hvd.init``
     over NCCL on cuda:0, train_dp's model, weights, batch, optimizer and
-    checks, then the metrics plane.  Writes what it found to ``out`` and
-    exits non-zero on any fault."""
+    checks, then the metrics plane; with ``obs`` each step inside a trace
+    span and the rest of the plane checked too.  Writes what it found to
+    ``out`` and exits non-zero on any fault."""
     import os
 
     import horovod_tpu_torch as hvd
@@ -1285,12 +1585,23 @@ def hvdrun_worker(torch, out: Path, steps: int = 3) -> int:
         _build.load(lib, FA._SIGNATURES[lib])
     hvd.init()
     try:
-        run = _dp_steps(torch, hvd, steps)
+        if obs and not hvd.global_state().config.autotune:
+            faults.append("--autotune did not reach the worker")
+        run = _dp_steps(torch, hvd, steps, span=OBS_SPAN if obs else "")
         res = run["res"]
         faults += run["faults"]       # the parent holds the losses
-        metrics, mfaults = _metrics_plane_check(hvd, out.parent /
-                                                "flight.json")
+        if obs:
+            plane, ofaults = _obs_plane_check(torch, hvd)
+            faults += ofaults
+        metrics, mfaults, bundle = _metrics_plane_check(
+            hvd, out.parent / "flight.json")
         faults += mfaults
+        if obs:
+            more, ofaults = _obs_bundle_and_slo_check(hvd, bundle)
+            tuned, tfaults = _autotune_check(
+                hvd, Path(hvd.global_state().config.autotune_log))
+            faults += ofaults + tfaults
+            res["obs"] = {**plane, **more, "autotune": tuned}
         res.update(device=str(hvd.global_state().device),
                    launcher_env=[k for k in env if k not in missing],
                    kernels_reused=reused, metrics=metrics, faults=faults)
@@ -1380,6 +1691,9 @@ def main(argv=None) -> int:
     ap.add_argument("--hvdrun-worker", default=None, metavar="OUT",
                     help="run as the hvdrun phase's worker (started by the "
                     "port's launcher) and write what it found to OUT")
+    ap.add_argument("--obs", action="store_true",
+                    help="with --hvdrun-worker: the hvdrun_obs phase's "
+                    "worker (step spans, the rest of the plane checked)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1391,6 +1705,9 @@ def main(argv=None) -> int:
     if "hvdrun" in phases and "train_dp" not in phases:
         ap.error("hvdrun is held against train's losses and train_dp's "
                  "step time: run train, train_dp and hvdrun")
+    if "hvdrun_obs" in phases and "train" not in phases:
+        ap.error("hvdrun_obs is held against train's losses: run train "
+                 "and hvdrun_obs")
 
     # The checkout's own package, never an installed one: without it (the
     # script alone in a directory) there is nothing to drive.
@@ -1414,7 +1731,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     if args.hvdrun_worker:
-        return hvdrun_worker(torch, Path(args.hvdrun_worker))
+        return hvdrun_worker(torch, Path(args.hvdrun_worker), obs=args.obs)
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as FA
 
@@ -1438,8 +1755,10 @@ def main(argv=None) -> int:
     trained = phase_train(torch, smi) if "train" in phases else None
     dp = phase_train_dp(torch, smi, trained) if "train_dp" in phases \
         else None
-    if "hvdrun" in phases:
-        phase_hvdrun(torch, smi, trained, dp, root)
+    hvdrun_ms = phase_hvdrun(torch, smi, trained, dp, root) \
+        if "hvdrun" in phases else None
+    if "hvdrun_obs" in phases:
+        phase_hvdrun_obs(torch, smi, trained, dp, hvdrun_ms, root)
     if "train_parity" in phases:
         phase_train_parity(torch, smi)
     if res is not None and served is not None and trained is not None:

@@ -471,7 +471,6 @@ def from_yaml(path: str, base: Optional[Config] = None) -> Config:
 _WIRE = "'Wire precision'"
 _SCHED = "'Schedule IR, hierarchy and buckets'"
 _ELASTIC = "'Elastic and autoscale'"
-_OBS = "'Observability'"
 _NOT_PORTED = {
     "wire_precision": _WIRE,
     "sched_mode": _SCHED,
@@ -483,9 +482,6 @@ _NOT_PORTED = {
     "zero": "'ZeRO-1 and Adasum'",
     "elastic": _ELASTIC,
     "autoscale": _ELASTIC,
-    "autotune": _OBS,
-    "slo": _OBS,
-    "alerts": _OBS,
 }
 
 

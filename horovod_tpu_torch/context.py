@@ -19,13 +19,15 @@ Rendezvous: with more than one rank, ``coordinator_addr``
 listens on, and ``controller_addr`` the native negotiation controller
 the launcher started; one rank with no address uses an in-process store.
 Then :func:`init` starts the collective engine (:mod:`.ops.engine`), the
-process-set table and the metrics plane: the HTTP endpoint when
+process-set table and the observability plane: the HTTP endpoint when
 ``metrics_port`` is set (``HVDTPU_METRICS_PORT``), this rank's snapshot
 publisher into the job's KV store (``HVDTPU_RENDEZVOUS_ADDR``, which the
 launcher injects) with the cluster aggregator behind ``/cluster``, the
-time-series tier and the ``/healthz`` provider.  :func:`shutdown` stops
-all of it and destroys the process group, and a later :func:`init` starts
-afresh.
+trace publisher and collector behind ``/tracez``, the sampling profiler
+(``prof_hz``), the performance model's link (``perf_link_gbs``), the SLO
+engine (``slo``), the time-series tier, the alert engine (``alerts``)
+and the ``/healthz`` provider.  :func:`shutdown` stops all of it and
+destroys the process group, and a later :func:`init` starts afresh.
 
 Also here: the component-health table that ``/healthz`` reads (a serving
 session reports into it while it drains after an engine failure), and the
@@ -260,14 +262,18 @@ def _start_runtime(cfg, rank: int, size: int, local_rank: int,
 
 def _start_metrics_plane(cfg, rank: int, size: int,
                          dev: torch.device) -> None:
-    """The endpoint (when ``metrics_port`` is set), the build-info gauge,
-    this rank's snapshot publisher and the cluster aggregator, the
-    time-series tier and the ``/healthz`` provider († the reference's
-    ``context._arm_obs_plane``).  Telemetry never fails ``init``: a port
-    another process holds (every rank of a job on one host sees the same
-    knob) is a warning."""
+    """The endpoint (when ``metrics_port`` is set), the build-info gauge
+    and what the reference's ``context._arm_obs_plane`` arms, in its
+    order: this rank's snapshot publisher and the cluster aggregator, the
+    tracer's sample rate, the fleet trace plane, the sampling profiler,
+    the performance model's link, the SLO engine, the time-series tier,
+    the alert engine and the ``/healthz`` provider.  Telemetry never
+    fails ``init``: a port another process holds (every rank of a job on
+    one host sees the same knob), a malformed SLO spec or alert rule is a
+    warning."""
     from . import __version__
-    from .obs import REGISTRY, aggregate, server, tsdb
+    from .obs import (REGISTRY, aggregate, alerts, perfmodel, prof, server,
+                      slo, trace, tracemerge, tsdb)
     if cfg.metrics_port is not None:
         try:
             _state.metrics_server = server.start(cfg.metrics_port)
@@ -284,19 +290,43 @@ def _start_metrics_plane(cfg, rank: int, size: int,
     g.labels(version=__version__, rank=str(rank), size=str(size),
              device_kind=kind).set(1)
     aggregate.start_for_rank(rank, size)
+    trace.TRACER.sample_rate = cfg.trace_sample
+    tracemerge.start_for_rank(
+        rank, size, pool=os.environ.get("HVDTPU_SERVING_POOL"),
+        timeline_path=_state.timeline._path)
+    prof.arm_from_config(cfg)
+    perfmodel.MODEL.configure(link_gbs=cfg.perf_link_gbs,
+                              link_latency_us=cfg.perf_link_latency_us)
+    if cfg.slo:
+        try:
+            slo.arm(cfg.slo, tick_s=cfg.slo_tick_s)
+        except ValueError as e:
+            log.warning("SLO engine not armed (slo=%r): %s", cfg.slo, e)
     if cfg.tsdb_interval_s > 0:
         tsdb.arm(interval_s=cfg.tsdb_interval_s,
                  retention_s=cfg.tsdb_retention_s)
     else:
         tsdb.disarm()
+    alerts.disarm()
+    if cfg.alerts:
+        try:
+            alerts.arm(cfg.alerts)
+        except ValueError as e:
+            log.warning("alert engine not armed (alerts=%r): %s",
+                        cfg.alerts, e)
     server.set_health_provider(_health_snapshot)
 
 
 def _stop_metrics_plane() -> None:
-    from .obs import aggregate, server, tsdb
-    server.set_health_provider(None)
+    """Undo :func:`_start_metrics_plane` in the reference's order."""
+    from .obs import aggregate, alerts, prof, server, slo, tracemerge, tsdb
     aggregate.stop()
+    tracemerge.stop()
+    slo.disarm()
+    alerts.disarm()
     tsdb.disarm()
+    prof.PROFILER.stop()
+    server.set_health_provider(None)
     if _state.metrics_server is not None:
         server.stop()
         _state.metrics_server = None

@@ -15,14 +15,27 @@ Copies of the JAX package's stdlib-only modules (``horovod_tpu/obs``):
   ``/query``;
 - :mod:`.trace` — request-scoped span chains (QUEUE → PREFILL → DECODE);
 - :mod:`.flightrec` — the bounded event ring and postmortem bundles
-  (``hvd.flight_record(path)``).
+  (``hvd.flight_record(path)``);
+- :mod:`.slo` — declarative objectives over registry histograms with
+  multi-window burn rates (``HVDTPU_SLO``);
+- :mod:`.alerts` — declarative alert rules over the time-series tier
+  (``HVDTPU_ALERTS``, ``/alertz``);
+- :mod:`.prof` — the always-on sampling profiler (``HVDTPU_PROF_HZ``,
+  ``/profz``);
+- :mod:`.perfmodel` — expected-vs-achieved collective cost, fed by the
+  engine (``hvd_perf_*``);
+- :mod:`.tracemerge` — every rank's spans published and merged,
+  clock-aligned, behind ``/tracez``;
+- :mod:`.smoke` — the plane's end-to-end check, ``python -m
+  horovod_tpu_torch.obs.smoke`` (imported on use, not here).
 
-SLOs, the profiler, the performance model, the fleet trace merge and
-alerting wait for later slices (ROADMAP section A 'Observability').
-Importing this package imports neither torch nor jax, and starts nothing.
+``hvd.init()`` arms them from the config; importing this package imports
+neither torch nor jax, and starts nothing.
 """
 
-from . import aggregate, export, flightrec, server, trace, tsdb  # noqa: F401
+from . import (  # noqa: F401
+    aggregate, alerts, export, flightrec, perfmodel, prof, server, slo,
+    trace, tracemerge, tsdb)
 from .registry import (  # noqa: F401
     Counter,
     DEFAULT_TIME_BUCKETS,
@@ -33,3 +46,10 @@ from .registry import (  # noqa: F401
     REGISTRY,
     get_registry,
 )
+
+__all__ = [
+    "aggregate", "alerts", "export", "flightrec", "perfmodel", "prof",
+    "server", "slo", "smoke", "trace", "tracemerge", "tsdb",
+    "Counter", "DEFAULT_TIME_BUCKETS", "Gauge", "Histogram", "MetricError",
+    "MetricRegistry", "REGISTRY", "get_registry",
+]

@@ -212,6 +212,7 @@ class FlightRecorder:
                 "events": self.snapshot(),
                 "stall": format_stall(stall) if stall else {},
                 "metrics": _jsonsafe(REGISTRY.snapshot()),
+                "profile": self._profile_summary(),
                 "tsdb": self._tsdb_summary(),
             }
             if extra:
@@ -238,11 +239,24 @@ class FlightRecorder:
             return None
 
     @staticmethod
+    def _profile_summary() -> dict:
+        """The sampling profiler's recent per-thread stack ring — a
+        stall bundle then shows *where* each rank was stuck, not just
+        which ranks went missing.  Guarded like everything else here:
+        a broken profiler must not cost us the bundle."""
+        try:
+            from .prof import PROFILER
+            return PROFILER.flight_summary()
+        except Exception:
+            return {}
+
+    @staticmethod
     def _tsdb_summary() -> dict:
         """Recent raw time-series tail for the curated crash set (queue
-        depth, cycle time) — the minutes *leading up to* the event, not
-        just its instant ({} when the tsdb tier is not armed).  Guarded:
-        no bundle is ever lost to the tsdb tier."""
+        depth, cycle time, burn, efficiency, firing alerts) — the
+        minutes *leading up to* the event, not just its instant ({} when
+        the tsdb tier is not armed).  Guarded: no bundle is ever lost to
+        the tsdb tier."""
         try:
             from .tsdb import flight_summary
             return flight_summary()

@@ -5,16 +5,17 @@ A copy of the JAX package's ``obs/server.py`` for the port.
 ``text/plain; version=0.0.4``), ``GET /metrics.json`` the JSON form —
 both snapshot the registry atomically per request; ``/cluster`` and
 ``/cluster.json`` the merged job view (:mod:`.aggregate`), ``/query``
-the time-series tier (:mod:`.tsdb`) and ``/healthz`` the readiness probe.
+the time-series tier (:mod:`.tsdb`), ``/alertz`` the alert rules
+(:mod:`.alerts`), ``/tracez`` the clock-aligned fleet trace
+(:mod:`.tracemerge`), ``/profz`` the sampling profiler (:mod:`.prof`)
+and ``/healthz`` the readiness probe.
 The server is a daemon-threaded ``http.server`` (no extra dependency),
 started explicitly (``MetricsServer(port)`` / :func:`start`) or by
 ``hvd.init()`` when ``metrics_port`` is set (``HVDTPU_METRICS_PORT``).
 
 Unlike the reference, importing the package starts nothing: a launcher
 process that imports ``horovod_tpu_torch`` with the knob in its env must
-not take the port its worker is to bind.  The reference's ``/tracez``,
-``/profz`` and ``/alertz`` wait for their modules (ROADMAP section A
-'Observability').
+not take the port its worker is to bind.
 
 Binds all interfaces by default (a scrape endpoint); pass
 ``addr="127.0.0.1"`` to keep it local.
@@ -44,6 +45,12 @@ ROUTES = (
     ("/query", "time-series query: ?expr=rate(m[1m])&source=local|cluster"),
     ("/query.json", "JSON form of /query"),
     ("/query.csv", "CSV form of /query"),
+    ("/alertz", "alert rule states (pending/firing) from HVDTPU_ALERTS"),
+    ("/alertz.json", "JSON form of /alertz"),
+    ("/tracez", "clock-aligned fleet trace (Perfetto-loadable JSON)"),
+    ("/tracez.json", "alias of /tracez"),
+    ("/profz", "self-profiler hotspot table, text"),
+    ("/profz.json", "JSON form of /profz"),
     ("/healthz", "readiness probe: 200 ready / 503 unready"),
 )
 
@@ -86,6 +93,20 @@ def set_health_provider(fn) -> None:
     global _health_provider
     with _health_lock:
         _health_provider = fn
+
+
+_trace_provider = None
+_trace_lock = threading.Lock()
+
+
+def set_trace_provider(fn) -> None:
+    """Register (or clear) the callable behind ``GET /tracez``: the
+    fleet trace collector (:mod:`.tracemerge`), whose result is one
+    clock-aligned Perfetto-loadable JSON object.  Armed by
+    ``hvd.init()`` next to the cluster provider."""
+    global _trace_provider
+    with _trace_lock:
+        _trace_provider = fn
 
 
 def _make_handler(registry: MetricRegistry):
@@ -137,6 +158,29 @@ def _make_handler(registry: MetricRegistry):
                 else:
                     body = export.to_json(snap)
                     ctype = "application/json"
+            elif path in ("/tracez", "/tracez.json"):
+                with _trace_lock:
+                    provider = _trace_provider
+                if provider is None:
+                    self.send_error(
+                        503, "fleet trace collection not armed on this "
+                             "process (hvd.init() arms it; per-process "
+                             "traces stay in the tracer's export)")
+                    return
+                try:
+                    merged = provider()
+                except Exception as e:   # scrape must answer, not 500
+                    merged = {"traceEvents": [], "error": str(e)}
+                body = json.dumps(merged)
+                ctype = "application/json"
+            elif path in ("/profz", "/profz.json"):
+                from .prof import PROFILER
+                if path == "/profz":
+                    body = PROFILER.render_text()
+                    ctype = "text/plain; charset=utf-8"
+                else:
+                    body = json.dumps(PROFILER.snapshot())
+                    ctype = "application/json"
             elif path in ("/query", "/query.json", "/query.csv"):
                 from . import tsdb
                 params = urllib.parse.parse_qs(query_string)
@@ -155,6 +199,20 @@ def _make_handler(registry: MetricRegistry):
                     ctype = "text/csv; charset=utf-8"
                 else:
                     body = tsdb.render_text(result)
+                    ctype = "text/plain; charset=utf-8"
+            elif path in ("/alertz", "/alertz.json"):
+                from . import alerts
+                payload = alerts.status()
+                if payload is None:
+                    self.send_error(
+                        503, "alerting not armed on this process "
+                             "(set HVDTPU_ALERTS and hvd.init() arms it)")
+                    return
+                if path == "/alertz.json":
+                    body = json.dumps(payload)
+                    ctype = "application/json"
+                else:
+                    body = alerts.render_text(payload)
                     ctype = "text/plain; charset=utf-8"
             else:
                 self.send_error(404, _routes_help())

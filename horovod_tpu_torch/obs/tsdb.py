@@ -1,8 +1,6 @@
 """In-memory time-series tier: bounded history over the metrics registry.
 
-A copy of the JAX package's ``obs/tsdb.py`` for the port, whole; only the
-histogram quantile, which the reference takes from ``obs/slo.py`` (not
-ported yet), is carried here as :func:`_quantile`.
+A copy of the JAX package's ``obs/tsdb.py`` for the port, whole.
 
 Every other observability tier — ``/metrics``, ``/cluster`` merges, SLO
 burn, ``hvd_perf_efficiency`` — is a point-in-time snapshot; nothing can
@@ -19,7 +17,7 @@ memory bounded by construction:
   **reset-aware** ``rate()`` (a restart's counter drop contributes the
   post-reset value, the Prometheus ``increase`` convention); gauges are
   stored as-is; histograms keep a ring of cumulative bucket snapshots
-  (the reference's ``obs.slo._HistHistory`` pattern) for windowed
+  (the :class:`.slo._HistHistory` pattern) for windowed
   ``quantile()``, plus ``<name>_count`` / ``<name>_sum`` scalar series;
 - a :class:`TsdbSampler` daemon samples the process registry at the
   interval (armed from ``hvd.init()``); any process that aggregates
@@ -152,7 +150,7 @@ class _ScalarSeries:
 
 class _HistSeries:
     """Ring of cumulative bucket snapshots for one histogram child —
-    the reference's ``obs.slo._HistHistory`` pattern, count-bounded
+    the :class:`.slo._HistHistory` pattern, count-bounded
     here (no downsampled tier: bucket vectors are wide, the raw window
     is the quantile use case)."""
 
@@ -248,27 +246,6 @@ def forecast_points(points: Sequence[tuple], horizon_s: float,
     intercept = _median([v - slope * t for t, v in pts])
     t_pred = (pts[-1][0] if now is None else now) + float(horizon_s)
     return slope * t_pred + intercept
-
-
-def _quantile(edges: Sequence[float], cum_counts: Sequence[int],
-              q: float) -> Optional[float]:
-    """Histogram quantile (the ``histogram_quantile`` convention: linear
-    within the bucket, last finite edge when the quantile lands in
-    +Inf).  None on an empty histogram.  The reference's
-    ``obs.slo.quantile``."""
-    total = cum_counts[-1]
-    if total <= 0:
-        return None
-    target = q * total
-    for i, c in enumerate(cum_counts[:-1]):
-        if c >= target:
-            lo = edges[i - 1] if i else 0.0
-            prev = cum_counts[i - 1] if i else 0
-            span = c - prev
-            if span <= 0:
-                return edges[i]
-            return lo + (edges[i] - lo) * (target - prev) / span
-    return edges[-1]
 
 
 def _median(vals: list) -> float:
@@ -539,9 +516,10 @@ def eval_expr(store: SeriesStore, expr,
             if not isinstance(ser, _HistSeries):
                 raise QueryError(
                     f"{plan['name']} is not a histogram series")
+            from . import slo as _slo
             delta = ser.delta_since(now - plan["window_s"])
             v = (None if delta is None
-                 else _quantile(ser.edges, delta, plan["q"]))
+                 else _slo.quantile(ser.edges, delta, plan["q"]))
         elif isinstance(ser, _ScalarSeries):
             if fn == "instant":
                 latest = ser.latest()

@@ -37,10 +37,26 @@ What torch needs that JAX did not:
   out, the division of an ``AVERAGE`` folded into that copy.  A group of
   one runs in place with no copy.
 
-Not ported: the performance-model hook of the reference's dispatch path
-(ROADMAP section A 'Observability') and the wire-precision and schedule
-fields ('Wire precision'; 'Schedule IR, hierarchy and buckets'), whose
-knobs ``init`` refuses.
+- **Timing a dispatch.**  The performance model (:mod:`..obs.perfmodel`)
+  is fed each group's achieved time, as in the JAX engine.  On the CPU
+  over Gloo the collective is synchronous and its host window is that
+  time; on the card the host window holds only the launch, so the group
+  is timed by CUDA timing events around its work on the engine's stream
+  and read in a later cycle once the work has finished, never by a
+  synchronisation.  At one rank the model has no wire to time, so no
+  event is created.
+
+The online autotuner (:mod:`..utils.autotune`, ``config.autotune``)
+scores each busy cycle's host window and commits the fusion threshold,
+the cycle time and the bucket cap (``config.bucket_bytes``, which caps a
+fused group like the threshold) to the live config.  Each rank tunes
+from its own scores, so the caps of two ranks may differ: every entry's
+negotiation meta carries its rank's cap, and every rank fuses a cycle by
+the least cap among the metas the coordinator echoes, which are the same
+on every rank.  (The JAX engine fuses by its own rank's knobs.)
+
+Not ported: the wire-precision and schedule fields ('Wire precision';
+'Schedule IR, hierarchy and buckets'), whose knobs ``init`` refuses.
 """
 
 from __future__ import annotations
@@ -58,6 +74,8 @@ from .. import chaos
 from ..context import HorovodInternalError
 from ..obs import REGISTRY as _obs
 from ..obs import flightrec as _frec
+from ..obs import perfmodel as _perf
+from ..obs import prof as _prof
 from ..obs import trace as _trace
 from ..utils import logging as hvd_logging
 
@@ -128,14 +146,17 @@ class TensorTableEntry:
     tl_phase: str = field(default="", compare=False)
     # Timeline-v2 flow id linking the QUEUE span to the DISPATCH span.
     tl_flow: int = field(default=0, compare=False)
+    # The enqueueing rank's group cap when it last negotiated the entry.
+    cap: int = field(default=0, compare=False)
 
     def meta(self) -> str:
         """Serialized descriptor carried through negotiation so a joined
         rank can construct zero-payload participation († the Response's
-        tensor metadata behind ``RequestType::JOIN``).  Empty for
+        tensor metadata behind ``RequestType::JOIN``), plus the group cap
+        (``fc``) every rank fuses the cycle by.  Only the cap for
         process-set entries, which a joined rank cannot rebuild."""
         if self.process_set is not None:
-            return ""
+            return json.dumps({"fc": self.cap})
         m: dict = {"v": self.verb, "d": dtype_name(self.payload.dtype),
                    "s": list(self.payload.shape), "o": self.op.value}
         if self.root_rank:
@@ -146,6 +167,7 @@ class TensorTableEntry:
             m["ps"] = self.prescale
         if self.postscale != 1.0:
             m["po"] = self.postscale
+        m["fc"] = self.cap
         return json.dumps(m, separators=(",", ":"))
 
 
@@ -173,6 +195,22 @@ def _parse_joinable_meta(meta: str) -> Optional[dict]:
     except (ValueError, TypeError, KeyError):
         return None
     return m
+
+
+def _agreed_cap(ready: list[TensorTableEntry], metas: dict,
+                local: int) -> int:
+    """The group cap of a cycle: the least ``fc`` among the ready
+    entries' echoed metas.  The coordinator echoes one meta a name to
+    every rank, so every rank fuses the cycle into the same groups even
+    when their own caps differ (the autotuner commits them rank by
+    rank).  ``local`` when no meta carries one (one rank)."""
+    caps = []
+    for e in ready:
+        try:
+            caps.append(int(json.loads(metas[e.name])["fc"]))
+        except (KeyError, ValueError, TypeError):
+            pass
+    return min(caps) if caps else local
 
 
 class Handle:
@@ -302,13 +340,21 @@ class CollectiveEngine:
         # Set when a join finishes with no caller waiting; consumed by the
         # next join() call.
         self._join_pending_consume = False
+        self._autotuner = None
+        # Groups timed on the engine's stream, waiting for their work to
+        # finish: (start event, end event, verb, payload bytes, itemsize,
+        # ranks).
+        self._timed: list[tuple] = []
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
         self._running = True
         self._thread = threading.Thread(
-            target=self._loop, name="hvdtpu-torch-engine", daemon=True)
+            target=self._loop, name=_prof.ENGINE_THREAD, daemon=True)
         self._thread.start()
+        if self._state.config.autotune:
+            from ..utils.autotune import Autotuner
+            self._autotuner = Autotuner(self._state)
 
     def stop(self, timeout: float = 10.0) -> None:
         """Stop the cycle thread.  Across processes every rank first
@@ -491,6 +537,9 @@ class CollectiveEngine:
                     tl.start_activity(e.name, "NEGOTIATE")
                     e.tl_phase = "NEGOTIATE"
         join_req = self._join_requested
+        cap = self._group_cap()
+        for e in entries:
+            e.cap = cap
         try:
             outcome = self._negotiator.negotiate(entries, joined=join_req)
         except Exception as err:
@@ -575,7 +624,8 @@ class CollectiveEngine:
         if deferred:
             with self._lock:
                 self._queue = deferred + self._queue
-        for group in self._fuse(ready):
+        for group in self._fuse(ready, _agreed_cap(ready, outcome.metas,
+                                                   cap)):
             self._execute_group(group, handles)
         if any(e.last for e in ready):
             with self._lock:
@@ -596,6 +646,11 @@ class CollectiveEngine:
                 self._join_result = outcome.last_join_rank
                 self._join_pending_consume = True
             self._join_event.set()
+        if self._timed:
+            self._observe_timed()
+        if self._autotuner is not None:
+            payload = sum(self._entry_bytes(e) for e in ready)
+            self._autotuner.record_cycle(payload, time.monotonic() - t0)
 
     # -- join († RequestType::JOIN, hvd.join()) ------------------------------
     def join(self, timeout: Optional[float] = None) -> int:
@@ -668,14 +723,27 @@ class CollectiveEngine:
     def _entry_bytes(e: TensorTableEntry) -> int:
         return e.payload.numel() * e.payload.element_size()
 
-    def _fuse(self, entries: list[TensorTableEntry]
+    def _group_cap(self) -> int:
+        """This rank's group cap: the fusion threshold, capped by the
+        bucket cap (``config.bucket_bytes``, which only the autotuner
+        commits in the port) when one is set († the JAX engine's
+        ``_fuse``)."""
+        cfg = self._state.config
+        if cfg.bucket_bytes > 0:
+            return min(cfg.fusion_threshold, cfg.bucket_bytes)
+        return cfg.fusion_threshold
+
+    def _fuse(self, entries: list[TensorTableEntry],
+              threshold: Optional[int] = None
               ) -> list[list[TensorTableEntry]]:
-        """Group fusable entries; split at the fusion threshold.
+        """Group fusable entries; split at ``threshold`` bytes (this
+        rank's :meth:`_group_cap` by default).
 
         † fusion_buffer_manager.cc: same dtype+op tensors share a fused
         dispatch up to ``fusion_threshold`` bytes.  Only allreduce fuses
         (other verbs execute per tensor)."""
-        threshold = self._state.config.fusion_threshold
+        if threshold is None:
+            threshold = self._group_cap()
         groups: dict[tuple, list[TensorTableEntry]] = {}
         order: list[tuple] = []
         singles: list[list[TensorTableEntry]] = []
@@ -720,16 +788,26 @@ class CollectiveEngine:
             label = (group[0].name if len(group) == 1
                      else f"hvd.fused[{len(group)}].{group[0].name}")
             chaos.fire("dispatch")
-            done = None
+            done = start = None
+            # The model ignores one rank (no wire): time nothing there.
+            timed = self._state.size > 1
+            t_disp = time.monotonic()
             with torch.profiler.record_function(
                     f"hvd.{group[0].verb}:{label}"):
                 if self._stream is None:
                     results = self._dispatch(group)
                 else:
                     with torch.cuda.stream(self._stream):
+                        for e in group:
+                            self._stream.wait_event(e.ready)
+                            e.payload.record_stream(self._stream)
+                        if timed:       # the group's own work, once ready
+                            start = torch.cuda.Event(enable_timing=True)
+                            start.record(self._stream)
                         results = self._dispatch(group)
-                        done = torch.cuda.Event()
+                        done = torch.cuda.Event(enable_timing=timed)
                         done.record(self._stream)
+            t_disp = time.monotonic() - t_disp
             _m_dispatches.labels(backend=self._state.backend).inc()
             if tl is not None and tl.enabled:
                 for e in group:
@@ -737,6 +815,16 @@ class CollectiveEngine:
                     e.tl_phase = ""
             if group[0].verb == "allreduce":
                 _m_fusion_batch.observe(len(group))
+            if timed:
+                nbytes = sum(self._entry_bytes(e) for e in group)
+                itemsize = group[0].payload.element_size()
+                if start is None:
+                    _perf.MODEL.observe(group[0].verb, nbytes,
+                                        self._state.size, t_disp,
+                                        itemsize=itemsize)
+                else:
+                    self._timed.append((start, done, group[0].verb,
+                                        nbytes, itemsize, self._state.size))
             _frec.RECORDER.record(
                 "dispatch", name=label, verb=group[0].verb,
                 tensors=len(group),
@@ -765,6 +853,20 @@ class CollectiveEngine:
                 self._tl_close(e)
                 handles[id(e)]._complete(error=err)
 
+    def _observe_timed(self) -> None:
+        """Feed the performance model the groups whose work on the
+        engine's stream has finished, in dispatch order; a group still
+        running stops the walk (``query`` never blocks)."""
+        n = 0
+        for start, done, verb, nbytes, itemsize, ranks in self._timed:
+            if not done.query():
+                break
+            _perf.MODEL.observe(verb, nbytes, ranks,
+                                start.elapsed_time(done) / 1000.0,
+                                itemsize=itemsize)
+            n += 1
+        del self._timed[:n]
+
     def _group_of(self, e: TensorTableEntry) -> tuple[Any, int, int]:
         """(torch.distributed group, its size, this rank's index in it)."""
         ps, state = e.process_set, self._state
@@ -773,13 +875,10 @@ class CollectiveEngine:
         return ps.group, ps.size(), ps.rank_of(state.rank)
 
     def _dispatch(self, group: list[TensorTableEntry]) -> list:
-        """Issue one group's collective; returns one result per entry:
-        its ``output``, or a tensor the engine allocated when that is
-        None."""
-        if self._stream is not None:
-            for e in group:
-                self._stream.wait_event(e.ready)
-                e.payload.record_stream(self._stream)
+        """Launch one group's collective (on the card, on the engine's
+        stream, which already waits for the group's payloads); returns
+        one result per entry: its ``output``, or a tensor the engine
+        allocated when that is None."""
         e0 = group[0]
         pg, n, me = self._group_of(e0)
         if e0.verb == "allreduce":

@@ -28,7 +28,7 @@ set it, and each rank takes ``cuda:<local_rank>`` of that view.
 Not in the port yet, and refused with exit code 2 and the ROADMAP item
 that brings them (never quietly ignored): ``--tpu-pod``, the elastic flags
 (``--host-discovery-script``, ``--min-np``, ``--max-np``, ``--slots``,
-``--elastic-timeout``), ``--autoscale`` and ``--autotune``.
+``--elastic-timeout``) and ``--autoscale``.
 """
 
 from __future__ import annotations
@@ -51,7 +51,6 @@ from .. import config as config_mod
 # What each refused flag waits for (ROADMAP.md section A, by title).
 _TPU_POD_ITEM = "ROADMAP section A 'Remaining models, bindings and examples'"
 _ELASTIC_ITEM = "ROADMAP section A 'Elastic and autoscale'"
-_AUTOTUNE_ITEM = "ROADMAP section A 'Observability'"
 _LOCAL_HOSTS = ("localhost", "127.0.0.1")
 
 
@@ -118,9 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cycle-time-ms", type=float, default=None)
     p.add_argument("--cache-capacity", type=int, default=None)
     p.add_argument("--autotune", action="store_true", default=False,
-                   help="not in the port yet, refused with exit code 2")
+                   help="tune fusion threshold, cycle time and bucket cap "
+                        "online on every rank (HVDTPU_AUTOTUNE)")
     p.add_argument("--autotune-log", default=None,
-                   help="not in the port yet, refused with exit code 2")
+                   help="file each rank appends the tuner's decisions to "
+                        "(HVDTPU_AUTOTUNE_LOG)")
     p.add_argument("--timeline-filename", default=None)
     p.add_argument("--timeline-dir", default=None,
                    help="write one Timeline v2 file per rank "
@@ -565,8 +566,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if on]
     if elastic:
         return _refuse("/".join(elastic), _ELASTIC_ITEM)
-    if args.autotune or args.autotune_log:
-        return _refuse("--autotune/--autotune-log", _AUTOTUNE_ITEM)
     if args.num_proc is None or args.num_proc < 1:
         print("hvdrun: -np/--num-proc (>= 1) is required", file=sys.stderr)
         return 2

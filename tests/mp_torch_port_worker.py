@@ -101,6 +101,17 @@ OBS_ALLREDUCES = 3         # allreduces of the obs battery before publishing
 ENGINE_FUSED = 20          # tensors enqueued in one cycle
 ENGINE_THRESHOLD = 4       # tensors of 8 floats under a 40-byte threshold
 JOIN_STEPS = (3, 5)        # steps of rank 0 and rank 1 before join()
+PLANE_STEPS = 12           # traced steps of the plane battery
+PLANE_SIZES = (1000, 300_000, 50, 200_000, 7, 262_144)   # floats a step
+PLANE_CAPS = (4096, 64 << 20)  # rank 0's and rank 1's own group caps
+PLANE_ALERT = "busy"
+PLANE_ENV = {
+    "HVDTPU_SLO": "cycle=p99(cycle) < 250ms over 5m",
+    "HVDTPU_ALERTS": f"{PLANE_ALERT}: rate(hvd_collectives_total[10s]) > 0 "
+                     ": info",
+    "HVDTPU_TSDB_INTERVAL": "0.2", "HVDTPU_PROF_HZ": "100",
+    "HVDTPU_AUTOTUNE_WARMUP_SAMPLES": "1",
+    "HVDTPU_AUTOTUNE_STEPS_PER_SAMPLE": "2"}
 
 # ---------------------------------------------------------------------------
 # the launcher
@@ -129,9 +140,9 @@ def _rank_outputs(stdout: str, stderr: str, np_: int) -> list:
 
 
 def launch(mode: str, outdir: str, *, np_: int = NP, timeout: float = 120,
-           extra_env: dict | None = None) -> list:
-    """Run ``mode`` on ``np_`` ranks through the port's launcher; returns
-    each rank's (exit code, output).  At ``timeout`` seconds the launcher
+           extra_env: dict | None = None, flags: tuple = ()) -> list:
+    """Run ``mode`` on ``np_`` ranks through the port's launcher, with the
+    launcher's ``flags``; returns each rank's (exit code, output).  At ``timeout`` seconds the launcher
     is sent SIGTERM, on which it kills every rank still running, and those
     ranks report exit code None, so a hang fails its test instead of
     eating the suite's time."""
@@ -140,7 +151,7 @@ def launch(mode: str, outdir: str, *, np_: int = NP, timeout: float = 120,
     env.update(extra_env or {})
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
-           str(np_), "--platform", "cpu", "--verbose", "--",
+           str(np_), "--platform", "cpu", "--verbose", *flags, "--",
            sys.executable, os.path.abspath(__file__), mode, outdir]
     proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -474,7 +485,7 @@ def run_obs(hvd, me: int, arrays: dict, info: dict, outdir: str) -> None:
 
     import torch
 
-    from horovod_tpu_torch.obs import aggregate
+    from horovod_tpu_torch.obs import aggregate, prof
 
     info["launcher_env"] = sorted(
         k for k in ("HVDTPU_SECRET", "HVDTPU_CONTROLLER_ADDR",
@@ -491,7 +502,10 @@ def run_obs(hvd, me: int, arrays: dict, info: dict, outdir: str) -> None:
     info["bound_metrics_port"] = srv is not None
     if srv is not None:
         # Let the engine's thread close the cycle that served the barrier
-        # (its cycle histogram): two equal reads 0.2 s apart.
+        # (its cycle histogram): two equal reads 0.2 s apart.  The
+        # sampling profiler counts its ticks into the registry 10 times a
+        # second, so it pauses for the reads.
+        prof.PROFILER.stop()
         text = hvd.metrics("prometheus")
         for _ in range(50):
             time.sleep(0.2)
@@ -501,6 +515,7 @@ def run_obs(hvd, me: int, arrays: dict, info: dict, outdir: str) -> None:
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{srv.port}/metrics", timeout=10) as r:
             info["metrics_equal"] = r.read().decode() == text
+        prof.PROFILER.start()
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{srv.port}/cluster", timeout=10) as r:
             info["cluster_http_ok"] = r.status == 200
@@ -508,6 +523,70 @@ def run_obs(hvd, me: int, arrays: dict, info: dict, outdir: str) -> None:
     with open(path) as fh:
         bundle = json.load(fh)
     info["flight"] = [bundle["rank"], bundle["size"], bundle["reason"]]
+    hvd.barrier(process_set=hvd.global_process_set())  # rank 0 has read
+
+
+def run_plane(hvd, me: int, arrays: dict, info: dict, outdir: str) -> None:
+    """The rest of the observability plane at two ranks, armed by the env
+    (``PLANE_ENV``) and the launcher's ``--autotune``: ranks with
+    different group caps fuse one cycle alike; ``PLANE_STEPS`` traced
+    steps of allreduces the tuner retunes; then the performance model's
+    series, the profiler's engine phases, the SLO and the alert, and rank
+    0's merged ``/tracez`` (``/profz.json`` and ``/alertz.json`` beside
+    it) while rank 1 still answers its clock pings."""
+    import time
+    import urllib.request
+
+    from horovod_tpu_torch.obs import alerts, prof, server, slo, tracemerge
+    from horovod_tpu_torch.obs import trace
+
+    cfg = hvd.global_state().config
+    info["config"] = [cfg.autotune, cfg.autotune_log, cfg.slo, cfg.alerts]
+    eng = hvd.global_state().engine
+    # one cycle of eight 4000-byte tensors under caps of 4096 and 64 MB
+    cfg.fusion_threshold = PLANE_CAPS[me]
+    eng.pause()
+    hs = [hvd.allreduce_async(_t(engine_input("caps", me, i, 1000),
+                                 "float32"), hvd.Sum, name=f"caps.{i}")
+          for i in range(8)]
+    eng.resume()
+    for i, h in enumerate(hs):
+        arrays[f"caps.{i}"] = _np(hvd.synchronize(h))
+    for i in range(PLANE_STEPS):
+        with trace.start_trace("plane.step", lane="steps", step=i):
+            eng.pause()
+            hs = [hvd.allreduce_async(
+                _t(engine_input("plane", me, i * 10 + j, n), "float32"),
+                hvd.Sum, name=f"plane.{i}.{j}")
+                for j, n in enumerate(PLANE_SIZES)]
+            eng.resume()
+            for j, h in enumerate(hs):
+                arrays[f"plane.{i}.{j}"] = _np(hvd.synchronize(h))
+    snap = hvd.metrics()
+    info["perf"] = {f["name"]: [[s["labels"], s["value"]]
+                                for s in f["samples"]]
+                    for f in snap if f["name"].startswith("hvd_perf_")}
+    info["knobs"] = [cfg.fusion_threshold, cfg.cycle_time_ms,
+                     cfg.bucket_bytes]
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and \
+            alerts.status()["firing"] == 0:
+        time.sleep(0.1)
+    info["alerts"] = alerts.status()
+    info["slo"] = slo.status()
+    info["engine_phases"] = prof.PROFILER.snapshot()["engine_phases"]
+    info["published"] = tracemerge.publish_now()
+    hvd.barrier(process_set=hvd.global_process_set())  # both published
+    if me == 0:
+        srv = server.MetricsServer(0, addr="127.0.0.1")
+        try:
+            for path in ("/tracez", "/profz.json", "/alertz.json"):
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{srv.port}{path}",
+                        timeout=30) as r:
+                    info[path] = json.loads(r.read().decode())
+        finally:
+            srv.close()
     hvd.barrier(process_set=hvd.global_process_set())  # rank 0 has read
 
 
@@ -526,7 +605,7 @@ def _collectives(snap: list, by_rank: bool = False) -> dict:
 
 BATTERIES = {"collectives": run_collectives, "engine": run_engine,
              "runtime": run_runtime, "optimizer": run_optimizer,
-             "obs": run_obs}
+             "obs": run_obs, "plane": run_plane}
 
 
 def main(mode: str, outdir: str) -> int:
@@ -539,7 +618,7 @@ def main(mode: str, outdir: str) -> int:
         m == "jax" or m.startswith(("jax.", "jaxlib"))
         or m.split(".")[0] == "horovod_tpu" for m in sys.modules)}
     fn = BATTERIES[mode]
-    if mode in ("optimizer", "obs"):
+    if mode in ("optimizer", "obs", "plane"):
         fn(hvd, me, arrays, info, outdir)
     else:
         fn(hvd, me, arrays, info)

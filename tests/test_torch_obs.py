@@ -285,10 +285,14 @@ def one_rank(monkeypatch):
 
 def test_init_serves_metrics_equal_to_hvd_metrics(one_rank):
     import torch
+    from horovod_tpu_torch.obs import prof
     hvd, port = one_rank
     hvd.allreduce(torch.ones(3), hvd.Sum, name="obs.one")
+    # the sampling profiler counts its ticks into the registry: paused
+    prof.PROFILER.stop()
     text = hvd.metrics("prometheus")
     code, _, served = _get(port, "/metrics")
+    prof.PROFILER.start()
     assert code == 200 and served == text
     assert 'hvd_collectives_total{verb="allreduce"}' in text
     assert json.loads(hvd.metrics("json"))["metrics"] == \

@@ -109,6 +109,7 @@ def test_cli_knob_env_values():
     assert env["HVDTPU_FUSION_THRESHOLD"] == str(8 * 1024 * 1024)
     assert env["HVDTPU_CYCLE_TIME"] == "2.5"
     assert env["HVDTPU_LOG_LEVEL"] == "debug"
+    assert env["HVDTPU_AUTOTUNE"] == "1"
 
 
 def test_cli_config_file_matches_reference(tmp_path):
@@ -196,8 +197,6 @@ def _roadmap_titles() -> set:
     (["--elastic-timeout", "5"], "Elastic and autoscale"),
     (["--autoscale"], "Elastic and autoscale"),
     (["--autoscale-interval", "1"], "Elastic and autoscale"),
-    (["--autotune"], "Observability"),
-    (["--autotune-log", "a.csv"], "Observability"),
 ])
 def test_unported_flags_exit_2_naming_their_item(capsys, flags, title):
     # main() itself, in this process: the refusal comes before any spawn

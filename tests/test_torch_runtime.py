@@ -117,12 +117,38 @@ _NOT_PORTED = {
     "hierarchical_allreduce": True, "hierarchical_allgather": True,
     "hierarchical_local_size": 4, "hierarchical_cross_precision": "int8",
     "bucket_bytes": 1 << 20, "zero": True, "elastic": True,
-    "autoscale": True, "autotune": True,
-    "slo": "p99(ttft) < 250ms", "alerts": "x: y > 1 : warn"}
+    "autoscale": True}
+# Knobs of the observability plane, refused until it was ported, and the
+# module each one arms at init.
+_OBS_KNOBS = {"autotune": (True, "engine"),
+              "slo": ("ttft=p99(ttft) < 250ms", "slo"),
+              "alerts": ("x: hvd_engine_queue_depth > 1 : warn", "alerts")}
 
 
 def test_not_ported_table_is_complete():
     assert set(_NOT_PORTED) == set(port_config._NOT_PORTED)
+    assert not set(_OBS_KNOBS) & set(port_config._NOT_PORTED)
+
+
+@pytest.mark.parametrize("knob", sorted(_OBS_KNOBS))
+def test_obs_knob_is_accepted_at_init(monkeypatch, knob):
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.obs import alerts, slo
+    for k in list(os.environ):
+        if k.startswith(("HVDTPU_", "HOROVOD_")):
+            monkeypatch.delenv(k)
+    value, armed = _OBS_KNOBS[knob]
+    hvd.init(config=port_config.Config(platform="cpu", **{knob: value}))
+    try:
+        if armed == "engine":
+            assert hvd.global_state().engine._autotuner is not None
+        elif armed == "slo":
+            assert slo.status()["ttft"]["objective"] == 0.99
+        else:
+            assert [a["alert"] for a in alerts.status()["alerts"]] == ["x"]
+    finally:
+        hvd.shutdown()
+    assert slo.status() == {} and alerts.status() is None
 
 
 @pytest.mark.parametrize("knob", sorted(_NOT_PORTED))
