@@ -5,9 +5,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It drives the port's main paths on the card, serving, training and
-data-parallel training through Horovod's runtime, and checks them, phase
-by phase, printing one JSON line per phase:
+It drives the port's main paths on the card, serving (with the front
+door's prefix cache and speculative decoding, and batch ``generate``),
+training (with its recompute and loss variants) and data-parallel
+training through Horovod's runtime, and checks them, phase by phase,
+printing one JSON line per phase:
 
 1. ``device``  the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
@@ -36,7 +38,26 @@ by phase, printing one JSON line per phase:
    launch exactly once per layer per decode tick, the flash kernels never.
    One decode tick's logits through the kernel must match the gather
    path's;
-5. ``train``   Llama-2-7B at full width and depth, bf16, per-layer
+5. ``frontdoor``  the same model (serve's seed) through the front door's
+   paths, a pool of 512 blocks of 16, 8 slots, 32 new tokens a request,
+   every launch counter zeroed before each part and read after it:
+   ``generate`` on 4 prompts of 128 tokens (no kernel launched; its tokens
+   counted against ``serve()``'s); the prefix cache, a cold 512-token head
+   then 7 requests of head + 16..112 tokens (each hit 512 cached tokens;
+   7 hits, 7 x 32 shared blocks, 7 x 512 skipped tokens; ``paged_decode``
+   32 times a decode tick, the flash kernels never; the TTFT of the hits
+   beside the cold one's); speculative decoding at k = 4 on serve's 8
+   prompts with the target as its own draft and with a weak draft (4
+   layers, d_model 1024; every round emits 1..k+1 tokens a request,
+   ``paged_decode`` never, the acceptance rate); then every token those
+   parts emitted teacher-forced through one ``forward`` (the flash
+   kernels): the argmax at its position or within ``FD_DELTA_REL`` of the
+   row's largest logit below the top, the share of exact argmaxes beside
+   that of plain ``serve()`` on the same prompts; last, 2 layers at full
+   width in fp32 with TF32 off: ``generate``, ``serve()`` through the
+   paged kernel, a prefix-hit ``serve()`` and ``serve(spec_k=2)`` with
+   the target as its draft emit the same tokens, acceptance 1.0;
+6. ``train``   Llama-2-7B at full width and depth, bf16, per-layer
    recompute, one sequence of 4096 tokens a step, Adam (lr 1e-3, fused):
    one warm-up step and three timed steps on one batch.  Every counter is
    zeroed just before and read just after: per step ``flash_fwd`` must
@@ -44,7 +65,13 @@ by phase, printing one JSON line per phase:
    ``flash_bwd_dkv`` 32 times each, ``paged_decode`` never; the losses
    must be finite, start near ln(32000) and fall.  Then a profile of one
    step: device time, idle share, top kernels;
-6. ``train_dp``  the same model, weights and batch through the runtime at
+7. ``train_variants``  train's model, seed and batch, fresh weights for
+   each, one warm-up and three timed steps: ``remat="dots"`` (the weight
+   products kept, the rest recomputed; first loss bitwise equal to
+   train's) and ``blockwise_ce=True`` (first loss within
+   ``BLOCKWISE_FIRST_REL``); later losses within ``DP_LOSS_REL``, train's
+   flash launches a step, step time and peak memory beside train's;
+8. ``train_dp``  the same model, weights and batch through the runtime at
    one rank: ``hvd.init()`` (NCCL on cuda:0), ``broadcast_parameters``,
    ``DistributedOptimizer`` over the same fused Adam, one warm-up and
    three timed steps.  Per step exactly one allreduce entry per
@@ -57,7 +84,7 @@ by phase, printing one JSON line per phase:
    allreduce timed, and the engine's CUDA-event timing of a group for
    the performance model (which times nothing at one rank, so the rank
    poses as two for one call);
-7. ``hvdrun``  the same data-parallel step as a job of the port's launcher,
+9. ``hvdrun``  the same data-parallel step as a job of the port's launcher,
    ``python -m horovod_tpu_torch.runner -np 1 -- python chip_smoke.py
    --hvdrun-worker OUT``, with ``HVDTPU_METRICS_PORT`` set, once this
    process has released the card.  The worker checks the launcher's env
@@ -73,7 +100,7 @@ by phase, printing one JSON line per phase:
    code 0, the first loss bitwise equal to ``train``'s and the later ones
    within ``DP_LOSS_REL``, and prints the step median beside
    ``train_dp``'s and the launcher's wall seconds;
-8. ``hvdrun_obs``  the same job with the rest of the observability plane
+10. ``hvdrun_obs``  the same job with the rest of the observability plane
    armed: ``python -m horovod_tpu_torch.runner -np 1 --autotune
    --autotune-log D/autotune.log -- python chip_smoke.py --hvdrun-worker
    OUT --obs``, with an SLO on the engine's cycle time, an alert rule that
@@ -90,7 +117,7 @@ by phase, printing one JSON line per phase:
    rank; the step spans on ``/tracez``'s rank-0 lane.  This process
    requires every loss bitwise equal to ``train``'s and prints the step
    median beside ``train_dp``'s and ``hvdrun``'s;
-9. ``train_parity``  two layers at full width, S=4096: loss and every
+11. ``train_parity``  two layers at full width, S=4096: loss and every
    gradient through the kernels against the same call through their plain
    versions (``llama._FORCE_ATTENTION_REFERENCE``).
 
@@ -98,9 +125,10 @@ Then a ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line; without a CUDA device, or without the port's
 package beside the script, it exits 2.  ``--phases`` runs a subset
-(``device,build,kernel,serve,train,train_dp,hvdrun,hvdrun_obs,
-train_parity``; ``train_dp`` and ``hvdrun_obs`` need ``train``, ``hvdrun``
-needs ``train`` and ``train_dp``); ``--root DIR`` drives
+(``device,build,kernel,serve,frontdoor,train,train_variants,train_dp,
+hvdrun,hvdrun_obs,train_parity``; ``frontdoor`` needs ``build``;
+``train_variants``, ``train_dp`` and ``hvdrun_obs`` need ``train``,
+``hvdrun`` needs ``train`` and ``train_dp``); ``--root DIR`` drives
 the package of another checkout (an unpacked parent commit, say) with
 this script's shapes, checks and timers.
 """
@@ -118,8 +146,9 @@ from pathlib import Path
 # Published H100 SXM rates (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-PHASES = ("device", "build", "kernel", "serve", "train", "train_dp",
-          "hvdrun", "hvdrun_obs", "train_parity")
+PHASES = ("device", "build", "kernel", "serve", "frontdoor", "train",
+          "train_variants", "train_dp", "hvdrun", "hvdrun_obs",
+          "train_parity")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -719,6 +748,402 @@ def logits_parity(torch, params, cfg, eng) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the front door on full-width Llama-2-7B: generate, the prefix cache,
+# speculative decoding, each emitted token teacher-forced, fp32 exactness
+# ---------------------------------------------------------------------------
+
+FD_NEW = 32                 # new tokens a request in every part
+FD_HEAD = 512               # the prefix-cache part's shared head
+FD_TAILS = [16, 32, 48, 64, 80, 96, 112]
+FD_SPEC_K = 4
+# The teacher-forced check's δ, as a share of the largest |logit| of the
+# row: logits_parity's 32-layer bound between two attention paths of this
+# bf16 model (kernel vs gather).  An emitted token that is not the argmax
+# of the full forward must lie within δ of the top logit; a stale K/V
+# entry or a wrong rollback puts it at random, far below the top.
+FD_DELTA_REL = 0.10
+# The weak draft: Llama-shaped, vocab 32000, weights from seed 1.
+FD_WEAK = dict(vocab_size=32000, d_model=1024, n_layers=4, n_heads=16,
+               n_kv_heads=16, d_ff=2816)
+
+
+def _serve_prompts(cfg):
+    """The serve phase's 8 prompts (its warm-up draws first)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    rng.randint(0, cfg.vocab_size, size=(16,))
+    return [rng.randint(0, cfg.vocab_size, size=(n,))
+            for n in (64, 128, 192, 256, 320, 384, 448, 512)]
+
+
+def _check_launches(part: str, counts: dict, want: dict) -> None:
+    if counts != want:
+        raise AssertionError(f"frontdoor {part}: launches {counts}, want "
+                             f"{want}")
+
+
+def _run_requests(sess, prompts, max_tokens=FD_NEW, wave=False):
+    """Submit ``prompts`` (the first alone first when ``wave``), drain,
+    return the results; host seconds of the run."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [sess.submit(prompts[0], max_tokens)]
+    if wave:
+        sess.drain()
+    futs += [sess.submit(p, max_tokens) for p in prompts[1:]]
+    sess.drain()
+    torch.cuda.synchronize()
+    return [f.result() for f in futs], time.perf_counter() - t0
+
+
+def _counter_deltas(before: dict) -> dict:
+    from horovod_tpu_torch.obs import REGISTRY
+    return {n: REGISTRY.get(n).total() - v for n, v in before.items()}
+
+
+def _counters_now(names) -> dict:
+    from horovod_tpu_torch.obs import REGISTRY
+    return {n: REGISTRY.get(n).total() for n in names}
+
+
+def teacher_forced(torch, params, cfg, seqs: list) -> dict:
+    """One ``forward`` over each prompt + emitted tokens (the flash kernels;
+    each sequence right-padded with token 0 to a multiple of 64, which
+    causality leaves inert): for every emitted token, whether it is the
+    argmax at its position and its gap below the top logit against
+    δ = ``FD_DELTA_REL`` x the row's largest |logit|."""
+    import dataclasses
+
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as FA
+
+    cfg_f = dataclasses.replace(cfg, remat=False)
+    S = max(len(p) + len(t) for p, t in seqs)
+    S = -(-S // FA.FLASH_BLOCK) * FA.FLASH_BLOCK
+    tokens = torch.zeros(len(seqs), S, dtype=torch.int64, device="cuda")
+    for b, (p, t) in enumerate(seqs):
+        full = list(p) + list(t)
+        tokens[b, :len(full)] = torch.tensor(full)
+    zero_launches()
+    with torch.no_grad():
+        logits, _ = llama.forward(params, tokens, cfg_f)
+    counts = read_launches()
+    _check_launches("teacher-forced forward", counts, {
+        "paged_decode": 0, "flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0})
+    n = exact = 0
+    worst = 0.0
+    for b, (p, t) in enumerate(seqs):
+        rows = logits[b, len(p) - 1:len(p) - 1 + len(t)]
+        want = torch.tensor(list(t), device="cuda")
+        top = rows.max(dim=-1).values
+        got = rows.gather(1, want[:, None])[:, 0]
+        delta = FD_DELTA_REL * rows.abs().max(dim=-1).values
+        gap = top - got
+        n += len(t)
+        exact += int((rows.argmax(-1) == want).sum().item())
+        if bool((gap > delta).any()):
+            i = int((gap > delta).nonzero()[0, 0])
+            raise AssertionError(
+                f"sequence {b}: emitted token {i} ({t[i]}) lies "
+                f"{gap[i].item()} below the top logit, beyond δ "
+                f"{delta[i].item()}")
+        worst = max(worst, (gap / delta).max().item())
+    return {"tokens": n, "exact_argmax_share": exact / n,
+            "worst_gap_over_delta": worst}
+
+
+def phase_frontdoor(torch, smi: str) -> None:
+    import dataclasses
+
+    import numpy as np
+
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import llama
+
+    _free_cuda(torch)
+    cfg = llama.LlamaConfig.llama2_7b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)                          # the serve phase's weights
+    params = llama.init_params(cfg, gen, "cuda")
+    knobs = dict(num_blocks=512, block_size=16, max_active=8)
+    L = cfg.n_layers
+
+    # Plain sessions of every part's prompts: the tokens generate is held
+    # against and the teacher-forced share beside each part's.
+    rng = np.random.RandomState(1)
+    gen_prompts = [rng.randint(0, cfg.vocab_size, size=(128,))
+                   for _ in range(4)]
+    head = rng.randint(0, cfg.vocab_size, size=(FD_HEAD,))
+    fd_prompts = [head] + [np.concatenate(
+        [head, rng.randint(0, cfg.vocab_size, size=(n,))])
+        for n in FD_TAILS]
+    spec_prompts = _serve_prompts(cfg)
+    plain = serving.serve(params, cfg, **knobs)
+    _run_requests(plain, [rng.randint(0, cfg.vocab_size, size=(16,))], 2)
+    ticks0 = plain.engine.decode_ticks
+    zero_launches()
+    plain_res = {}
+    for part, prompts in (("generate", gen_prompts),
+                          ("prefix_cache", fd_prompts),
+                          ("spec", spec_prompts)):
+        plain_res[part], _ = _run_requests(plain, prompts)
+    _check_launches("plain sessions", read_launches(), {
+        "paged_decode": L * (plain.engine.decode_ticks - ticks0),
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    plain.close()
+    del plain
+    seqs = {}                 # part -> [(prompt, emitted tokens)]
+
+    # 1. generate: B=4 prompts of 128 tokens, 32 new tokens, greedy.
+    prompt = torch.tensor(np.stack(gen_prompts), device="cuda")
+    llama.generate(params, prompt[:, :16], cfg, max_new_tokens=2)  # warm
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = llama.generate(params, prompt, cfg, max_new_tokens=FD_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_launches("generate", read_launches(), {
+        "paged_decode": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0})
+    new = out[:, 128:].cpu().numpy()
+    if out.shape != (4, 128 + FD_NEW) or not (
+            (new >= 0) & (new < cfg.vocab_size)).all():
+        raise AssertionError(f"generate returned {tuple(out.shape)}")
+    seqs["generate"] = [(p, [int(x) for x in row])
+                        for p, row in zip(gen_prompts, new)]
+    same = sum(int(a == b) for (_, t), r in zip(seqs["generate"],
+                                                plain_res["generate"])
+               for a, b in zip(t, r.tokens))
+    emit({"phase": "frontdoor", "part": "generate", "batch": 4,
+          "prompt_len": 128, "new_tokens": FD_NEW, "wall_s": wall,
+          "tokens_per_s": 4 * FD_NEW / wall,
+          "tokens_equal_to_serve": same, "tokens": 4 * FD_NEW,
+          "launches": read_launches(), "card": smi})
+
+    # 2. the prefix cache: a cold 512-token head, then 7 head + tail.
+    names = ("hvd_prefix_cache_hits_total",
+             "hvd_prefix_cache_blocks_shared_total",
+             "hvd_serving_prefill_skipped_tokens_total",
+             "hvd_serving_prefill_tokens_total")
+    sess = serving.serve(params, cfg, prefix_cache=True, **knobs)
+    _run_requests(sess, [rng.randint(0, cfg.vocab_size, size=(16,))], 2)
+    eng = sess.engine
+    before = _counters_now(names)
+    ticks0 = eng.decode_ticks
+    zero_launches()
+    res, wall = _run_requests(sess, fd_prompts, wave=True)
+    counts = read_launches()
+    ticks = eng.decode_ticks - ticks0
+    moved = _counter_deltas(before)
+    _check_launches("prefix cache", counts, {
+        "paged_decode": L * ticks, "flash_fwd": 0, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0})
+    cached = [r.metrics["cached_tokens"] for r in res]
+    n_hits = len(FD_TAILS)
+    want = {"hvd_prefix_cache_hits_total": n_hits,
+            "hvd_prefix_cache_blocks_shared_total": n_hits * FD_HEAD // 16,
+            "hvd_serving_prefill_skipped_tokens_total": n_hits * FD_HEAD,
+            "hvd_serving_prefill_tokens_total": FD_HEAD + sum(FD_TAILS)}
+    if cached != [0] + [FD_HEAD] * n_hits or moved != want:
+        raise AssertionError(f"prefix cache: cached_tokens {cached}, "
+                             f"counters {moved}, want {want}")
+    eng.pager.check_invariants()
+    seqs["prefix_cache"] = [(p, r.tokens) for p, r in zip(fd_prompts, res)]
+    ttft = [r.metrics["ttft_s"] for r in res]
+    # TTFT alone, with every shape already met: the head with new tails
+    # of the same lengths (hits on the head only), one at a time, and a
+    # new prompt of 512 + 64 tokens (a miss), each to its first token.
+    alone = [_run_requests(sess, [p], 1)[0][0].metrics for p in [
+        np.concatenate([head, rng.randint(0, cfg.vocab_size, size=(n,))])
+        for n in FD_TAILS] + [rng.randint(0, cfg.vocab_size, size=(576,))]]
+    if [m["cached_tokens"] for m in alone] != [FD_HEAD] * n_hits + [0]:
+        raise AssertionError(f"prefix cache, requests alone: "
+                             f"{[m['cached_tokens'] for m in alone]}")
+    eng.pager.check_invariants()
+    emit({"phase": "frontdoor", "part": "prefix_cache", "head": FD_HEAD,
+          "tails": FD_TAILS, "cached_tokens": cached, "counters": moved,
+          "decode_ticks": ticks, "launches": counts, "wall_s": wall,
+          "ttft_cold_s": ttft[0], "ttft_hits_s": ttft[1:],
+          "ttft_hits_median_s": sorted(ttft[1:])[n_hits // 2],
+          "alone_ttft_hits_s": [m["ttft_s"] for m in alone[:-1]],
+          "alone_ttft_cold_576_s": alone[-1]["ttft_s"],
+          "card": smi})
+    sess.close()
+    del sess, eng
+
+    # 3. speculative decoding, k = 4, the target as its own draft and a
+    #    weak draft.
+    gen_w = torch.Generator(device="cuda")
+    gen_w.manual_seed(1)
+    weak_cfg = llama.LlamaConfig(**FD_WEAK)
+    weak = llama.init_params(weak_cfg, gen_w, "cuda")
+    for part, draft, dcfg in (("spec_self", params, cfg),
+                              ("spec_weak", weak, weak_cfg)):
+        sess = serving.serve(params, cfg, spec_k=FD_SPEC_K,
+                             draft_params=draft, draft_cfg=dcfg, **knobs)
+        _run_requests(sess, [rng.randint(0, cfg.vocab_size, size=(16,))], 2)
+        eng, spec = sess.engine, sess.engine.spec
+        per_round = []
+        tick = spec.tick
+
+        def counted_tick(tick=tick, eng=eng, per_round=per_round):
+            active = {r.req_id for r in eng._slots if r is not None}
+            out = tick()
+            n = {}
+            for r, _ in out:
+                n[r.req_id] = n.get(r.req_id, 0) + 1
+            per_round.append((active, n))
+            return out
+
+        spec.tick = counted_tick
+        d0, a0, r0 = spec._drafted_total, spec._accepted_total, spec.rounds
+        zero_launches()
+        res, wall = _run_requests(sess, spec_prompts)
+        counts = read_launches()
+        _check_launches(part, counts, {
+            "paged_decode": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0})
+        for active, n in per_round:
+            if set(n) != active or not all(
+                    1 <= c <= FD_SPEC_K + 1 for c in n.values()):
+                raise AssertionError(f"{part}: a round emitted {n} for the "
+                                     f"active requests {sorted(active)}")
+        if any(len(r.tokens) != FD_NEW for r in res):
+            raise AssertionError(f"{part}: token counts "
+                                 f"{[len(r.tokens) for r in res]}")
+        eng.pager.check_invariants()
+        drafted = spec._drafted_total - d0
+        accepted = spec._accepted_total - a0
+        seqs[part] = [(p, r.tokens) for p, r in zip(spec_prompts, res)]
+        emit({"phase": "frontdoor", "part": part, "k": FD_SPEC_K,
+              "draft": ("target" if draft is params else FD_WEAK),
+              "rounds": spec.rounds - r0, "drafted": drafted,
+              "accepted": accepted, "acceptance_rate": accepted / drafted,
+              "wall_s": wall,
+              "tokens_per_s": sum(len(r.tokens) for r in res) / wall,
+              "launches": counts, "card": smi})
+        sess.close()
+        del sess, eng, spec
+    del weak
+
+    # 4. every emitted token teacher-forced through one forward.
+    shares = {}
+    for part, base in (("generate", "generate"),
+                       ("prefix_cache", "prefix_cache"),
+                       ("spec_self", "spec"), ("spec_weak", "spec")):
+        got = teacher_forced(torch, params, cfg, seqs[part])
+        ref = teacher_forced(torch, params, cfg, [
+            (p, r.tokens) for (p, _), r in zip(seqs[part],
+                                               plain_res[base])])
+        shares[part] = {"exact_argmax_share": got["exact_argmax_share"],
+                        "plain_serve_exact_argmax_share":
+                            ref["exact_argmax_share"],
+                        "worst_gap_over_delta": got["worst_gap_over_delta"],
+                        "tokens": got["tokens"]}
+    emit({"phase": "frontdoor", "part": "teacher_forced",
+          "delta_rel": FD_DELTA_REL, "parts": shares, "card": smi})
+    del params
+    _free_cuda(torch)
+
+    # 5. exactness in fp32, TF32 off, 2 layers at full width.
+    frontdoor_fp32(torch, smi)
+
+
+def _first_divergence(torch, params, cfg, prompt, a, b) -> dict:
+    """The first position where two token lists part, and the top-2 gap
+    of the logits there (a plain prefill over prompt + the common part)."""
+    from horovod_tpu_torch.models import llama
+    i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+    seq = torch.tensor([list(prompt) + list(a[:i])], device="cuda")
+    logits, _, _ = llama.prefill_step(params, seq, cfg)
+    top2 = logits[0].topk(2).values
+    return {"position": i, "tokens": [a[i], b[i]],
+            "top2_gap": (top2[0] - top2[1]).item()}
+
+
+def frontdoor_fp32(torch, smi: str) -> None:
+    """generate, serve() through the paged kernel, a prefix-hit serve()
+    and serve(spec_k=2) with the target as its own draft, all in fp32 with
+    TF32 off: the same tokens, token for token, and acceptance 1.0 (the
+    reference's contract of tests/test_frontdoor.py:198-252)."""
+    import dataclasses
+
+    import numpy as np
+
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import llama
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(),
+                                  n_layers=2, dtype=torch.float32)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        params = llama.init_params(cfg, gen, "cuda")
+        rng = np.random.RandomState(2)
+        head = rng.randint(0, cfg.vocab_size, size=(256,))
+        prompts = [head] + [np.concatenate(
+            [head, rng.randint(0, cfg.vocab_size, size=(n,))])
+            for n in (5, 40, 77)]
+        new = 16
+        want = [llama.generate(params, torch.tensor(p[None], device="cuda"),
+                               cfg, max_new_tokens=new)[0, len(p):].tolist()
+                for p in prompts]
+        knobs = dict(num_blocks=128, block_size=16, max_active=4)
+        runs = {}
+        for name, kw in (("serve_kernel", dict(use_flash="auto")),
+                         ("serve_prefix_hit", dict(prefix_cache=True)),
+                         ("serve_spec_k2", dict(spec_k=2,
+                                                draft_params=params,
+                                                draft_cfg=cfg))):
+            sess = serving.serve(params, cfg, **knobs, **kw)
+            zero_launches()
+            ticks0 = sess.engine.decode_ticks
+            res, _ = _run_requests(sess, prompts, new, wave=True)
+            counts = read_launches()
+            _check_launches(f"fp32 {name}", counts, {
+                "paged_decode": cfg.n_layers * (sess.engine.decode_ticks
+                                                - ticks0),
+                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+            spec = sess.engine.spec
+            runs[name] = {
+                "tokens_equal": [r.tokens == w for r, w in zip(res, want)],
+                "cached_tokens": [r.metrics["cached_tokens"] for r in res],
+                "paged_decode_launches": counts["paged_decode"]}
+            if spec is not None:
+                runs[name]["acceptance"] = (spec._accepted_total
+                                            / spec._drafted_total)
+            sess.engine.pager.check_invariants()
+            sess.close()
+            for p, r, w in zip(prompts, res, want):
+                if r.tokens != w:
+                    emit({"phase": "frontdoor", "part": "fp32_exactness",
+                          "failed": name, "divergence": _first_divergence(
+                              torch, params, cfg, p, r.tokens, w)})
+                    raise AssertionError(f"fp32 {name}: tokens differ from "
+                                         f"generate's")
+        if runs["serve_spec_k2"]["acceptance"] != 1.0 or runs[
+                "serve_prefix_hit"]["cached_tokens"] != [0, 256, 256, 256]:
+            raise AssertionError(f"fp32 runs: {runs}")
+        emit({"phase": "frontdoor", "part": "fp32_exactness", "layers": 2,
+              "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+              "dtype": "float32", "tf32": False, "new_tokens": new,
+              "prompt_lens": [len(p) for p in prompts], "runs": runs,
+              "card": smi})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+    del params
+    _free_cuda(torch)
+
+
+# ---------------------------------------------------------------------------
 # training Llama-2-7B at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -797,11 +1222,11 @@ def phase_train(torch, smi: str, steps: int = 3) -> dict:
 
 
 def train_breakdown(torch, step, params, batch, wall_ms: float,
-                    smi: str) -> None:
+                    smi: str, **tags) -> None:
     """Where one training step's time goes: the device time the profiler
     attributes to kernels, the idle share against the step's host clock
     (median of the timed steps), the top kernels, and the three flash
-    kernels' device time in the step."""
+    kernels' device time in the step.  ``tags`` go into the line."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -816,7 +1241,7 @@ def train_breakdown(torch, step, params, batch, wall_ms: float,
         return sum(e.self_device_time_total for e in kernels
                    if tag in e.key) / 1e3
 
-    emit({"phase": "train_breakdown", "wall_ms_per_step": wall_ms,
+    emit({"phase": "train_breakdown", **tags, "wall_ms_per_step": wall_ms,
           "device_ms_per_step": device_ms if kernels else "not measured",
           "device_idle_share": (1 - device_ms / wall_ms) if kernels
           else "not measured",
@@ -827,6 +1252,88 @@ def train_breakdown(torch, step, params, batch, wall_ms: float,
           "top_kernels_ms_per_step": {
               e.key[:80]: e.self_device_time_total / 1e3 for e in top},
           "card": smi})
+
+
+# ---------------------------------------------------------------------------
+# the training variants: remat="dots" and the blockwise cross-entropy
+# ---------------------------------------------------------------------------
+
+# The blockwise loss against train's dense one at the first step: the
+# blockwise block logits stay fp32 where the dense path rounds its logits
+# to bf16 (2^-8 of a logit of about 1-10 at random init), so the mean nll
+# moves by far less than a ulp of the logits, not bitwise.
+BLOCKWISE_FIRST_REL = 1e-3
+
+
+def phase_train_variants(torch, smi: str, trained: dict,
+                         steps: int = 3) -> None:
+    """train's model, seed and batch, fresh weights for each variant, one
+    warm-up and ``steps`` timed steps: remat="dots" (first loss bitwise
+    equal to train's) and blockwise_ce=True with remat=True (first loss
+    within ``BLOCKWISE_FIRST_REL``); the later losses within
+    ``DP_LOSS_REL`` of train's; train's flash launches a step."""
+    import dataclasses
+
+    import numpy as np
+
+    from horovod_tpu_torch.models import llama
+
+    base = llama.LlamaConfig.llama2_7b()
+    tokens = np.random.RandomState(0).randint(
+        0, base.vocab_size, size=(1, TRAIN_S + 1))
+    want = {k: (steps + 1) * v for k, v in trained["launches_per_step"].items()}
+    for name, edit, first_rel in (
+            ("remat_dots", dict(remat="dots"), 0.0),
+            ("blockwise_ce", dict(blockwise_ce=True), BLOCKWISE_FIRST_REL)):
+        _free_cuda(torch)
+        cfg = dataclasses.replace(base, **edit)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = llama.init_params(cfg, gen, "cuda")
+        opt = torch.optim.Adam(llama.trainable(params), lr=TRAIN_LR,
+                               fused=True)
+        step = llama.make_train_step(cfg, opt)
+        batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        losses, step_s = [step(params, batch).item()], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(params, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        counts = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        med = sorted(step_s)[len(step_s) // 2]
+        base_losses = trained["losses"]
+        first = abs(losses[0] - base_losses[0]) / abs(base_losses[0])
+        rel = [first] + _loss_rel(losses, base_losses)
+        emit({"phase": "train_variants", "variant": name,
+              "remat": cfg.remat, "blockwise_ce": cfg.blockwise_ce,
+              "losses": losses, "train_losses": trained["losses"],
+              "loss_rel_to_train": rel, "first_rel_tol": first_rel,
+              "later_rel_tol": DP_LOSS_REL, "step_s": step_s,
+              "step_ms_median": med * 1e3,
+              "train_step_ms_median": trained["step_ms_median"],
+              "peak_mem_gb": peak_gb,
+              "train_peak_mem_gb": trained["peak_mem_gb"],
+              "launches": counts, "card": smi})
+        if counts != want:
+            raise AssertionError(f"{name}: launches over {steps + 1} steps "
+                                 f"{counts}, want {want}")
+        train_breakdown(torch, step, params, batch, med * 1e3, smi,
+                        variant=name)
+        first_ok = (losses[0] == base_losses[0] if first_rel == 0.0
+                    else first <= first_rel)
+        if not (all(math.isfinite(x) for x in losses) and first_ok
+                and all(r <= DP_LOSS_REL for r in rel[1:])):
+            raise AssertionError(f"{name}: losses {losses} against train's "
+                                 f"{trained['losses']}")
+        del params, opt, step, batch
+    _free_cuda(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -1708,6 +2215,11 @@ def main(argv=None) -> int:
     if "hvdrun_obs" in phases and "train" not in phases:
         ap.error("hvdrun_obs is held against train's losses: run train "
                  "and hvdrun_obs")
+    if "train_variants" in phases and "train" not in phases:
+        ap.error("train_variants is held against train's losses: run train "
+                 "and train_variants")
+    if "frontdoor" in phases and "build" not in phases:
+        ap.error("frontdoor launches the kernels: run build and frontdoor")
 
     # The checkout's own package, never an installed one: without it (the
     # script alone in a directory) there is nothing to drive.
@@ -1752,7 +2264,11 @@ def main(argv=None) -> int:
                             for n in KERNEL_LIBS}})
     res = phase_kernel(torch) if "kernel" in phases else None
     served = phase_serve(torch, smi) if "serve" in phases else None
+    if "frontdoor" in phases:
+        phase_frontdoor(torch, smi)
     trained = phase_train(torch, smi) if "train" in phases else None
+    if "train_variants" in phases:
+        phase_train_variants(torch, smi, trained)
     dp = phase_train_dp(torch, smi, trained) if "train_dp" in phases \
         else None
     hvdrun_ms = phase_hvdrun(torch, smi, trained, dp, root) \

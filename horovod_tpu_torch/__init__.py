@@ -50,12 +50,11 @@ Ground rules:
   compare the two packages on the same inputs.
 
 Not yet ported, and raising ``NotImplementedError`` where a caller could
-reach them: sharded models (``mesh=``) for serving and training, MoE
-configs, ``remat="dots"``, the blockwise cross-entropy
-(``blockwise_ce=True``; ``ops/losses.py``), the prefix cache, speculative
-decoding, KV migration, the elastic rejoin after a collective failure,
-Adasum, the quantized wires and the knobs :func:`.config.check_ported`
-lists.  Elastic mode is a later slice.
+reach them: sharded models (``mesh=``) for serving, training and
+``generate``, MoE configs, the front door's router and transport, KV
+migration, the elastic rejoin after a collective failure, Adasum, the
+quantized wires and the knobs :func:`.config.check_ported` lists.
+Elastic mode is a later slice.
 """
 
 from __future__ import annotations

@@ -3,10 +3,12 @@ entry points.
 
 A port of ``horovod_tpu/models/llama.py``: :class:`LlamaConfig`, parameter
 init, the training path (:func:`forward`, :func:`loss_fn`,
-:func:`make_train_step`, with RMSNorm's hand-written VJP and attention
-through the flash kernels' ``torch.autograd.Function``), and the serving
-entry points :func:`prefill_step` and :func:`decode_step_paged`, with the
-helpers they share.  Layouts are the JAX package's, so parameters move
+:func:`make_train_step`, with RMSNorm's hand-written VJP, attention
+through the flash kernels' ``torch.autograd.Function``, per-layer or
+save-the-products (``remat="dots"``) recompute and the blockwise
+cross-entropy), batch decoding (:func:`generate`) and the serving entry
+points :func:`prefill_step`, :func:`decode_step_paged` and
+:func:`extend_step_paged`, with the helpers they share.  Layouts are the JAX package's, so parameters move
 across with :func:`params_from_jax` and the tests compare like with like:
 
 - parameters are a plain dict; layer weights are stacked over a leading
@@ -17,15 +19,14 @@ across with :func:`params_from_jax` and the tests compare like with like:
 - bf16 activations and weights with RMSNorm, RoPE and softmax in fp32,
   fp32 logits; RoPE is half-split (not interleaved); GQA; SwiGLU.
 
-Still raising ``NotImplementedError``: sharded meshes (``mesh=``), MoE
-configs, ``remat="dots"``, the blockwise cross-entropy
-(``blockwise_ce=True``; ``ops/losses.py`` is not ported) and the
-multi-token ``extend_step_paged``.
+Still raising ``NotImplementedError``: sharded meshes (``mesh=``, which
+also covers ``generate``'s pipelined and sharded caches) and MoE configs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Optional, Union
 
@@ -53,9 +54,12 @@ class LlamaConfig:
     # Recompute of the layer body in the backward: True = per-layer
     # recompute (the layer inputs are all that is kept; the Llama-2-7B
     # training step needs it to fit one 80 GB card), False = keep every
-    # activation.  "dots" (the JAX package's save-the-matmuls policy)
-    # raises NotImplementedError.
+    # activation, "dots" = keep the outputs of the weight products and
+    # recompute the rest (the JAX package's
+    # dots_with_no_batch_dims_saveable policy).
     remat: Union[bool, str] = True
+    # Loss through ops/losses.py's blockwise cross-entropy: the [B, S, V]
+    # logits are never materialised.
     blockwise_ce: bool = False
 
     @property
@@ -93,13 +97,40 @@ def _no_mesh(mesh) -> None:
 
 def _check_train_cfg(cfg: LlamaConfig) -> None:
     _no_moe(cfg)
-    if cfg.remat not in (True, False):
+    if cfg.remat not in (True, False, "dots"):
+        raise ValueError(
+            f"remat must be True, False or 'dots', got {cfg.remat!r}")
+    if cfg.remat == "dots":
+        _dots_context()
+
+
+# The products whose outputs remat="dots" keeps: matrix products without
+# batch dimensions, the counterpart of
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable.  The seven
+# weight products of a layer reach aten.mm (torch.matmul folds
+# [B, S, D] @ [D, N] into one); the attention's batched products (bmm, or
+# the flash Function's kernels) and every elementwise op are recomputed.
+_DOTS_SAVED = ("mm", "addmm")
+
+
+def _dots_context():
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for
+    ``remat="dots"``: selective activation checkpointing, which needs
+    PyTorch 2.4 or later."""
+    try:
+        from torch.utils.checkpoint import (
+            CheckpointPolicy, create_selective_checkpoint_contexts)
+    except ImportError as e:
         raise NotImplementedError(
-            f"remat={cfg.remat!r} waits for a later slice of the port; use "
-            f"True (per-layer recompute) or False")
-    if cfg.blockwise_ce:
-        raise NotImplementedError(
-            "blockwise cross-entropy (ops/losses.py) is not ported yet")
+            f"remat='dots' needs selective activation checkpointing "
+            f"(PyTorch >= 2.4); this is PyTorch {torch.__version__}") from e
+    saved = {getattr(torch.ops.aten, n).default for n in _DOTS_SAVED}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
@@ -397,6 +428,150 @@ def decode_step_paged(params, tok: torch.Tensor, positions: torch.Tensor,
     return _logits(params, h[:, 0]), k_pool, v_pool
 
 
+@torch.no_grad()
+def extend_step_paged(params, tok: torch.Tensor, positions: torch.Tensor,
+                      valid: torch.Tensor, k_pool: torch.Tensor,
+                      v_pool: torch.Tensor, tables: torch.Tensor,
+                      cfg: LlamaConfig, *, mesh=None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Multi-token paged forward: S tokens a row in one call.
+
+    It serves (a) the prefix-hit tail prefill: a prompt whose head is
+    already in the pool (radix prefix cache) prefills only its tail while
+    attending over the cached prefix K/V, and (b) the speculative verify:
+    the target scores ``k + 1`` positions (the last accepted token and k
+    drafts) in one forward.
+
+    tok ``[B, S]`` int; positions ``[B, S]`` absolute positions; valid
+    ``[B, S]`` bool — False slots (right-padding, inactive verify rows)
+    route their K/V writes to scratch block 0, so a padded slot repeating
+    a real position never writes a live (block, offset) twice; their
+    logits are meaningless.  k_pool/v_pool ``[L, NB, BS, KV, Dh]``; tables
+    ``[B, n_cols]`` int32.
+
+    Each layer writes all S fresh K/V rows into the pool in place first,
+    then attends over the table's window with the per-token mask
+    ``pool_pos <= positions[b, s]``: token s sees the cached prefix and the
+    earlier tokens of this call, the visibility a monolithic prefill gives
+    it.  The pool is read through :func:`gather_blocks` and
+    :func:`_cached_attend`, as in the JAX package (the paged kernel takes
+    one query a row).  Returns (logits ``[B, S, V]`` fp32, k_pool,
+    v_pool)."""
+    from ..serving.kv_pager import gather_blocks
+
+    _no_moe(cfg)
+    _no_mesh(mesh)
+    B, S = tok.shape
+    BS = k_pool.shape[2]
+    dev = tok.device
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    T = tables.shape[1] * BS
+    h = _embed_lookup(params["embed"], tok, cfg.dtype)
+    rope = _rope_tables(positions, cfg.rope_theta, cfg.head_dim)
+    pos = positions.long()
+    mask = torch.arange(T, device=dev)[None, None, :] <= pos[:, :, None]
+    col = torch.where(valid, pos // BS, 0)
+    blk = torch.where(valid, tables.long().gather(1, col), 0)      # [B, S]
+    off = torch.where(valid, pos % BS, 0)
+    for li in range(cfg.n_layers):
+        lp = _layer(params["layers"], li)
+        x = _rmsnorm_impl(h, lp["attn_norm"])
+        q = _rope(_heads(x, lp["wq"]), rope)
+        k1, v1 = _layer_kv(x, lp, rope)                    # [B, S, KV, Dh]
+        k_pool[li, blk, off] = k1
+        v_pool[li, blk, off] = v1
+        keys = gather_blocks(k_pool[li], tables)           # [B, T, KV, Dh]
+        vals = gather_blocks(v_pool[li], tables)
+        attn = _cached_attend(q, keys, vals, mask, scale)
+        h = h + _out_proj(attn, lp["wo"])
+        h = h + _dense_mlp(_rmsnorm_impl(h, lp["mlp_norm"]), lp)
+    return _logits(params, h), k_pool, v_pool
+
+
+def _pick_token(logits: torch.Tensor, generator: Optional[torch.Generator],
+                temperature: float, dtype: torch.dtype) -> torch.Tensor:
+    """Greedy or temperature sampling from ``[B, V]`` fp32 logits."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(dtype)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(dtype)
+
+
+@torch.no_grad()
+def generate(params: dict, prompt: torch.Tensor, cfg: LlamaConfig, *,
+             max_new_tokens: int, mesh=None, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Autoregressive decoding with a per-layer KV cache.
+
+    ``prompt``: ``[B, P]`` int, on the device the parameters live on.
+    Returns ``[B, P + max_new_tokens]``, the prompt with the continuation
+    appended.  ``temperature == 0`` (the default) decodes greedily;
+    ``temperature > 0`` samples from ``softmax(logits / temperature)``
+    with ``generator`` (a ``torch.Generator`` on the prompt's device,
+    required then; the JAX package's ``key``).  Prefill runs the layer
+    stack once over the prompt with dense attention over its own keys and
+    writes the ``[L, B, T, KV, Dh]`` cache (``T = P + max_new_tokens``);
+    each of the ``max_new_tokens - 1`` decode ticks then writes its K/V
+    at its position in place and attends over the cache.  Sharded and
+    pipelined meshes (``mesh=``) and MoE configs raise
+    ``NotImplementedError``."""
+    if cfg.use_moe:
+        raise NotImplementedError("generate does not support MoE configs")
+    _no_mesh(mesh)
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 requires a torch.Generator")
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got "
+                         f"{max_new_tokens}")
+    B, P = prompt.shape
+    T = P + max_new_tokens
+    dev = prompt.device
+    L, KV, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    scale = 1.0 / math.sqrt(Dh)
+    cache_k = torch.zeros((L, B, T, KV, Dh), dtype=cfg.dtype, device=dev)
+    cache_v = torch.zeros_like(cache_k)
+
+    # ---- prefill: attention over the P prompt keys, cache written ------
+    h = _embed_lookup(params["embed"], prompt, cfg.dtype)
+    rope = _rope_tables(torch.arange(P, device=dev).expand(B, P),
+                        cfg.rope_theta, Dh)
+    mask = torch.ones(P, P, dtype=torch.bool, device=dev).tril()
+    for li in range(L):
+        lp = _layer(params["layers"], li)
+        x = _rmsnorm_impl(h, lp["attn_norm"])
+        q = _rope(_heads(x, lp["wq"]), rope)
+        k, v = _layer_kv(x, lp, rope)
+        cache_k[li, :, :P] = k
+        cache_v[li, :, :P] = v
+        h = h + _out_proj(_cached_attend(q, k, v, mask, scale), lp["wo"])
+        h = h + _dense_mlp(_rmsnorm_impl(h, lp["mlp_norm"]), lp)
+    tok = _pick_token(_logits(params, h[:, -1]), generator, temperature,
+                      prompt.dtype)
+    new = [tok]
+
+    # ---- decode: one token a tick, appended to the cache ---------------
+    steps = torch.arange(T, device=dev)
+    for pos in range(P, T - 1):
+        h = _embed_lookup(params["embed"], tok[:, None], cfg.dtype)
+        rope = _rope_tables(torch.full((B, 1), pos, device=dev),
+                            cfg.rope_theta, Dh)
+        mask = (steps <= pos)[None, :]                           # [1, T]
+        for li in range(L):
+            lp = _layer(params["layers"], li)
+            x = _rmsnorm_impl(h, lp["attn_norm"])
+            q = _rope(_heads(x, lp["wq"]), rope)
+            k1, v1 = _layer_kv(x, lp, rope)
+            cache_k[li, :, pos] = k1[:, 0]
+            cache_v[li, :, pos] = v1[:, 0]
+            attn = _cached_attend(q, cache_k[li], cache_v[li], mask, scale)
+            h = h + _out_proj(attn, lp["wo"])
+            h = h + _dense_mlp(_rmsnorm_impl(h, lp["mlp_norm"]), lp)
+        tok = _pick_token(_logits(params, h[:, 0]), generator, temperature,
+                          prompt.dtype)
+        new.append(tok)
+    return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
@@ -427,13 +602,16 @@ def _attn_block(h, lp, rope, mesh, causal: bool) -> torch.Tensor:
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            mesh=None, causal: bool = True
+            mesh=None, causal: bool = True, return_hidden: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Logits for next-token prediction: tokens ``[B, S]`` int ->
     (logits ``[B, S, V]`` fp32, aux = 0, the MoE loss of the JAX package's
-    dense configs).  With ``cfg.remat`` each layer runs under
-    ``torch.utils.checkpoint`` and is recomputed in the backward, so only
-    the layer inputs are kept."""
+    dense configs).  With ``return_hidden`` the final normed hidden states
+    ``[B, S, D]`` come back instead of logits (the blockwise loss applies
+    the lm_head itself, a vocab block at a time).  With ``cfg.remat`` each
+    layer runs under ``torch.utils.checkpoint``: ``True`` keeps only the
+    layer inputs, ``"dots"`` also the outputs of the weight products
+    (:func:`_dots_context`)."""
     _check_train_cfg(cfg)
     _no_mesh(mesh)
     B, S = tokens.shape
@@ -442,6 +620,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     rope = _rope_tables(torch.arange(S, device=dev).expand(B, S),
                         cfg.rope_theta, cfg.head_dim)
     names = tuple(params["layers"])
+    ckpt_kw = {}
+    if cfg.remat == "dots":
+        ckpt_kw["context_fn"] = _dots_context()
 
     def layer(h, *weights):
         lp = dict(zip(names, weights))
@@ -451,21 +632,36 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     for li in range(cfg.n_layers):
         weights = _layer(params["layers"], li).values()
         if cfg.remat:
-            h = checkpoint(layer, h, *weights, use_reentrant=False)
+            h = checkpoint(layer, h, *weights, use_reentrant=False,
+                           **ckpt_kw)
         else:
             h = layer(h, *weights)
     h = _rmsnorm(h, params["final_norm"])
-    logits = torch.matmul(h, params["lm_head"]).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if return_hidden:
+        return h, aux
+    return torch.matmul(h, params["lm_head"]).float(), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, *,
             mesh=None) -> torch.Tensor:
     """Causal LM loss, batch = ``{"tokens": [B, S+1] int}``: the mean over
     positions of ``logsumexp(logits) - logits[target]``, the JAX package's
-    form (the log-probabilities are never materialised)."""
+    form (the log-probabilities are never materialised).  With
+    ``cfg.blockwise_ce`` the logits are not materialised either:
+    :func:`~horovod_tpu_torch.ops.losses.blockwise_cross_entropy` takes
+    the hidden states and the lm_head a vocab block at a time, its block
+    logits in fp32 (the dense path rounds its logits to the model's
+    dtype first)."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if cfg.blockwise_ce:
+        from ..ops.losses import blockwise_cross_entropy
+        h, aux = forward(params, inputs, cfg, mesh=mesh, return_hidden=True)
+        B, S, D = h.shape
+        nll = blockwise_cross_entropy(h.reshape(B * S, D), params["lm_head"],
+                                      targets.reshape(-1))
+        return nll.mean() + aux
     logits, aux = forward(params, inputs, cfg, mesh=mesh)
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets[..., None].long())[..., 0]

@@ -10,10 +10,13 @@ The port of ``horovod_tpu/serving``'s single-replica path:
   the page pool, decode attention through the paged decode CUDA kernel;
 - :mod:`~horovod_tpu_torch.serving.api` — ``serve()``: ``submit()``
   futures, streaming token callbacks, per-request TTFT / queue-wait /
-  tok/s metrics.
+  tok/s metrics;
+- :mod:`~horovod_tpu_torch.serving.frontdoor` — the radix prefix cache
+  and speculative decoding (``serve(prefix_cache=True)``,
+  ``serve(spec_k=k, draft_params=..., draft_cfg=...)``).
 
-The front door (router, prefix cache, speculative decoding) and
-disaggregated prefill/decode wait for later slices of the port.
+The front door's router and transport and disaggregated prefill/decode
+wait for later slices of the port.
 """
 
 from .api import RequestResult, ServingSession, serve  # noqa: F401

@@ -344,9 +344,15 @@ def serve(params: Any, cfg, *, mesh=None,
     (``recovery_pause_s``) and resumes — see
     :meth:`ServingSession._handle_engine_failure`.
 
-    ``mesh=``, ``prefix_cache=True`` and ``spec_k=k`` with
-    ``draft_params``/``draft_cfg`` wait for later slices of the port and
-    raise ``NotImplementedError``.
+    ``prefix_cache=True`` (with ``prefix_cache_max_blocks``) turns on the
+    radix prefix cache: a prompt whose head matches a cached prefix
+    prefills only its tail.  ``spec_k=k`` with ``draft_params``/
+    ``draft_cfg`` (a dense model of the same vocabulary, its parameters on
+    the same device) turns on speculative decoding: k draft tokens a
+    round, verified in one target forward; ``spec_k`` without a draft
+    raises ``ValueError``.  Both emit the tokens of plain greedy decoding.
+    ``mesh=`` waits for a later slice of the port and raises
+    ``NotImplementedError``.
     """
     base = engine_cfg or EngineConfig()
     if engine_kw:

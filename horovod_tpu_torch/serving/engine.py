@@ -19,9 +19,14 @@ runs; this owns how it runs on the device):
 
 Decode attention goes through the paged decode kernel
 (:func:`~horovod_tpu_torch.ops.flash_attention.paged_attention`) or the
-gather path, chosen by :attr:`EngineConfig.use_flash`.  Sharded serving,
-the prefix cache, speculative decoding and KV migration wait for later
-slices of the port and raise ``NotImplementedError``.
+gather path, chosen by :attr:`EngineConfig.use_flash`.  The front door's
+single-replica features ride on top: the radix prefix cache
+(:attr:`EngineConfig.prefix_cache`; a hit prefills only the prompt's tail
+through :func:`~horovod_tpu_torch.models.llama.extend_step_paged`) and
+speculative decoding (:attr:`EngineConfig.spec_k` with a draft model;
+:class:`~horovod_tpu_torch.serving.frontdoor.SpecDecoder` replaces the
+decode tick).  Sharded serving and KV migration wait for later slices of
+the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,6 +65,9 @@ _m_prefill_tokens = _obs.counter(
     "hvd_serving_prefill_tokens_total", "prompt tokens prefilled")
 _m_decode_tokens = _obs.counter(
     "hvd_serving_decode_tokens_total", "tokens emitted by decode ticks")
+_m_prefill_skipped = _obs.counter(
+    "hvd_serving_prefill_skipped_tokens_total",
+    "prompt tokens NOT prefilled because a cached prefix covered them")
 
 _WAITS = "waits for a later slice of the port"
 
@@ -69,6 +77,16 @@ def _bucket_pow2(n: int, floor: int = 1) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def check_params_device(params: Any, device: torch.device,
+                        what: str = "params") -> None:
+    for name, t in (("embed", params["embed"]),
+                    ("layers.wq", params["layers"]["wq"])):
+        if t.device != device:
+            raise ValueError(
+                f"{what}[{name!r}] is on {t.device}; the engine runs on "
+                f"{device}")
 
 
 def _paged_kernel_path(device: torch.device, use_flash: str,
@@ -111,12 +129,13 @@ class EngineConfig:
     #: version, or the gather path for such a geometry, as in the JAX
     #: package) or "never" (the gather path)
     use_flash: str = "auto"
-    #: radix prefix cache — waits for the front-door slice
+    #: radix prefix cache (frontdoor): admissions sharing a cached
+    #: prompt prefix attach its blocks and skip prefilling them
     prefix_cache: bool = False
-    #: cap on blocks the cache may pin — waits with the prefix cache
+    #: cap on blocks the cache may pin (None = pool-pressure bounded)
     prefix_cache_max_blocks: Optional[int] = None
-    #: speculative decoding draft tokens per round — waits for the
-    #: front-door slice (0 = off)
+    #: speculative decoding: draft tokens per round (0 = off; > 0 needs
+    #: ``draft_params``/``draft_cfg`` at engine construction)
     spec_k: int = 0
 
 
@@ -144,24 +163,13 @@ class ServingEngine:
             raise NotImplementedError(f"serving MoE configs {_WAITS}")
         if mesh is not None:
             raise NotImplementedError(f"sharded serving (mesh=) {_WAITS}")
-        if engine_cfg.prefix_cache \
-                or engine_cfg.prefix_cache_max_blocks is not None:
-            raise NotImplementedError(f"the prefix cache {_WAITS}")
-        if engine_cfg.spec_k or draft_params is not None \
-                or draft_cfg is not None:
-            raise NotImplementedError(f"speculative decoding {_WAITS}")
         if engine_cfg.use_flash not in ("auto", "never"):
             raise ValueError(
                 f"use_flash must be 'auto' or 'never', got "
                 f"{engine_cfg.use_flash!r} (the Pallas interpreter mode has "
                 f"no counterpart here)")
         self.device = context.device(device)
-        for name, t in (("embed", params["embed"]),
-                        ("layers.wq", params["layers"]["wq"])):
-            if t.device != self.device:
-                raise ValueError(
-                    f"params[{name!r}] is on {t.device}; the engine runs on "
-                    f"{self.device}")
+        check_params_device(params, self.device)
         # On a CUDA device the kernel path launches the CUDA kernel; on
         # the CPU it runs the kernel's plain version.
         self._use_flash = _paged_kernel_path(
@@ -178,9 +186,15 @@ class ServingEngine:
             head_dim=cfg.head_dim)
         self.pager = KVPager(self.cache)
         self.prefix_cache = None
+        if engine_cfg.prefix_cache:
+            from .frontdoor.prefix_cache import PrefixCache
+            self.prefix_cache = PrefixCache(
+                self.pager,
+                max_blocks=engine_cfg.prefix_cache_max_blocks)
         self.scheduler = Scheduler(
             self.pager, max_active=engine_cfg.max_active,
-            prefill_token_budget=engine_cfg.prefill_token_budget)
+            prefill_token_budget=engine_cfg.prefill_token_budget,
+            prefix_cache=self.prefix_cache)
 
         self.k_pool = torch.zeros(self.cache.shape, dtype=cfg.dtype,
                                   device=self.device)
@@ -193,6 +207,15 @@ class ServingEngine:
         #: decode ticks run (each launches one attention per layer)
         self.decode_ticks = 0
 
+        self.spec = None
+        if engine_cfg.spec_k:
+            if draft_params is None or draft_cfg is None:
+                raise ValueError(
+                    "spec_k > 0 needs draft_params and draft_cfg")
+            from .frontdoor.spec_decode import SpecDecoder
+            self.spec = SpecDecoder(self, draft_params, draft_cfg,
+                                    k=engine_cfg.spec_k)
+
     # -- step bodies -----------------------------------------------------
     def _prefill(self, tokens: torch.Tensor, last_pos: torch.Tensor):
         logits, ks, vs = llama.prefill_step(
@@ -201,17 +224,17 @@ class ServingEngine:
 
     @torch.no_grad()
     def _scatter(self, ks: torch.Tensor, vs: torch.Tensor,
-                 blocks: list[int]) -> None:
+                 blocks: list[int], pools: tuple) -> None:
         """Write one request's prefill K/V ([L, 1, P, KV, Dh]) into its
-        pool blocks, in place.  P is padded up to a whole number of
-        blocks; the tail slots hold pad K/V, masked by position until
-        decode overwrites them one at a time."""
+        blocks of ``pools`` (K, V), in place.  P is padded up to a whole
+        number of blocks; the tail slots hold pad K/V, masked by position
+        until decode overwrites them one at a time."""
         L, _, P = ks.shape[:3]
         BS = self.cache.block_size
         nb = len(blocks)
         pad = nb * BS - P
         idx = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
-        for src, pool in ((ks, self.k_pool), (vs, self.v_pool)):
+        for src, pool in zip((ks, vs), pools):
             x = torch.nn.functional.pad(src[:, 0], (0, 0, 0, 0, 0, pad))
             pool[:, idx] = x.reshape(L, nb, BS, *x.shape[2:])
 
@@ -219,6 +242,14 @@ class ServingEngine:
         logits, _, _ = llama.decode_step_paged(
             self.params, tok, pos, self.k_pool, self.v_pool, tables,
             self.cfg, use_flash=self._use_flash)
+        return torch.argmax(logits, dim=-1)
+
+    def _extend(self, tok, pos, valid, tables):
+        """Multi-token paged forward ([B, S] at arbitrary positions):
+        the prefix-hit tail prefill and the speculative verify step."""
+        logits, _, _ = llama.extend_step_paged(
+            self.params, tok, pos, valid, self.k_pool, self.v_pool, tables,
+            self.cfg)
         return torch.argmax(logits, dim=-1)
 
     # -- public surface --------------------------------------------------
@@ -288,10 +319,12 @@ class ServingEngine:
         _m_steps.inc()
         for req in self.scheduler.admit():
             self._assign_slot(req)
-            _m_prefill_tokens.inc(int(req.prefill_tokens.shape[0]))
+            _m_prefill_tokens.inc(
+                int(req.prefill_tokens.shape[0]) - req.cached_tokens)
             emitted.append((req, self._prefill_one(req)))
         if self.scheduler.running:
-            ticked = self._decode_tick()
+            ticked = (self.spec.tick() if self.spec is not None
+                      else self._decode_tick())
             _m_decode_tokens.inc(len(ticked))
             emitted.extend(ticked)
         self._sample_gauges()
@@ -339,6 +372,8 @@ class ServingEngine:
         return n
 
     def _prefill_one(self, req: Request) -> int:
+        if req.cached_tokens > 0:
+            return self._prefill_cached(req)
         toks = req.prefill_tokens
         P = int(toks.shape[0])
         Pb = self._bucket_len(P)
@@ -348,21 +383,68 @@ class ServingEngine:
         with sp.use():
             padded = np.zeros((1, Pb), np.int32)
             padded[0, :P] = toks
+            padded = torch.from_numpy(padded).to(self.device)
             tok, ks, vs = self._prefill(
-                torch.from_numpy(padded).to(self.device),
-                torch.tensor([P - 1], device=self.device))
+                padded, torch.tensor([P - 1], device=self.device))
             blocks = self.pager.table(req.req_id)
             nb = self.cache.blocks_for(P)
             # Only the blocks the P real positions span are written; the
             # +1 slot block (for the emitted token) is untouched here.
             lim = min(Pb, nb * self.cache.block_size)
-            self._scatter(ks[:, :, :lim], vs[:, :, :lim], blocks[:nb])
+            self._scatter(ks[:, :, :lim], vs[:, :, :lim], blocks[:nb],
+                          (self.k_pool, self.v_pool))
+            if self.spec is not None:
+                self.spec.mirror_prefill(req, padded, P)
             token = int(tok[0])
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(toks, self.pager.table(req.req_id))
         req.close_phase("prefill")
         token = self._emit(req, token)
         if req.state == RequestState.RUNNING:
             # The decode phase opens once and spans every tick until the
             # terminal state (scheduler.finish/preempt closes it).
+            req.open_phase("decode")
+        return token
+
+    def _prefill_cached(self, req: Request) -> int:
+        """Prefix-hit prefill: the cached head's K/V is already in the
+        pool under the shared table head, so only the ``P - C`` tail
+        tokens run — through the multi-token extend step, attending over
+        the cached blocks via the request's table.  The tail is padded to
+        a power of two; padded slots repeat position ``P - 1`` with
+        ``valid`` False, so their writes land in scratch block 0 and their
+        logits are never read."""
+        toks = req.prefill_tokens
+        P = int(toks.shape[0])
+        C = req.cached_tokens
+        S = P - C
+        Sb = _bucket_pow2(S)
+        sp = req.open_phase("prefill", tokens=P, cached=C, bucket=Sb)
+        with sp.use():
+            req.trace.event("prefill_skip", cached_tokens=C)
+            tok2 = np.zeros((1, Sb), np.int32)
+            tok2[0, :S] = toks[C:]
+            pos2 = np.full((1, Sb), P - 1, np.int32)
+            pos2[0, :S] = np.arange(C, P, dtype=np.int32)
+            val2 = np.zeros((1, Sb), bool)
+            val2[0, :S] = True
+            n_cols = min(_bucket_pow2(self.cache.blocks_for(P)),
+                         self.cache.num_blocks)
+            tables = self.pager.table_matrix([req.req_id], n_cols)
+            tok2, pos2, val2, tables = (
+                torch.from_numpy(a).to(self.device)
+                for a in (tok2, pos2, val2, tables))
+            nxt = self._extend(tok2, pos2, val2, tables)
+            if self.spec is not None:
+                self.spec.mirror_extend(tok2, pos2, val2, tables)
+            token = int(nxt[0, S - 1])
+        if self.prefix_cache is not None:
+            # The tail may complete further full blocks; share them too.
+            self.prefix_cache.insert(toks, self.pager.table(req.req_id))
+        _m_prefill_skipped.inc(C)
+        req.close_phase("prefill")
+        token = self._emit(req, token)
+        if req.state == RequestState.RUNNING:
             req.open_phase("decode")
         return token
 

@@ -183,6 +183,99 @@ def test_decode_step_paged_matches_jax_over_three_ticks(models, use_flash):
     assert set(np.nonzero(changed)[0]) == {0, 5, 7, 9, 11}
 
 
+def _extend_case(name):
+    """(tok, positions, valid, tables) of one extend_step_paged call, and
+    the random pools it runs over.
+
+    tail: one prefix-hit tail prefill, the way the engine builds it: a
+    20-token cached head in blocks 4, 9, 2 (block size 8) and a 7-token
+    tail at positions 20..26, padded to 8 slots with position 26 repeated
+    and valid False.  verify: a k + 1 = 3 speculative verify over four
+    rows at contexts 5, 15 (its window crosses a page), 29 and an inactive
+    row (token 0, positions 0..2, valid False, all-scratch table)."""
+    rng = np.random.RandomState(4)
+    L, NB, BS, KV, Dh = 2, 24, 8, 2, 16
+    kp = rng.randn(L, NB, BS, KV, Dh).astype(np.float32)
+    vp = rng.randn(L, NB, BS, KV, Dh).astype(np.float32)
+    if name == "tail":
+        tables = np.array([[4, 9, 2, 13]], np.int32)
+        tok = np.zeros((1, 8), np.int32)
+        tok[0, :7] = rng.randint(0, 256, 7)
+        pos = np.full((1, 8), 26, np.int32)
+        pos[0, :7] = np.arange(20, 27)
+        valid = np.zeros((1, 8), bool)
+        valid[0, :7] = True
+    else:
+        tables = np.zeros((4, 4), np.int32)
+        tables[0, :1] = [5]
+        tables[1, :3] = [3, 9, 7]
+        tables[2, :4] = [1, 6, 11, 12]
+        ctx = np.array([5, 15, 29, 0], np.int32)
+        tok = rng.randint(0, 256, (4, 3)).astype(np.int32)
+        tok[3] = 0
+        pos = ctx[:, None] + np.arange(3, dtype=np.int32)[None, :]
+        valid = np.ones((4, 3), bool)
+        valid[3] = False
+    return (tok, pos, valid, tables), kp, vp
+
+
+@pytest.mark.parametrize("name", ["tail", "verify"])
+def test_extend_step_paged_matches_jax(models, name):
+    """Logits of every valid slot within 1e-4 of the JAX package's, and
+    both pools within 1e-4 outside scratch block 0 (the invalid slots'
+    writes land there, duplicate indices in either package); exactly the
+    blocks the valid slots reach were written."""
+    jcfg, jparams, tcfg, tparams = models
+    args, kp, vp = _extend_case(name)
+    jlog, jk, jv = jllama.extend_step_paged(
+        jparams, *(jnp.asarray(a) for a in args[:3]), jnp.asarray(kp),
+        jnp.asarray(vp), jnp.asarray(args[3]), jcfg)
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    tlog, tk2, tv2 = tllama.extend_step_paged(
+        tparams, *(torch.from_numpy(a) for a in args[:3]), tk, tv,
+        torch.from_numpy(args[3]), tcfg)
+    assert tk2 is tk and tv2 is tv, "the pools are written in place"
+    assert tlog.dtype == torch.float32 and tuple(tlog.shape) == jlog.shape
+    valid = args[2]
+    np.testing.assert_allclose(tlog.numpy()[valid], np.asarray(jlog)[valid],
+                               atol=1e-4)
+    for t, j in ((tk, jk), (tv, jv)):
+        np.testing.assert_allclose(t[:, 1:].numpy(), np.asarray(j)[:, 1:],
+                                   atol=1e-4)
+    changed = set(np.nonzero(
+        np.abs(tk.numpy() - kp).max(axis=(0, 2, 3, 4)) > 0)[0])
+    want = {2, 13} if name == "tail" else {5, 9, 7, 12}
+    assert changed - {0} == want
+
+
+def test_extend_step_paged_equals_prefill_then_decode(models):
+    """A tail prefilled by extend_step_paged over a head the prefill
+    wrote gives the tokens a whole-prompt prefill gives: the last real
+    slot's logits equal prefill_step's on the full prompt (fp32, 1e-4)."""
+    _, _, tcfg, tparams = models
+    rng = np.random.RandomState(6)
+    prompt = torch.from_numpy(rng.randint(0, 256, (1, 21)).astype(np.int32))
+    L, KV, Dh, BS = tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim, 8
+    kp = torch.zeros(L, 8, BS, KV, Dh)
+    vp = torch.zeros_like(kp)
+    _, ks, vs = tllama.prefill_step(tparams, prompt[:, :16], tcfg)
+    for blk, sl in ((3, slice(0, 8)), (5, slice(8, 16))):
+        kp[:, blk] = ks[:, 0, sl]
+        vp[:, blk] = vs[:, 0, sl]
+    tables = torch.tensor([[3, 5, 6, 0]], dtype=torch.int32)
+    tok = torch.zeros(1, 8, dtype=torch.int32)
+    tok[0, :5] = prompt[0, 16:]
+    pos = torch.full((1, 8), 20, dtype=torch.int32)
+    pos[0, :5] = torch.arange(16, 21)
+    valid = torch.zeros(1, 8, dtype=torch.bool)
+    valid[0, :5] = True
+    logits, _, _ = tllama.extend_step_paged(tparams, tok, pos, valid, kp, vp,
+                                            tables, tcfg)
+    full, _, _ = tllama.prefill_step(tparams, prompt, tcfg)
+    np.testing.assert_allclose(logits[0, 4].numpy(), full[0].numpy(),
+                               atol=1e-4)
+
+
 @pytest.mark.parametrize("use_flash,block_size,expect", [
     ("auto", 8, True), ("never", 8, False), ("auto", 4, False)])
 def test_engine_maps_use_flash_like_jax(models, use_flash, block_size,

@@ -163,16 +163,10 @@ def test_device_defaults_to_the_local_rank_card(monkeypatch):
         context.device()
 
 
-@pytest.mark.parametrize("what", ["mesh", "prefix_cache", "prefix_cap",
-                                  "spec_k", "draft", "moe"])
+@pytest.mark.parametrize("what", ["mesh", "moe"])
 def test_later_slices_raise_not_implemented(models, what):
     _, _, tcfg, tparams = models
-    kw = {"mesh": dict(mesh=object()),
-          "prefix_cache": dict(prefix_cache=True),
-          "prefix_cap": dict(prefix_cache_max_blocks=4),
-          "spec_k": dict(spec_k=2),
-          "draft": dict(draft_params=tparams, draft_cfg=tcfg),
-          "moe": {}}[what]
+    kw = {"mesh": dict(mesh=object()), "moe": {}}[what]
     cfg = tllama.LlamaConfig.tiny(use_moe=True) if what == "moe" else tcfg
     with pytest.raises(NotImplementedError, match="later slice"):
         tserving.serve(tparams, cfg, device="cpu", **kw)

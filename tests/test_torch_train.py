@@ -1,4 +1,5 @@
-"""Port parity: the training path of ``horovod_tpu_torch.models.llama``.
+"""Port parity: the training path of ``horovod_tpu_torch.models.llama``,
+with per-layer recompute, ``remat="dots"`` and none.
 
 Parameters come from the JAX package's ``init_params`` and move across
 with ``params_from_jax``; tokens are drawn with numpy.  The JAX side runs
@@ -14,6 +15,7 @@ layers, d_model 256, 4 heads, 2 kv heads (head dim 64), d_ff 256, vocab
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from horovod_tpu.models import llama as jllama
 from horovod_tpu.parallel import MeshConfig, build_mesh
@@ -212,8 +215,6 @@ def test_attention_hook_is_off_and_routes_through_flash(setup, monkeypatch):
 @pytest.mark.parametrize("edit,kw", [
     ({}, {"mesh": object()}),
     ({"use_moe": True}, {}),
-    ({"remat": "dots"}, {}),
-    ({"blockwise_ce": True}, {}),
 ])
 def test_unported_training_options_raise(setup, edit, kw):
     _, tcfg, _, np_params, tokens = setup
@@ -225,3 +226,98 @@ def test_unported_training_options_raise(setup, edit, kw):
     with pytest.raises(NotImplementedError):
         tllama.make_train_step(cfg, torch.optim.Adam(
             tllama.trainable(params)), **kw)
+
+
+# ---------------------------------------------------------------------------
+# remat="dots": keep the weight products, recompute the rest
+# ---------------------------------------------------------------------------
+
+def test_dots_matches_jax_dots_and_no_remat(setup):
+    """remat="dots" against the JAX package's "dots" step (dense
+    attention) within the tolerances of test_loss_and_grads_match_jax,
+    and against the port's remat=False bitwise: a saved product is the
+    same tensor the forward computed, a recomputed op the same op on the
+    same inputs."""
+    jcfg, tcfg, mesh, np_params, tokens = setup
+    jcfg_d = dataclasses.replace(jcfg, remat="dots")
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jllama.loss_fn(p, {"tokens": jnp.asarray(tokens)}, jcfg_d,
+                                 mesh=mesh)))(
+            jax.tree.map(jnp.asarray, np_params))
+    dots = _torch_loss_and_grads(dataclasses.replace(tcfg, remat="dots"),
+                                 np_params, tokens)
+    off = _torch_loss_and_grads(tcfg, np_params, tokens)
+    np.testing.assert_allclose(dots[0], float(jloss), rtol=1e-5)
+    jf, tf, of = _flat(jax.device_get(jgrads)), _flat(dots[1]), _flat(off[1])
+    assert jf.keys() == tf.keys() == of.keys()
+    for key in jf:
+        np.testing.assert_allclose(tf[key], jf[key], rtol=2e-3, atol=2e-4,
+                                   err_msg=key)
+        np.testing.assert_array_equal(tf[key], of[key], err_msg=key)
+    assert dots[0] == off[0]
+
+
+class _CountOps(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.counts: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        self.counts[name] = self.counts.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _backward_ops(tcfg, np_params, tokens, remat, early_stop=True):
+    from torch.utils.checkpoint import set_checkpoint_early_stop
+    cfg = dataclasses.replace(tcfg, remat=remat)
+    params = _torch_params(np_params)
+    tllama.trainable(params)
+    with set_checkpoint_early_stop(early_stop):
+        loss = tllama.loss_fn(params, {"tokens": torch.from_numpy(tokens)},
+                              cfg)
+        mode = _CountOps()
+        with mode:
+            loss.backward()
+    return mode.counts
+
+
+@pytest.mark.parametrize("remat,early_stop,mm_per_layer", [
+    (False, True, 14), ("dots", True, 14), ("dots", False, 14),
+    (True, False, 21), (True, True, 20)])
+def test_dots_policy_saves_the_weight_products(setup, remat, early_stop,
+                                               mm_per_layer):
+    """The backward's aten.mm count, besides the two of lm_head: each of
+    a layer's seven weight products takes two in the backward (14).
+    remat=True recomputes the products too (21 with the recompute run to
+    the end; PyTorch's default stops it once the last tensor the backward
+    needs is back, which leaves out w_down's product: 20).  "dots" keeps
+    their outputs and recomputes none (14 either way), while the
+    attention's batched products (bmm) are recomputed as under True."""
+    _, tcfg, _, np_params, tokens = setup
+    L = tcfg.n_layers
+    counts = _backward_ops(tcfg, np_params, tokens[:, :65], remat,
+                           early_stop)
+    assert counts.get("mm", 0) == mm_per_layer * L + 2, counts
+    assert counts.get("addmm", 0) == 0
+    base = _backward_ops(tcfg, np_params, tokens[:, :65], False)
+    if remat:
+        assert counts["bmm"] > base["bmm"], (counts, base)
+    else:
+        assert counts["bmm"] == base["bmm"]
+
+
+def test_dots_on_a_torch_without_selective_checkpointing(setup, monkeypatch):
+    """make_train_step names the version when selective activation
+    checkpointing is missing, and does not fall back to remat=True."""
+    import torch.utils.checkpoint as ckpt
+    _, tcfg, _, np_params, _ = setup
+    monkeypatch.delattr(ckpt, "create_selective_checkpoint_contexts")
+    params = _torch_params(np_params)
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(torch.__version__)):
+        tllama.make_train_step(dataclasses.replace(tcfg, remat="dots"),
+                               torch.optim.Adam(tllama.trainable(params)))
+    with pytest.raises(ValueError, match="remat"):
+        tllama.make_train_step(dataclasses.replace(tcfg, remat="all"),
+                               torch.optim.Adam(tllama.trainable(params)))
