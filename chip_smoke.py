@@ -84,7 +84,29 @@ printing one JSON line per phase:
    allreduce timed, and the engine's CUDA-event timing of a group for
    the performance model (which times nothing at one rank, so the rank
    poses as two for one call);
-9. ``hvdrun``  the same data-parallel step as a job of the port's launcher,
+9. ``train_zero``  under ``Config(wire_precision="int8",
+   sched_mode="decomposed")`` at one rank: train_dp's step again, whose
+   losses must be bitwise equal to train_dp's with no schedule walked and
+   no wire byte saved (the knobs are inert at one rank, as in the JAX
+   package); then train's model, weights and batch through
+   ``ZeroDistributedOptimizer`` around fused Adam, one warm-up and three
+   timed steps: train's flash launches a step, the first loss bitwise
+   equal to train's and the later ones within ``DP_LOSS_REL``, every
+   gradient a view into a flat bucket, ``hvd_zero_state_bytes`` equal to
+   Adam's moments over the shard (padding included) and a step counter
+   a piece; step time and peak memory beside train_dp's;
+10. ``dataplane``  the engine's allreduce at one rank over NCCL, on its
+   stream, with each entry's wire mode and schedule set past the one-rank
+   gate: a gradient set of the 7B DP step's shape (291 bf16 tensors,
+   13,477,363,712 bytes) fused as the engine fuses it, through the plain
+   path, the bf16 cast, int8, fp8 and int8 ``rs_ag:4``: device ms of the
+   whole set in each mode (CUDA events) and peak memory.  Every group's
+   result within its round-trip bound of the input, int8 ``rs_ag:4``
+   bitwise equal to int8 monolithic; three groups bitwise equal to the
+   same functions on the CPU over a Gloo group of one; the
+   reduce-scatters in the chosen container (fp16), a MAX all_reduce of
+   the raw absmax, 1-byte and fp32 gathers;
+11. ``hvdrun``  the same data-parallel step as a job of the port's launcher,
    ``python -m horovod_tpu_torch.runner -np 1 -- python chip_smoke.py
    --hvdrun-worker OUT``, with ``HVDTPU_METRICS_PORT`` set, once this
    process has released the card.  The worker checks the launcher's env
@@ -100,7 +122,7 @@ printing one JSON line per phase:
    code 0, the first loss bitwise equal to ``train``'s and the later ones
    within ``DP_LOSS_REL``, and prints the step median beside
    ``train_dp``'s and the launcher's wall seconds;
-10. ``hvdrun_obs``  the same job with the rest of the observability plane
+12. ``hvdrun_obs``  the same job with the rest of the observability plane
    armed: ``python -m horovod_tpu_torch.runner -np 1 --autotune
    --autotune-log D/autotune.log -- python chip_smoke.py --hvdrun-worker
    OUT --obs``, with an SLO on the engine's cycle time, an alert rule that
@@ -117,18 +139,20 @@ printing one JSON line per phase:
    rank; the step spans on ``/tracez``'s rank-0 lane.  This process
    requires every loss bitwise equal to ``train``'s and prints the step
    median beside ``train_dp``'s and ``hvdrun``'s;
-11. ``train_parity``  two layers at full width, S=4096: loss and every
+13. ``train_parity``  two layers at full width, S=4096: loss and every
    gradient through the kernels against the same call through their plain
    versions (``llama._FORCE_ATTENTION_REFERENCE``).
 
-Then a ``kernels`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
-before the last line; without a CUDA device, or without the port's
-package beside the script, it exits 2.  ``--phases`` runs a subset
+Then a ``total`` line (the script's wall seconds), a ``kernels`` line,
+the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero before the last line; without a
+CUDA device, or without the port's package beside the script, it exits
+2.  ``--phases`` runs a subset
 (``device,build,kernel,serve,frontdoor,train,train_variants,train_dp,
-hvdrun,hvdrun_obs,train_parity``; ``frontdoor`` needs ``build``;
-``train_variants``, ``train_dp`` and ``hvdrun_obs`` need ``train``,
-``hvdrun`` needs ``train`` and ``train_dp``); ``--root DIR`` drives
+train_zero,dataplane,hvdrun,hvdrun_obs,train_parity``; ``frontdoor``
+needs ``build``; ``train_variants``, ``train_dp`` and ``hvdrun_obs`` need
+``train``, ``hvdrun`` and ``train_zero`` need ``train`` and
+``train_dp``); ``--root DIR`` drives
 the package of another checkout (an unpacked parent commit, say) with
 this script's shapes, checks and timers.
 """
@@ -147,8 +171,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 PHASES = ("device", "build", "kernel", "serve", "frontdoor", "train",
-          "train_variants", "train_dp", "hvdrun", "hvdrun_obs",
-          "train_parity")
+          "train_variants", "train_dp", "train_zero", "dataplane", "hvdrun",
+          "hvdrun_obs", "train_parity")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -1691,6 +1715,366 @@ def dp_breakdown(torch, step, params, batch, wall_ms: float,
 
 
 # ---------------------------------------------------------------------------
+# the collective data plane: wire precision, the decomposed schedule, ZeRO-1
+# ---------------------------------------------------------------------------
+
+# The wire modes the dataplane phase runs on the 7B gradient set:
+# name -> (wire mode, schedule descriptor).  "fp32" is the plain path: the
+# payload's own dtype on the wire, as every gradient of train_dp goes.
+DATAPLANE_MODES = {"fp32": ("fp32", ""), "bf16": ("bf16", ""),
+                   "int8": ("int8", ""), "fp8": ("fp8", ""),
+                   "int8.rs_ag4": ("int8", "rs_ag:4")}
+# Fused groups (first, middle, last) held against the same function on
+# the CPU, over a Gloo group of one.
+DATAPLANE_CPU_GROUPS = 3
+# Per-element bound of the round trips one rank's result takes, in units
+# of its block's largest value: int8 and fp8 two quantization steps
+# (encode against the shared scale, then the requantization: amax/254
+# and 2^-4 of amax each), the bf16 wire one rounding of an fp32 payload;
+# a bf16 result's own rounding (2^-8) comes on top.
+DATAPLANE_ROUNDTRIP = {"int8": 2 / 254, "fp8": 2 * 2.0 ** -4,
+                       "bf16": 2.0 ** -8, "fp32": 0.0}
+
+
+def _grad_set(torch, llama, cfg):
+    """The 7B DP step's gradients: ``named_trainable``'s 291 shapes and
+    dtypes (bf16 weights, fp32 norms) in backward order (the last
+    layer's first, as the hooks fire), random from a seeded generator."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    params = llama.init_params(cfg, gen, "cuda")
+    shapes = [(name, tuple(t.shape), t.dtype) for name, t in
+              llama.named_trainable(params)]
+    del params
+    _free_cuda(torch)
+    grads = []
+    for name, shape, dtype in reversed(shapes):
+        g = torch.empty(shape, dtype=dtype, device="cuda")
+        g.normal_(generator=gen).mul_(1e-3)
+        grads.append((name, g))
+    return grads
+
+
+def _bits(t):
+    """``t``'s bits as integers, for a bitwise comparison."""
+    import torch
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _dataplane_run(torch, eng, entries, groups, mode, sched):
+    """One pass of the whole set through the engine's allreduce at one
+    rank, on the engine's stream: device ms (CUDA events; the gaps the
+    host leaves included), the host ms of issuing it, peak memory;
+    results dropped as they come."""
+    for e in entries:
+        e.precision, e.schedule = mode, sched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    with torch.cuda.stream(eng._stream):
+        start.record()
+        for group in groups:
+            eng._allreduce(group, None, 1)
+        end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return {"device_ms": start.elapsed_time(end), "host_ms": host_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "working_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+
+
+def _dataplane_checks(torch, eng, entries, groups, cpu_group):
+    """Every group: each mode within its round-trip bound of the input,
+    int8 rs_ag:4 bitwise equal to int8 monolithic; a few groups: each
+    mode bitwise equal to the same function on the CPU (fp8 also within
+    its bound), with the dtype of every collective call recorded."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.ops import reduction as R
+    from horovod_tpu_torch.ops.sched import executor as SE
+
+    faults, calls = [], {}
+    names = [n for n in ("reduce_scatter_single", "reduce_scatter_tensor",
+                         "all_gather_single", "all_gather_into_tensor",
+                         "all_reduce") if hasattr(dist, n)]
+    real = {n: getattr(dist, n) for n in names}
+
+    def spy(name):
+        def call(*a, **kw):
+            t = a[1] if name.startswith(("reduce_scatter", "all_gather")) \
+                else a[0]
+            op = kw.get("op")
+            key = f"{name}:{str(t.dtype).rpartition('.')[2]}" + (
+                ":max" if op is not None and op == dist.ReduceOp.MAX
+                else "")
+            if t.is_cuda:
+                calls.setdefault(mode_now[0], set()).add(key)
+            return real[name](*a, **kw)
+        return call
+
+    mode_now = [""]
+    picks = {0, len(groups) // 2, len(groups) - 1}
+    worst = {}
+    for name in names:
+        setattr(dist, name, spy(name))
+    try:
+        for gi, group in enumerate(groups):
+            outs = {}
+            for label, (mode, sched) in DATAPLANE_MODES.items():
+                mode_now[0] = label
+                for e in group:
+                    e.precision, e.schedule = mode, sched
+                with torch.cuda.stream(eng._stream):
+                    outs[label] = eng._allreduce(group, None, 1)
+                torch.cuda.current_stream().wait_stream(eng._stream)
+            for label, res in outs.items():
+                mode = DATAPLANE_MODES[label][0]
+                for e, r in zip(group, res):
+                    x = e.payload.float().reshape(-1)
+                    tail = x.numel() % 512
+                    pad = x.new_zeros((512 - tail) % 512)
+                    amax = torch.cat([x.abs(), pad]).view(-1, 512).amax(-1)
+                    amax = amax.repeat_interleave(512)[:x.numel()]
+                    err = (r.float().reshape(-1) - x).abs()
+                    out_ulp = 2.0 ** -8 if r.element_size() == 2 else 0.0
+                    bound = amax * (DATAPLANE_ROUNDTRIP[mode] * 1.001
+                                    + out_ulp)
+                    if not bool((err <= bound).all()):
+                        faults.append(f"{label} group {gi} {e.name}: "
+                                      f"round trip beyond its bound")
+                    worst[label] = max(worst.get(label, 0.0),
+                                       float((err / amax.clamp_min(
+                                           1e-30)).max()))
+            for a, b in zip(outs["int8"], outs["int8.rs_ag4"]):
+                if not torch.equal(_bits(a), _bits(b)):
+                    faults.append(f"group {gi}: rs_ag:4 != monolithic")
+            if gi not in picks:
+                continue
+            mode_now[0] = "cpu"
+            payload = [e.payload.cpu() for e in group]
+            flat = torch.cat([p.reshape(-1) for p in payload])
+            for label, (mode, sched) in DATAPLANE_MODES.items():
+                if sched:
+                    cpu = SE.execute_allreduce(
+                        payload, group[0].op, descriptor=sched,
+                        group=cpu_group, n=1, precision=mode)
+                    cpu = torch.cat([c.reshape(-1) for c in cpu])
+                elif mode == "fp32":
+                    cpu = flat.clone()
+                    dist.all_reduce(cpu, group=cpu_group)
+                else:
+                    cpu = R.allreduce(flat, group[0].op, mode, cpu_group, 1)
+                gpu = torch.cat([r.reshape(-1) for r in outs[label]]).cpu()
+                if not torch.equal(_bits(gpu), _bits(cpu)):
+                    diff = float((gpu.float() - cpu.float()).abs().max())
+                    faults.append(f"{label} group {gi}: card != CPU "
+                                  f"(max abs diff {diff})")
+            del outs
+    finally:
+        for name in names:
+            setattr(dist, name, real[name])
+    want = {"int8": "float16", "fp8": "float16", "int8.rs_ag4": "float16"}
+    for label, cont in want.items():
+        seen = calls.get(label, set())
+        rs = {k.split(":")[1] for k in seen if k.startswith("reduce_scat")}
+        ag = {k.split(":")[1] for k in seen if k.startswith("all_gather")}
+        if rs != {cont} or not ag <= {"int8", "uint8", "float32"} or \
+                not any(k.endswith(":max") for k in seen):
+            faults.append(f"{label}: collectives {sorted(seen)}, want a "
+                          f"{cont} reduce-scatter, MAX all_reduce, 1-byte "
+                          "and fp32 gathers")
+    return faults, {k: sorted(v) for k, v in calls.items()}, worst
+
+
+def phase_dataplane(torch, smi: str) -> None:
+    """The port's cast and quantized allreduce functions, called directly
+    at one rank over NCCL on cuda:0 on the engine's stream (past the
+    one-rank gate, which sends every knob to fp32 monolithic), on a
+    gradient set of the 7B DP step's shape fused as the engine fuses it:
+    device ms of the whole set in each mode beside the plain path's, peak
+    memory, and the checks of :func:`_dataplane_checks`."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import engine as E
+
+    _free_cuda(torch)
+    hvd.init()
+    try:
+        eng = hvd.global_state().engine
+        cfg = llama.LlamaConfig.llama2_7b()
+        grads = _grad_set(torch, llama, cfg)
+        nbytes = sum(g.numel() * g.element_size() for _, g in grads)
+        numel = sum(g.numel() for _, g in grads)
+        entries = [E.TensorTableEntry(name=f"grad.{n}", verb="allreduce",
+                                      payload=g, op=hvd.Average)
+                   for n, g in grads]
+        groups = eng._fuse(entries, eng._group_cap())
+        cpu_group = dist.new_group(backend="gloo")
+        faults, calls, worst = _dataplane_checks(torch, eng, entries,
+                                                 groups, cpu_group)
+        runs = {label: _dataplane_run(torch, eng, entries, groups, *ms)
+                for label, ms in DATAPLANE_MODES.items()}
+        # the least traffic of any allreduce of the set at one rank: the
+        # payload read once and the result written once
+        bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+        base = runs["fp32"]["device_ms"]
+        emit({"phase": "dataplane", "ranks": 1, "backend": "nccl",
+              "tensors": len(grads), "bytes": nbytes,
+              "dtypes": sorted({str(g.dtype) for _, g in grads}),
+              "fused_groups": len(groups),
+              "fusion_threshold": eng._group_cap(),
+              "device_ms": {k: v["device_ms"] for k, v in runs.items()},
+              "host_issue_ms": {k: v["host_ms"] for k, v in runs.items()},
+              "ms_per_gb": {k: v["device_ms"] / (nbytes / 1e9)
+                            for k, v in runs.items()},
+              "over_plain_ms": {k: v["device_ms"] - base
+                                for k, v in runs.items()},
+              "bound_ms": bound_ms, "bound_by": "bytes",
+              "peak_mem_gb": {k: v["peak_gb"] for k, v in runs.items()},
+              "working_mem_gb": {k: v["working_gb"]
+                                 for k, v in runs.items()},
+              "elements": numel, "worst_err_over_block_amax": worst,
+              "collectives": calls,
+              "cpu_checked_groups": DATAPLANE_CPU_GROUPS, "card": smi})
+        if faults:
+            raise AssertionError("dataplane: " + "; ".join(faults[:8]))
+        del grads, entries, groups
+    finally:
+        hvd.shutdown()
+        _free_cuda(torch)
+
+
+ZERO_STATE = ("exp_avg", "exp_avg_sq", "step")
+
+
+def phase_train_zero(torch, smi: str, trained: dict, dp: dict,
+                     steps: int = 3) -> dict:
+    """Two runs under ``Config(wire_precision="int8",
+    sched_mode="decomposed")`` at one rank.  First train_dp's step again:
+    the knobs are inert at one rank (losses bitwise equal to train_dp's,
+    no schedule walked, no wire byte saved).  Then train's model, weights
+    and batch through ``ZeroDistributedOptimizer`` around fused Adam: the
+    flash launches of a step, the first loss bitwise equal to train's and
+    the later ones within ``DP_LOSS_REL``, ``hvd_zero_state_bytes`` equal
+    to Adam's state over the shard (padding included), step time and
+    peak memory beside train_dp's."""
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import reduction as R
+    from horovod_tpu_torch.ops.sched import executor as SE
+    from horovod_tpu_torch.optim import zero as Z
+
+    _free_cuda(torch)
+    hvd.init(config=hvd.Config(wire_precision="int8",
+                               sched_mode="decomposed"))
+    try:
+        faults = []
+        before = (SE._m_sched.total(), R._m_wire_saved.total())
+        inert = _dp_steps(torch, hvd, steps)
+        moved = (SE._m_sched.total() - before[0],
+                 R._m_wire_saved.total() - before[1])
+        inert_losses = inert["res"]["losses"]
+        faults += inert["faults"]
+        if inert_losses != dp["losses"]:
+            faults.append(f"knobs not inert: losses {inert_losses} != "
+                          f"train_dp's {dp['losses']}")
+        if moved != (0, 0):
+            faults.append(f"hvd_sched_dispatches_total and "
+                          f"hvd_wire_bytes_saved_total moved by {moved}")
+        inert_ms = inert["res"]["step_ms_median"]
+        del inert
+        _free_cuda(torch)
+
+        cfg = llama.LlamaConfig.llama2_7b()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = llama.init_params(cfg, gen, "cuda")
+        leaves = llama.trainable(params)
+        opt = hvd.ZeroDistributedOptimizer(
+            torch.optim.Adam(leaves, lr=TRAIN_LR, fused=True))
+        step = llama.make_train_step(cfg, opt)
+        tokens = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(1, TRAIN_S + 1))
+        batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        losses, step_s = [step(params, batch).item()], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(params, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        counts = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_steps = steps + 1
+        want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers, "paged_decode": 0}
+        if counts != {k: n_steps * v for k, v in want.items()}:
+            faults.append(f"launches {counts}, want per step {want}")
+        faults += _loss_faults(losses, trained["losses"])
+        plan = opt.plan
+        pieces = sum(len(p) for p in opt._pieces)
+        padding = plan.padded - plan.numel
+        # two moments of each bucket's dtype over its shard, padding
+        # included, and fused Adam's float32 step counter a piece
+        state_want = sum(2 * torch.empty((), dtype=b.dtype).element_size()
+                         * b.shard for b in plan.buckets) + 4 * pieces
+        gauge = Z._g_state_bytes.value
+        keys = {k for st in opt.state.values() for k in st}
+        if not (gauge == opt.state_bytes() == state_want
+                and keys == set(ZERO_STATE)):
+            faults.append(f"hvd_zero_state_bytes {gauge}, state "
+                          f"{opt.state_bytes()} ({sorted(keys)}), want "
+                          f"{state_want}")
+        grads_in_buckets = all(
+            any(f.data_ptr() <= t.grad.data_ptr()
+                < f.data_ptr() + f.numel() * f.element_size()
+                for f in opt._flat_g) for t in leaves)
+        if not grads_in_buckets:
+            faults.append("a gradient is not a view into a flat bucket")
+        med = sorted(step_s)[len(step_s) // 2]
+        res = {"phase": "train_zero", "model": "llama2_7b", "ranks": 1,
+               "optimizer": f"ZeroDistributedOptimizer(Adam(lr={TRAIN_LR}, "
+               "fused=True))", "config": {"wire_precision": "int8",
+                                          "sched_mode": "decomposed"},
+               "losses": losses, "step_s": step_s,
+               "step_ms_median": med * 1e3,
+               "train_dp_step_ms_median": dp["step_ms_median"],
+               "step_vs_train_dp": med * 1e3 / dp["step_ms_median"],
+               "peak_mem_gb": peak_gb,
+               "train_dp_peak_mem_gb": dp["peak_mem_gb"],
+               "buckets": len(plan.buckets), "pieces": pieces,
+               "padding_elements": padding,
+               "zero_state_bytes": gauge, "state_bytes_want": state_want,
+               "launches": counts, "launches_per_step": want,
+               "loss_rel_vs_train": _loss_rel(losses, trained["losses"]),
+               "inert": {"losses": inert_losses,
+                         "train_dp_losses": dp["losses"],
+                         "step_ms_median": inert_ms,
+                         "sched_dispatches": moved[0],
+                         "wire_bytes_saved": moved[1]},
+               "card": smi}
+        emit(res)
+        if faults:
+            raise AssertionError("train_zero: " + "; ".join(faults))
+        del params, leaves, opt, step, batch
+        return res
+    finally:
+        hvd.shutdown()
+        _free_cuda(torch)
+
+
+# ---------------------------------------------------------------------------
 # the data-parallel step as a job of the port's launcher (hvdrun)
 # ---------------------------------------------------------------------------
 
@@ -2202,6 +2586,7 @@ def main(argv=None) -> int:
                     help="with --hvdrun-worker: the hvdrun_obs phase's "
                     "worker (step spans, the rest of the plane checked)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -2215,6 +2600,9 @@ def main(argv=None) -> int:
     if "hvdrun_obs" in phases and "train" not in phases:
         ap.error("hvdrun_obs is held against train's losses: run train "
                  "and hvdrun_obs")
+    if "train_zero" in phases and "train_dp" not in phases:
+        ap.error("train_zero is held against train's and train_dp's losses "
+                 "and step time: run train, train_dp and train_zero")
     if "train_variants" in phases and "train" not in phases:
         ap.error("train_variants is held against train's losses: run train "
                  "and train_variants")
@@ -2271,6 +2659,10 @@ def main(argv=None) -> int:
         phase_train_variants(torch, smi, trained)
     dp = phase_train_dp(torch, smi, trained) if "train_dp" in phases \
         else None
+    if "train_zero" in phases:
+        phase_train_zero(torch, smi, trained, dp)
+    if "dataplane" in phases:
+        phase_dataplane(torch, smi)
     hvdrun_ms = phase_hvdrun(torch, smi, trained, dp, root) \
         if "hvdrun" in phases else None
     if "hvdrun_obs" in phases:
@@ -2289,6 +2681,8 @@ def main(argv=None) -> int:
              "replaces": replaces, "launches": launches[name],
              **{k: res[name][k] for k in keys}}
             for name, (lib, replaces) in KERNELS.items()]})
+    emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
+          "phases": phases, "card": smi})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -49,12 +49,18 @@ Ground rules:
   :func:`~horovod_tpu_torch.models.llama.params_from_jax` and the tests
   compare the two packages on the same inputs.
 
+The collective data plane: wire precision (``compression=`` or
+``HVDTPU_WIRE_PRECISION``: cast and block-scaled int8/fp8 wires,
+``ops/reduction.py``), the decomposed ``rs_ag:<k>`` schedule
+(``HVDTPU_SCHED_MODE=decomposed``, ``ops/sched/``), Adasum
+(``op=hvd.Adasum``) and ``ZeroDistributedOptimizer`` (ZeRO-1).
+
 Not yet ported, and raising ``NotImplementedError`` where a caller could
 reach them: sharded models (``mesh=``) for serving, training and
 ``generate``, MoE configs, the front door's router and transport, KV
-migration, the elastic rejoin after a collective failure, Adasum, the
-quantized wires and the knobs :func:`.config.check_ported` lists.
-Elastic mode is a later slice.
+migration, the elastic rejoin after a collective failure, the
+hierarchical allreduce and the compiled schedule, and the knobs
+:func:`.config.check_ported` lists.  Elastic mode is a later slice.
 """
 
 from __future__ import annotations
@@ -94,7 +100,7 @@ from .ops.collectives import (  # noqa: F401
     Sum,
 )
 from . import obs
-from .ops.compression import Compression, check_supported
+from .ops.compression import Compression, routes_engine_side
 from .ops.engine import Handle, TensorTableEntry
 
 __version__ = "0.1.0"
@@ -115,10 +121,10 @@ def _engine():
     return state.engine
 
 
-def _enqueue(verb: str, tensor: torch.Tensor, *, name: Optional[str],
-             in_place: bool = False, process_set=None, **kw) -> Handle:
+def _entry(verb: str, tensor: torch.Tensor, *, name: str,
+           in_place: bool = False, process_set=None,
+           **kw) -> TensorTableEntry:
     """One engine entry for ``tensor``, this rank's contribution."""
-    eng = _engine()
     state = global_state()
     if not isinstance(tensor, torch.Tensor):
         raise TypeError(f"{verb} takes a torch.Tensor, got "
@@ -130,11 +136,37 @@ def _enqueue(verb: str, tensor: torch.Tensor, *, name: Optional[str],
     if process_set is not None and process_set.group is None:
         raise ValueError(f"rank {state.rank} is not in {process_set}")
     payload = tensor.detach()
-    entry = TensorTableEntry(
-        name=_auto_name(verb, name), verb=verb, payload=payload,
+    return TensorTableEntry(
+        name=name, verb=verb, payload=payload,
         output=payload if in_place else None, process_set=process_set,
         **kw)
-    return eng.enqueue(entry)
+
+
+def _enqueue(verb: str, tensor: torch.Tensor, *, name: Optional[str],
+             **kw) -> Handle:
+    eng = _engine()
+    return eng.enqueue(_entry(verb, tensor, name=_auto_name(verb, name),
+                              **kw))
+
+
+def _wire(op: ReduceOp, dtype: torch.dtype, nbytes: int, compression,
+          process_set) -> dict:
+    """The wire mode and schedule of an allreduce entry, resolved at
+    enqueue from what every rank agrees on (op, dtype, bytes a rank, the
+    group's size, the config) († ``_resolve_entry_precision`` and
+    ``_resolve_entry_schedule``)."""
+    from .ops import reduction, sched
+    _engine()                               # raises before init()
+    cfg = global_state().config
+    n = _group_size(process_set)
+    mode = reduction.resolve_precision(
+        reduction.as_wire_mode(compression), op, dtype, nbytes, cfg, n)
+    return dict(precision=mode, schedule=sched.resolve_schedule(
+        "", "allreduce", op, dtype, nbytes, cfg, n, mode))
+
+
+def _tensor_bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _group_size(process_set) -> int:
@@ -153,27 +185,59 @@ def _check_root(root_rank: int, process_set) -> None:
 # issues all collectives, in the negotiated order.
 # ---------------------------------------------------------------------------
 
+def _allreduce_entry(tensor: torch.Tensor, op: ReduceOp, name: str,
+                     prescale: float, postscale: float, compression,
+                     process_set, *, in_place: bool = False,
+                     nbytes: Optional[int] = None) -> TensorTableEntry:
+    """An allreduce entry whose wire mode and schedule are resolved from
+    ``nbytes`` (the tensor's own bytes by default)."""
+    return _entry("allreduce", tensor, name=name, in_place=in_place, op=op,
+                  prescale=prescale, postscale=postscale,
+                  process_set=process_set,
+                  **_wire(op, tensor.dtype, _tensor_bytes(tensor)
+                          if nbytes is None else nbytes, compression,
+                          process_set))
+
+
 def allreduce_async(tensor: torch.Tensor, op: ReduceOp = Average, *,
                     name: Optional[str] = None,
                     prescale_factor: float = 1.0,
                     postscale_factor: float = 1.0,
-                    process_set=None) -> Handle:
+                    compression=None, process_set=None) -> Handle:
     """Enqueue an allreduce; returns a :class:`Handle` at once.  Entries
-    enqueued within one engine cycle fuse into one collective."""
-    return _enqueue("allreduce", tensor, name=name, op=op,
-                    prescale=prescale_factor, postscale=postscale_factor,
-                    process_set=process_set)
+    enqueued within one engine cycle fuse into one collective, entries of
+    one wire mode and schedule together.  ``compression`` is a wire mode
+    (``"fp32"``, ``"bf16"``, ``"fp16"``, ``"int8"``, ``"fp8"``) or a
+    ``Compression`` entry, applied inside the collective; None defers to
+    ``HVDTPU_WIRE_PRECISION``."""
+    return _engine().enqueue(_allreduce_entry(
+        tensor, op, _auto_name("allreduce", name), prescale_factor,
+        postscale_factor, compression, process_set))
 
 
 def allreduce_async_(tensor: torch.Tensor, op: ReduceOp = Average, *,
                      name: Optional[str] = None,
                      prescale_factor: float = 1.0,
                      postscale_factor: float = 1.0,
-                     process_set=None) -> Handle:
+                     compression=None, process_set=None) -> Handle:
     """In-place :func:`allreduce_async`: the result lands in ``tensor``."""
-    return _enqueue("allreduce", tensor, name=name, in_place=True, op=op,
-                    prescale=prescale_factor, postscale=postscale_factor,
-                    process_set=process_set)
+    return _engine().enqueue(_allreduce_entry(
+        tensor, op, _auto_name("allreduce", name), prescale_factor,
+        postscale_factor, compression, process_set, in_place=True))
+
+
+def _grouped(tensors, op, name, prescale, postscale, compression,
+             process_set, by_total: bool) -> list[Handle]:
+    """One entry a tensor, enqueued together so that they meet one engine
+    cycle and fuse (up to the threshold); each wire mode resolved by the
+    tensor's own bytes, or by the group's (``by_total``)."""
+    base = _auto_name("grouped", name)
+    total = sum(_tensor_bytes(t) for t in tensors)
+    return _engine().enqueue_many([
+        _allreduce_entry(t, op, f"{base}.{i}", prescale, postscale,
+                         compression, process_set,
+                         nbytes=total if by_total else None)
+        for i, t in enumerate(tensors)])
 
 
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
@@ -181,15 +245,13 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
                             name: Optional[str] = None,
                             prescale_factor: float = 1.0,
                             postscale_factor: float = 1.0,
+                            compression=None,
                             process_set=None) -> list[Handle]:
     """Enqueue several allreduces at once († ``hvd.grouped_allreduce_async``);
-    they share one engine cycle, so they fuse (up to the threshold)."""
-    base = _auto_name("grouped", name)
-    return [allreduce_async(t, op, name=f"{base}.{i}",
-                            prescale_factor=prescale_factor,
-                            postscale_factor=postscale_factor,
-                            process_set=process_set)
-            for i, t in enumerate(tensors)]
+    they meet one engine cycle together, so they fuse (up to the
+    threshold); each entry's wire mode is resolved by its own bytes."""
+    return _grouped(tensors, op, name, prescale_factor, postscale_factor,
+                    compression, process_set, by_total=False)
 
 
 def allgather_async(tensor: torch.Tensor, *, name: Optional[str] = None,
@@ -257,8 +319,15 @@ def allreduce(tensor: torch.Tensor, op: ReduceOp = Average, *,
               compression=Compression.none,
               process_set=None) -> torch.Tensor:
     """Reduce this rank's tensor across ranks († ``hvd.allreduce``).
-    ``compression`` casts it for the collective and back after."""
-    check_supported(compression)
+    ``compression``: a cast ``Compression`` entry casts the tensor for
+    the collective and back after, as upstream's torch binding does; a
+    quantized entry or a mode string selects the engine's wire mode
+    (:func:`allreduce_async`)."""
+    if routes_engine_side(compression) or isinstance(compression, str):
+        return _sync(allreduce_async(
+            tensor, op, name=name, prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor, compression=compression,
+            process_set=process_set))
     wire, ctx = compression.compress(tensor)
     out = _sync(allreduce_async(
         wire, op, name=name, prescale_factor=prescale_factor,
@@ -268,12 +337,13 @@ def allreduce(tensor: torch.Tensor, op: ReduceOp = Average, *,
 
 def allreduce_(tensor: torch.Tensor, op: ReduceOp = Average, *,
                name: Optional[str] = None, prescale_factor: float = 1.0,
-               postscale_factor: float = 1.0,
+               postscale_factor: float = 1.0, compression=None,
                process_set=None) -> torch.Tensor:
     """In-place :func:`allreduce` († ``hvd.allreduce_``)."""
     _sync(allreduce_async_(tensor, op, name=name,
                            prescale_factor=prescale_factor,
                            postscale_factor=postscale_factor,
+                           compression=compression,
                            process_set=process_set))
     return tensor
 
@@ -282,11 +352,14 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       op: ReduceOp = Average, *, name: Optional[str] = None,
                       prescale_factor: float = 1.0,
                       postscale_factor: float = 1.0,
+                      compression=None,
                       process_set=None) -> list[torch.Tensor]:
-    """Fused allreduce of several tensors († ``hvd.grouped_allreduce``)."""
-    handles = grouped_allreduce_async(
-        tensors, op, name=name, prescale_factor=prescale_factor,
-        postscale_factor=postscale_factor, process_set=process_set)
+    """Fused allreduce of several tensors († ``hvd.grouped_allreduce``);
+    the wire mode resolves against the group's total bytes, as the
+    reference's one program over the group does."""
+    handles = _grouped(tensors, op, name, prescale_factor,
+                       postscale_factor, compression, process_set,
+                       by_total=True)
     if handles:
         _engine().nudge()
     return [h.wait() for h in handles]
@@ -588,5 +661,9 @@ from .optim.distributed import (  # noqa: E402,F401
     DistributedOptimizer,
     broadcast_optimizer_state,
     broadcast_parameters,
+)
+from .optim.zero import ZeroDistributedOptimizer  # noqa: E402,F401
+from .ops.sched.buckets import (  # noqa: E402,F401
+    bucketed_distributed_gradients,
 )
 from .sync_batch_norm import SyncBatchNorm  # noqa: E402,F401

@@ -466,32 +466,33 @@ def from_yaml(path: str, base: Optional[Config] = None) -> Config:
 
 # Knobs whose feature the port does not have yet: field -> the ROADMAP.md
 # section A item that ports it, named by its title (titles outlive the
-# items' numbers).  Set away from its default, each one raises at
-# ``init`` rather than being quietly ignored.
-_WIRE = "'Wire precision'"
-_SCHED = "'Schedule IR, hierarchy and buckets'"
+# items' numbers).  Set away from its default (and from the values of
+# :data:`_PORTED_VALUES`), each one raises at ``init`` rather than being
+# quietly ignored.
+_HIER = "'Hierarchy and the compiled schedule'"
 _ELASTIC = "'Elastic and autoscale'"
 _NOT_PORTED = {
-    "wire_precision": _WIRE,
-    "sched_mode": _SCHED,
-    "hierarchical_allreduce": _SCHED,
-    "hierarchical_allgather": _SCHED,
-    "hierarchical_local_size": _SCHED,
-    "hierarchical_cross_precision": _SCHED,
-    "bucket_bytes": _SCHED,
-    "zero": "'ZeRO-1 and Adasum'",
+    "sched_mode": _HIER,
+    "hierarchical_allreduce": _HIER,
+    "hierarchical_allgather": _HIER,
+    "hierarchical_local_size": _HIER,
+    "hierarchical_cross_precision": _HIER,
     "elastic": _ELASTIC,
     "autoscale": _ELASTIC,
 }
+# Values of a knob of _NOT_PORTED that the port does run.
+_PORTED_VALUES = {"sched_mode": ("decomposed",)}
 
 
 def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for the first knob of
-    :data:`_NOT_PORTED` that ``cfg`` sets away from its default."""
+    :data:`_NOT_PORTED` that ``cfg`` sets away from its default to a
+    value the port does not run (``sched_mode="compiled"``)."""
     defaults = Config()
     for field, item in _NOT_PORTED.items():
         value = getattr(cfg, field)
-        if value != getattr(defaults, field):
+        if value != getattr(defaults, field) and \
+                value not in _PORTED_VALUES.get(field, ()):
             raise NotImplementedError(
                 f"{field}={value!r} is not ported to horovod_tpu_torch yet "
                 f"(ROADMAP section A {item}); leave it at its default "

@@ -257,6 +257,9 @@ def _start_runtime(cfg, rank: int, size: int, local_rank: int,
     _state.engine = CollectiveEngine(_state, negotiator)
     _state.engine.start()
     _start_metrics_plane(cfg, rank, size, dev)
+    # Whether this job quantizes its allreduces, as a gauge.
+    from .ops import reduction
+    reduction.publish_mode_gauge(cfg.wire_precision)
     _state.initialized = True
 
 

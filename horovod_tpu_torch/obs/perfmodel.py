@@ -7,10 +7,11 @@ it computes expected **wire bytes per device** (ring accounting),
 expected **latency steps**, and the **algorithmic busbw factor** that
 converts measured seconds into the NCCL-tests bus bandwidth (GC3's
 observation, PAPERS.md: once a collective is a schedule, its cost is
-predictable).  The wire modes and schedules other than ``fp32`` and
-``monolithic`` model what the JAX package runs; the port's engine feeds
-only fp32 monolithic timings until ROADMAP section A 'Wire precision'
-and 'Schedule IR, hierarchy and buckets' land.
+predictable).  The wire modes and schedules model what the JAX package
+runs, a 2-byte container for the quantized wires (the port's int8 sums
+in int32 beyond 16 ranks, ``ops/reduction.py``); the port's engine feeds
+its monolithic groups with their wire mode and the executor its
+``rs_ag:<k>`` windows.
 
 Achieved timings come from the instrumented call sites:
 
@@ -19,9 +20,10 @@ Achieved timings come from the instrumented call sites:
   synchronous collective, on the card a pair of CUDA timing events
   around the group's work on the engine's stream, read once the group
   has finished (the host window there holds only the NCCL launch);
-- :meth:`PerfModel.observe_schedule` and :meth:`PerfModel.observe_tiers`
-  — decomposed and two-tier schedules, whose executors arrive with the
-  schedule IR.
+- :meth:`PerfModel.observe_schedule` — the decomposed schedule's unit
+  windows (``ops/sched/executor.py``); :meth:`PerfModel.observe_tiers`
+  waits for the two-tier executor (ROADMAP section A 'Hierarchy and the
+  compiled schedule').
 
 The two-tier model's tiers on H100s: ``local`` is NVLink inside a node,
 ``cross`` the inter-node fabric (InfiniBand or RoCE).  The one link

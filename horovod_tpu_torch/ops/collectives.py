@@ -21,6 +21,8 @@ Semantics kept from the reference:
 - ``prescale``/``postscale`` multiply in the tensor's dtype before and
   after the reduction.
 - ``PRODUCT`` gathers every rank's tensor and multiplies in rank order.
+- ``ADASUM`` is :func:`.adasum.adasum_allreduce`; the wire modes and the
+  decomposed schedule are :mod:`.reduction` and :mod:`.sched`.
 - ragged ``allgather`` pads every rank's rows to the largest count,
   gathers and slices; ``alltoall`` with ``splits`` exchanges the splits
   first, then moves exactly the rows each rank asked for.
@@ -85,9 +87,10 @@ def allreduce_(buf: torch.Tensor, op: ReduceOp, group, n: int, *,
     to the caller, who folds it into the copy out of a fusion buffer."""
     import torch.distributed as dist
     if op is ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP section A "
-            "'ZeRO-1 and Adasum')")
+        # The reference's Adasum path takes no pre- or postscale.
+        from .adasum import adasum_allreduce
+        buf.copy_(adasum_allreduce(buf, group, n))
+        return
     _scale_(buf, prescale)
     if op is ReduceOp.PRODUCT:
         parts = [torch.empty_like(buf) for _ in range(n)]

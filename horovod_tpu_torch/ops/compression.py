@@ -7,9 +7,12 @@ after, halving wire bytes.  As in the JAX package, ``fp16`` casts to
 bfloat16 (fp32's exponent range, no loss scaling) and ``fp16_ieee`` to
 IEEE float16; ``bf16`` names the bfloat16 cast outright.
 
-The block-scaled quantized wires (``int8``, ``fp8``) quantize inside the
-collective and wait for ROADMAP section A 'Wire precision': naming them
-raises.
+Every compressor carries a ``wire_mode`` (:mod:`.reduction`).  The
+block-scaled quantized entries (``int8``, ``fp8``) route engine-side
+(:func:`routes_engine_side`): per-rank codes with independent scales
+cannot be summed by a plain allreduce, so quantization happens inside the
+collective and their host-side ``compress``/``decompress`` are the
+identity.  The cast entries keep their host-side cast.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ import torch
 
 class Compressor:
     """Interface († ``Compression`` class hierarchy)."""
+
+    #: the engine's wire mode for this compressor ("" = config default)
+    wire_mode = ""
 
     @staticmethod
     def compress(tensor: torch.Tensor) -> tuple[torch.Tensor, Any]:
@@ -47,6 +53,7 @@ class FP16Compressor(Compressor):
     collective, restore after."""
 
     wire_dtype = torch.bfloat16
+    wire_mode = "bf16"
 
     @classmethod
     def compress(cls, tensor):
@@ -67,38 +74,31 @@ class IEEEFP16Compressor(FP16Compressor):
     """Exact reference parity: IEEE float16 wire format."""
 
     wire_dtype = torch.float16
+    wire_mode = "fp16"
 
 
-class _QuantizedCompressor(Compressor):
-    wire_mode = ""
+class Int8Compressor(NoneCompressor):
+    """Block-scaled int8 wire, quantized inside the collective."""
 
-    @classmethod
-    def compress(cls, tensor):
-        raise NotImplementedError(
-            f"the {cls.wire_mode} wire quantizes inside the collective and "
-            "is not ported yet (ROADMAP section A 'Wire precision')")
-
-    decompress = compress
-
-
-class Int8Compressor(_QuantizedCompressor):
     wire_mode = "int8"
 
 
-class FP8Compressor(_QuantizedCompressor):
+class FP8Compressor(NoneCompressor):
+    """Block-scaled fp8-e4m3 wire, quantized inside the collective."""
+
     wire_mode = "fp8"
 
 
-def check_supported(compression) -> None:
-    """Raise at construction, not at the first step, for a compressor the
-    port cannot run."""
-    if isinstance(compression, type) and \
-            issubclass(compression, _QuantizedCompressor):
-        compression.compress(None)
+def routes_engine_side(compression) -> bool:
+    """True when a compressor rides the engine's wire mode instead of a
+    host-side compress/decompress: the quantized entries."""
+    from .reduction import QUANT_MODES
+    return getattr(compression, "wire_mode", "") in QUANT_MODES
 
 
 class Compression:
-    """Namespace matching ``hvd.Compression.{none,fp16}`` (†)."""
+    """Namespace matching ``hvd.Compression.{none,fp16}`` (†), extended
+    with the engine's quantized wire modes."""
 
     none = NoneCompressor
     fp16 = FP16Compressor

@@ -55,8 +55,18 @@ negotiation meta carries its rank's cap, and every rank fuses a cycle by
 the least cap among the metas the coordinator echoes, which are the same
 on every rank.  (The JAX engine fuses by its own rank's knobs.)
 
-Not ported: the wire-precision and schedule fields ('Wire precision';
-'Schedule IR, hierarchy and buckets'), whose knobs ``init`` refuses.
+Wire precision and schedule (:mod:`.reduction`, :mod:`.sched`).  Each
+allreduce entry carries the wire mode (``precision``) and the schedule
+descriptor (``schedule``) resolved at enqueue from values every rank
+agrees on; both ride the negotiation meta (``wp``, ``sc``), a joined rank
+builds its zeros at the same mode and schedule, a rank whose own
+resolution differs adopts the coordinator's echoed values, and ``_fuse``
+keys on both.  A group at a cast or quantized mode packs into the fusion
+buffer and goes through :func:`.reduction.allreduce`; a group with a
+schedule through :func:`.sched.executor.execute_allreduce`; an Adasum
+entry, never fused, through :func:`.adasum.adasum_allreduce`
+(:func:`.collectives.allreduce_`).  All of it runs on the engine's
+stream.
 """
 
 from __future__ import annotations
@@ -70,6 +80,8 @@ from typing import Any, Optional, Sequence
 import torch
 
 from . import collectives as C
+from . import reduction as R
+from .sched.lower import parse_descriptor
 from .. import chaos
 from ..context import HorovodInternalError
 from ..obs import REGISTRY as _obs
@@ -138,6 +150,11 @@ class TensorTableEntry:
     prescale: float = 1.0
     postscale: float = 1.0
     process_set: Any = None
+    # Wire mode ("" or "fp32" = full precision) and schedule descriptor
+    # ("" = monolithic), resolved at enqueue (reduction.resolve_precision,
+    # sched.resolve_schedule).
+    precision: str = ""
+    schedule: str = ""
     # The engine leaves its loop after the round that makes this ready.
     last: bool = False
     enqueue_time: float = field(default_factory=time.monotonic)
@@ -167,6 +184,12 @@ class TensorTableEntry:
             m["ps"] = self.prescale
         if self.postscale != 1.0:
             m["po"] = self.postscale
+        if self.precision and self.precision != "fp32":
+            # A joined rank must build its zeros at the same wire mode.
+            m["wp"] = self.precision
+        if self.schedule:
+            # ... and walk the same schedule, chunk count included.
+            m["sc"] = self.schedule
         m["fc"] = self.cap
         return json.dumps(m, separators=(",", ":"))
 
@@ -192,6 +215,10 @@ def _parse_joinable_meta(meta: str) -> Optional[dict]:
         C.ReduceOp(m["o"])
         if not isinstance(getattr(torch, m["d"], None), torch.dtype):
             return None
+        if m.get("wp", "") not in ("",) + R.MODES:
+            return None     # a wire mode this build cannot run: skip
+        if m.get("sc", "") and parse_descriptor(m["sc"]) is None:
+            return None     # a schedule this build cannot walk: skip
     except (ValueError, TypeError, KeyError):
         return None
     return m
@@ -211,6 +238,34 @@ def _agreed_cap(ready: list[TensorTableEntry], metas: dict,
         except (KeyError, ValueError, TypeError):
             pass
     return min(caps) if caps else local
+
+
+def _reconcile_metas(ready: list[TensorTableEntry], by_name: dict,
+                     metas: dict) -> None:
+    """Adopt the coordinator's echoed schedule and wire mode for ready
+    entries of this rank whose own resolution differs († reference
+    ``_reconcile_metas``).  Both are normally resolved alike on every
+    rank; when they are not (skewed configs), every rank must still run
+    the same collectives, and the coordinator echoes one meta a name to
+    all of them, so each adopts the echoed values before fusing.  An
+    unparseable meta keeps the local values (that peer skips the entry
+    by :func:`_parse_joinable_meta`'s rule)."""
+    for e in ready:
+        if (e.verb != "allreduce" or e.process_set is not None
+                or by_name.get(e.name) is not e):
+            continue
+        m = _parse_joinable_meta(metas.get(e.name, ""))
+        if m is None:
+            continue
+        sc, wp = m.get("sc", ""), m.get("wp", "")
+        if sc != e.schedule or wp != (
+                e.precision if e.precision != "fp32" else ""):
+            log.info(
+                "adopting negotiated meta for %r: schedule %r -> %r, wire "
+                "%r -> %r (peer resolutions differed)", e.name,
+                e.schedule or "monolithic", sc or "monolithic",
+                e.precision or "fp32", wp or "fp32")
+            e.schedule, e.precision = sc, wp
 
 
 class Handle:
@@ -343,7 +398,7 @@ class CollectiveEngine:
         self._autotuner = None
         # Groups timed on the engine's stream, waiting for their work to
         # finish: (start event, end event, verb, payload bytes, itemsize,
-        # ranks).
+        # ranks, wire mode).
         self._timed: list[tuple] = []
 
     # -- lifecycle ----------------------------------------------------------
@@ -425,34 +480,47 @@ class CollectiveEngine:
 
     # -- enqueue († EnqueueTensorAllreduce et al.) --------------------------
     def enqueue(self, entry: TensorTableEntry) -> Handle:
-        handle = Handle(entry.name)
+        return self.enqueue_many([entry])[0]
+
+    def enqueue_many(self, entries: list[TensorTableEntry]) -> list[Handle]:
+        """Enqueue several entries under one hold of the queue's lock, so
+        they meet one cycle together on every rank (a grouped allreduce
+        fuses into one buffer, as the reference's one program does)."""
+        handles = [Handle(e.name) for e in entries]
         if self._stream is not None:
-            # Marks the end of the work that produced the payload, on the
-            # stream that produced it; the engine's stream waits on it.
-            entry.ready = torch.cuda.Event()
-            entry.ready.record(torch.cuda.current_stream(self._device))
+            # Marks the end of the work that produced the payloads, on the
+            # stream that produced them; the engine's stream waits on it.
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self._device))
+            for entry in entries:
+                entry.ready = ready
         with self._wake:
-            if not self._running:
-                handle._complete(error=RuntimeError("engine not running"))
-                return handle
-            if entry.name in self._names_pending:
-                # † TensorQueue rejects duplicate in-flight names.
-                handle._complete(error=ValueError(
-                    f"a collective named {entry.name!r} is already pending"))
-                return handle
-            self._names_pending.add(entry.name)
-            self._queue.append((entry, handle))
-            sp = _trace.current_span()
-            if sp is not None:
-                sp.event("collective.enqueue", tensor=entry.name,
-                         verb=entry.verb)
-            tl = self._state.timeline
-            if tl is not None and tl.enabled:
-                tl.start_activity(entry.name, "QUEUE")
-                entry.tl_phase = "QUEUE"
-                entry.tl_flow = tl.new_flow()
-                tl.flow_start(entry.name, entry.tl_flow)
-        return handle
+            for entry, handle in zip(entries, handles):
+                self._enqueue_locked(entry, handle)
+        return handles
+
+    def _enqueue_locked(self, entry: TensorTableEntry,
+                        handle: Handle) -> None:
+        if not self._running:
+            handle._complete(error=RuntimeError("engine not running"))
+            return
+        if entry.name in self._names_pending:
+            # † TensorQueue rejects duplicate in-flight names.
+            handle._complete(error=ValueError(
+                f"a collective named {entry.name!r} is already pending"))
+            return
+        self._names_pending.add(entry.name)
+        self._queue.append((entry, handle))
+        sp = _trace.current_span()
+        if sp is not None:
+            sp.event("collective.enqueue", tensor=entry.name,
+                     verb=entry.verb)
+        tl = self._state.timeline
+        if tl is not None and tl.enabled:
+            tl.start_activity(entry.name, "QUEUE")
+            entry.tl_phase = "QUEUE"
+            entry.tl_flow = tl.new_flow()
+            tl.flow_start(entry.name, entry.tl_flow)
 
     # -- background loop († RunLoopOnce) ------------------------------------
     def _loop(self) -> None:
@@ -624,6 +692,7 @@ class CollectiveEngine:
         if deferred:
             with self._lock:
                 self._queue = deferred + self._queue
+        _reconcile_metas(ready, by_name, outcome.metas)
         for group in self._fuse(ready, _agreed_cap(ready, outcome.metas,
                                                    cap)):
             self._execute_group(group, handles)
@@ -713,7 +782,8 @@ class CollectiveEngine:
             name=name, verb=m["v"], payload=zeros, output=zeros,
             op=C.ReduceOp(m["o"]), root_rank=m.get("r", 0),
             splits=m.get("sp"), prescale=m.get("ps", 1.0),
-            postscale=m.get("po", 1.0))
+            postscale=m.get("po", 1.0), precision=m.get("wp", ""),
+            schedule=m.get("sc", ""))
         if self._stream is not None:
             e.ready = torch.cuda.Event()
             e.ready.record(torch.cuda.current_stream(self._device))
@@ -749,8 +819,11 @@ class CollectiveEngine:
         singles: list[list[TensorTableEntry]] = []
         for e in entries:
             if e.verb == "allreduce" and e.op is not C.ReduceOp.ADASUM:
+                # One wire mode and one schedule a fused buffer ("" is
+                # fp32 / monolithic).
                 key = ("allreduce", e.op, e.payload.dtype,
-                       id(e.process_set), e.prescale, e.postscale)
+                       id(e.process_set), e.prescale, e.postscale,
+                       e.precision or "fp32", e.schedule)
                 if key not in groups:
                     groups[key] = []
                     order.append(key)
@@ -815,16 +888,19 @@ class CollectiveEngine:
                     e.tl_phase = ""
             if group[0].verb == "allreduce":
                 _m_fusion_batch.observe(len(group))
-            if timed:
+            # A decomposed group feeds the model from the executor.
+            if timed and not group[0].schedule:
                 nbytes = sum(self._entry_bytes(e) for e in group)
                 itemsize = group[0].payload.element_size()
+                mode = group[0].precision or "fp32"
                 if start is None:
                     _perf.MODEL.observe(group[0].verb, nbytes,
                                         self._state.size, t_disp,
-                                        itemsize=itemsize)
+                                        itemsize=itemsize, mode=mode)
                 else:
                     self._timed.append((start, done, group[0].verb,
-                                        nbytes, itemsize, self._state.size))
+                                        nbytes, itemsize, self._state.size,
+                                        mode))
             _frec.RECORDER.record(
                 "dispatch", name=label, verb=group[0].verb,
                 tensors=len(group),
@@ -858,12 +934,12 @@ class CollectiveEngine:
         engine's stream has finished, in dispatch order; a group still
         running stops the walk (``query`` never blocks)."""
         n = 0
-        for start, done, verb, nbytes, itemsize, ranks in self._timed:
+        for start, done, verb, nbytes, itemsize, ranks, mode in self._timed:
             if not done.query():
                 break
             _perf.MODEL.observe(verb, nbytes, ranks,
                                 start.elapsed_time(done) / 1000.0,
-                                itemsize=itemsize)
+                                itemsize=itemsize, mode=mode)
             n += 1
         del self._timed[:n]
 
@@ -912,9 +988,45 @@ class CollectiveEngine:
         e.output.copy_(buf)
         return [e.output]
 
+    @staticmethod
+    def _take(results: list, group: list[TensorTableEntry]) -> list:
+        """Results the reduction allocated, written into the in-place
+        entries' outputs."""
+        outs = []
+        for r, e in zip(results, group):
+            if e.output is None:
+                outs.append(r)
+            else:
+                e.output.copy_(r)
+                outs.append(e.output)
+        return outs
+
     def _allreduce(self, group: list[TensorTableEntry], pg,
                    n: int) -> list:
         e0 = group[0]
+        mode = e0.precision or "fp32"
+        block = self._state.config.quant_block_size
+        if e0.schedule:
+            from .sched.executor import execute_allreduce
+            label = (e0.name if len(group) == 1
+                     else f"hvd.fused[{len(group)}].{e0.name}")
+            return self._take(execute_allreduce(
+                [e.payload for e in group], e0.op, descriptor=e0.schedule,
+                group=pg, n=n, precision=mode, prescale=e0.prescale,
+                postscale=e0.postscale, block=block, name=label,
+                timeline=self._state.timeline), group)
+        if mode != "fp32":
+            nbytes = sum(self._entry_bytes(e) for e in group)
+            itemsize = e0.payload.element_size()
+            R.account_wire(mode, nbytes, n, block, itemsize=itemsize)
+            flat = (e0.payload.reshape(-1) if len(group) == 1 else
+                    torch.cat([e.payload.reshape(-1) for e in group]))
+            out = R.allreduce(flat, e0.op, mode, pg, n, block=block,
+                              prescale=e0.prescale, postscale=e0.postscale)
+            return self._take(
+                [p.view(e.payload.shape) for p, e in zip(
+                    out.split([e.payload.numel() for e in group]), group)],
+                group)
         kw = dict(prescale=e0.prescale, postscale=e0.postscale)
         if len(group) == 1:
             return self._in_place(

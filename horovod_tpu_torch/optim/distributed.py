@@ -27,8 +27,8 @@ from typing import Any, Optional
 import torch
 
 from .. import context
-from ..ops.collectives import Adasum, Average, ReduceOp
-from ..ops.compression import Compression, check_supported
+from ..ops.collectives import Average, ReduceOp
+from ..ops.compression import Compression, routes_engine_side
 
 
 def _named_tensors(params: Any) -> list:
@@ -109,11 +109,6 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 or bucket_cap_bytes < 1):
             raise ValueError(f"bucket_cap_bytes must be None or a positive "
                              f"int, got {bucket_cap_bytes!r}")
-        if op is Adasum:
-            raise NotImplementedError(
-                "Adasum is not ported yet (ROADMAP section A "
-                "'ZeRO-1 and Adasum')")
-        check_supported(compression)
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         self._inner = optimizer
@@ -194,9 +189,15 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         grad = p.grad
         if self._bpps > 1:
             grad.div_(self._bpps)
-        wire, ctx = self._compression.compress(grad)
-        handle = hvd.allreduce_async_(wire, self.op,
-                                      name=f"grad.{self._name_of(p)}")
+        name = f"grad.{self._name_of(p)}"
+        if routes_engine_side(self._compression):
+            # Quantized inside the collective, into p.grad.
+            wire, ctx = grad, None
+            handle = hvd.allreduce_async_(grad, self.op, name=name,
+                                          compression=self._compression)
+        else:
+            wire, ctx = self._compression.compress(grad)
+            handle = hvd.allreduce_async_(wire, self.op, name=name)
         self._handles[p] = (handle, ctx, wire)
 
     def synchronize(self) -> None:
@@ -254,7 +255,11 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     """† ``hvd.DistributedOptimizer`` for torch: wrap ``optimizer`` so
     that every gradient is averaged (``op``) across ranks before its
     update.  ``compression`` casts gradients for the wire
-    (``Compression.fp16``/``bf16``); ``backward_passes_per_step`` sums
+    (``Compression.fp16``/``bf16``) or quantizes them inside the
+    collective (``Compression.int8``/``fp8``).  With ``op=hvd.Adasum``
+    every gradient is its own Adasum allreduce (the projection is not
+    elementwise, so the engine never fuses two).
+    ``backward_passes_per_step`` sums
     that many backward passes locally before one allreduce.
 
     ``bucket_cap_bytes`` is accepted for the JAX package's signature and

@@ -140,9 +140,11 @@ def _rank_outputs(stdout: str, stderr: str, np_: int) -> list:
 
 
 def launch(mode: str, outdir: str, *, np_: int = NP, timeout: float = 120,
-           extra_env: dict | None = None, flags: tuple = ()) -> list:
-    """Run ``mode`` on ``np_`` ranks through the port's launcher, with the
-    launcher's ``flags``; returns each rank's (exit code, output).  At ``timeout`` seconds the launcher
+           extra_env: dict | None = None, flags: tuple = (),
+           script: str = __file__) -> list:
+    """Run ``mode`` of ``script`` (this worker by default) on ``np_``
+    ranks through the port's launcher, with the launcher's ``flags``;
+    returns each rank's (exit code, output).  At ``timeout`` seconds the launcher
     is sent SIGTERM, on which it kills every rank still running, and those
     ranks report exit code None, so a hang fails its test instead of
     eating the suite's time."""
@@ -152,7 +154,7 @@ def launch(mode: str, outdir: str, *, np_: int = NP, timeout: float = 120,
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np",
            str(np_), "--platform", "cpu", "--verbose", *flags, "--",
-           sys.executable, os.path.abspath(__file__), mode, outdir]
+           sys.executable, os.path.abspath(script), mode, outdir]
     proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     try:
@@ -363,6 +365,11 @@ def _tiny_llama():
 LLAMA_DIMS = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
                   d_ff=256, vocab_size=128)
 LLAMA_LR = 1e-2
+# DistributedOptimizer's Adasum and quantized wires (above the default
+# 64 KiB quantization floor)
+OPT_WIRES = {"adasum": {"op": "Adasum"}, "int8": {"compression": "int8"},
+             "fp8": {"compression": "fp8"}}
+OPT_WIRE_SHAPE = (4, 4250)
 LLAMA_STEPS = 2
 
 
@@ -460,6 +467,19 @@ def run_optimizer(hvd, me: int, arrays: dict, info: dict,
         g, hvd.Average, compression=hvd.Compression.fp16))
     arrays["fp16_ieee"] = _np(hvd.allreduce(
         g, hvd.Average, compression=hvd.Compression.fp16_ieee))
+
+    # Adasum and the quantized wires through the optimizer: one weight
+    # above the quantization floor whose gradient is this rank's G
+    for key, kw in OPT_WIRES.items():
+        w = torch.nn.Parameter(torch.zeros(OPT_WIRE_SHAPE))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([w], lr=1.0), named_parameters=[(key, w)],
+            **{k: getattr(hvd.Compression, v) if k == "compression"
+               else getattr(hvd, v) for k, v in kw.items()})
+        g = engine_input(f"opt.{key}", me, 0, int(np.prod(OPT_WIRE_SHAPE)))
+        (w * torch.from_numpy(g).reshape(OPT_WIRE_SHAPE)).sum().backward()
+        opt.synchronize()
+        arrays[f"opt.{key}"] = _np(w.grad)
 
     # SyncBatchNorm over the joined batch of both ranks
     sbn = hvd.SyncBatchNorm(3)

@@ -19,14 +19,19 @@ Two processes, one rank each, on the CPU over Gloo
 - ``broadcast_parameters`` and ``broadcast_optimizer_state`` from rank 1;
 - ``Compression.fp16`` (a bfloat16 wire) and ``fp16_ieee``, against the
   JAX package's allreduce of the same cast values;
+- ``op=hvd.Adasum``, ``Compression.int8`` and ``Compression.fp8`` through
+  the optimizer's hooks, against the JAX package's Adasum and quantized
+  build functions on the same gradients (int8 bitwise, fp8 within the
+  bound of ``tests/test_reduction.py``, Adasum rtol 1e-5);
 - ``SyncBatchNorm`` on half a batch a rank against ``BatchNorm2d`` on the
   joined batch (output, input gradient, summed weight and bias gradients,
   running statistics; atol 1e-5 / 1e-4 as ``tests/test_bindings.py``).
 
 And at one rank in this process: ``SyncBatchNorm``'s stock-BatchNorm
 semantics (eval, ``momentum=None``, no running statistics, a bad input
-dim), and ``DistributedOptimizer`` refusing Adasum, the quantized wires
-and parameters ``named_parameters`` leaves unnamed.
+dim), and ``DistributedOptimizer`` taking Adasum and the quantized wires
+(at one rank they leave the gradient as it is) and refusing parameters
+``named_parameters`` leaves unnamed.
 """
 
 from __future__ import annotations
@@ -197,6 +202,36 @@ def test_compression_matches_jax(run, ps, key, wire):
         np.testing.assert_array_equal(arrays[key], want)
 
 
+@pytest.mark.parametrize("key", sorted(W.OPT_WIRES))
+def test_optimizer_adasum_and_quantized_wires_match_jax(run, key):
+    from jax.sharding import Mesh
+
+    from horovod_tpu.ops import adasum as JA
+    from horovod_tpu.ops import collectives as JC
+    from horovod_tpu.ops import reduction as JR
+    numel = int(np.prod(W.OPT_WIRE_SHAPE))
+    rows = np.stack([W.engine_input(f"opt.{key}", r, 0, numel)
+                     for r in range(W.NP)])
+    mesh = Mesh(np.array(jax.devices()[:W.NP]), ("hvd",))
+    if key == "adasum":
+        fn = JA._build_adasum(mesh, "hvd", (numel,), jnp.float32)
+    else:
+        fn = JR.build_allreduce(mesh, "hvd", JC.ReduceOp.AVERAGE, key,
+                                (numel,), jnp.float32, 1.0, 1.0, 512)
+    want = np.asarray(fn(jnp.asarray(rows))).reshape(W.OPT_WIRE_SHAPE)
+    gmax = float(np.abs(rows).max())
+    for arrays, _ in run[0]:
+        got = arrays[f"opt.{key}"]
+        if key == "int8":
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want.view(np.int32))
+        elif key == "fp8":
+            np.testing.assert_allclose(got, want,
+                                       atol=1.5 * (W.NP + 1) * gmax / 16)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
 def test_sync_batch_norm_matches_joined_batch(run):
     ranks, _, _ = run
     x = torch.from_numpy(np.random.RandomState(7).randn(
@@ -272,13 +307,21 @@ def test_sync_batch_norm_no_running_stats(one_rank):
 
 
 def test_optimizer_rejects_what_is_not_ported(one_rank):
-    params = list(torch.nn.Linear(2, 2).parameters())
+    """Adasum and the quantized wires are ported now: at one rank they
+    leave the gradient as it is.  Unnamed parameters are still refused."""
     for kw in ({"op": one_rank.Adasum},
                {"compression": one_rank.Compression.int8},
                {"compression": one_rank.Compression.fp8}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            one_rank.DistributedOptimizer(torch.optim.SGD(params, lr=0.1),
-                                          **kw)
+        lin = torch.nn.Linear(2, 2)
+        params = list(lin.parameters())
+        opt = one_rank.DistributedOptimizer(
+            torch.optim.SGD(params, lr=0.1),
+            named_parameters=lin.named_parameters(), **kw)
+        opt.zero_grad()
+        lin(torch.arange(4.0).reshape(2, 2)).square().sum().backward()
+        want = [p.grad.clone() for p in params]
+        opt.synchronize()
+        assert all(torch.equal(p.grad, w) for p, w in zip(params, want))
     with pytest.raises(ValueError, match="not the optimizer's parameters"):
         one_rank.DistributedOptimizer(
             torch.optim.SGD(params, lr=0.1),

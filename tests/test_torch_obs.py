@@ -292,11 +292,13 @@ def test_init_serves_metrics_equal_to_hvd_metrics(one_rank):
     prof.PROFILER.stop()
     text = hvd.metrics("prometheus")
     code, _, served = _get(port, "/metrics")
+    json_body = hvd.metrics("json")
+    snapshot = hvd.metrics()
     prof.PROFILER.start()
     assert code == 200 and served == text
     assert 'hvd_collectives_total{verb="allreduce"}' in text
-    assert json.loads(hvd.metrics("json"))["metrics"] == \
-        json.loads(export.to_json(hvd.metrics()))["metrics"]
+    assert json.loads(json_body)["metrics"] == \
+        json.loads(export.to_json(snapshot))["metrics"]
     code, _, body = _get(port, "/healthz")
     health = json.loads(body)
     assert code == 200 and health["ready"] and health["rank"] == 0

@@ -3,7 +3,8 @@
 - **Config** (the cases of ``tests/test_basics.py``): env parsing,
   precedence, a bad env value, yaml and an unknown yaml key, each held
   field by field against the JAX package's ``Config`` for the same env;
-  every knob whose feature is not ported raises at ``init``.
+  every knob whose feature is not ported raises at ``init``; the
+  collective data plane's knobs are accepted and, at one rank, inert.
 - **Runtime**, at one rank in this process on the CPU (Gloo): double
   init, the not-initialized error, shutdown and a second init, the
   capability queries; and at two ranks in subprocesses
@@ -113,11 +114,15 @@ def test_config_yaml_unknown_key(tmp_path):
 
 
 _NOT_PORTED = {
-    "wire_precision": "bf16", "sched_mode": "decomposed",
+    "sched_mode": "compiled",
     "hierarchical_allreduce": True, "hierarchical_allgather": True,
     "hierarchical_local_size": 4, "hierarchical_cross_precision": "int8",
-    "bucket_bytes": 1 << 20, "zero": True, "elastic": True,
-    "autoscale": True}
+    "elastic": True, "autoscale": True}
+# Knobs of the collective data plane, refused until it was ported.
+_DATAPLANE_KNOBS = {"wire_precision": "int8", "quant_block_size": 64,
+                    "quant_min_bytes": 0, "sched_mode": "decomposed",
+                    "sched_chunks": 2, "bucket_bytes": 1 << 20,
+                    "zero": True}
 # Knobs of the observability plane, refused until it was ported, and the
 # module each one arms at init.
 _OBS_KNOBS = {"autotune": (True, "engine"),
@@ -149,6 +154,33 @@ def test_obs_knob_is_accepted_at_init(monkeypatch, knob):
     finally:
         hvd.shutdown()
     assert slo.status() == {} and alerts.status() is None
+
+
+@pytest.mark.parametrize("knob", sorted(_DATAPLANE_KNOBS))
+def test_dataplane_knob_is_accepted_at_init(monkeypatch, knob):
+    """Accepted, and inert at one rank as in the reference: an allreduce
+    comes back whole, no schedule is walked, no wire byte saved, and the
+    wire-mode gauge names the configured default."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import reduction
+    from horovod_tpu_torch.ops.sched import executor
+    for k in list(os.environ):
+        if k.startswith(("HVDTPU_", "HOROVOD_")):
+            monkeypatch.delenv(k)
+    value = _DATAPLANE_KNOBS[knob]
+    hvd.init(config=port_config.Config(platform="cpu", **{knob: value}))
+    try:
+        assert getattr(hvd.global_state().config, knob) == value
+        before = (executor._m_sched.total(), reduction._m_wire_saved.total())
+        x = torch.arange(70000, dtype=torch.float32)
+        assert torch.equal(hvd.allreduce(x, name="k"), x)
+        assert torch.equal(hvd.allreduce(x, name="q", compression="int8"), x)
+        assert (executor._m_sched.total(),
+                reduction._m_wire_saved.total()) == before
+        mode = hvd.global_state().config.wire_precision
+        assert reduction._m_wire_mode.labels(mode=mode).value == 1.0
+    finally:
+        hvd.shutdown()
 
 
 @pytest.mark.parametrize("knob", sorted(_NOT_PORTED))
