@@ -99,11 +99,16 @@ printing one JSON line per phase:
    stream, with each entry's wire mode and schedule set past the one-rank
    gate: a gradient set of the 7B DP step's shape (291 bf16 tensors,
    13,477,363,712 bytes) fused as the engine fuses it, through the plain
-   path, the bf16 cast, int8, fp8 and int8 ``rs_ag:4``: device ms of the
-   whole set in each mode (CUDA events) and peak memory.  Every group's
+   path, the bf16 cast, int8, fp8, int8 ``rs_ag:4`` and fp32 and int8
+   ``compiled:rs_ag:4`` (one CUDA graph a schedule signature, captured
+   during the checks, only replayed in the timed pass): device ms of the
+   whole set in each mode (CUDA events), the host ms of issuing it, peak
+   memory allocated and reserved, the graphs captured, their capture
+   seconds, replays and the bytes of their shared pool.  Every group's
    result within its round-trip bound of the input, int8 ``rs_ag:4``
-   bitwise equal to int8 monolithic; three groups bitwise equal to the
-   same functions on the CPU over a Gloo group of one; the
+   bitwise equal to int8 monolithic, int8 ``compiled:rs_ag:4`` to both,
+   fp32 ``compiled:rs_ag:4`` to the plain path; three groups bitwise equal
+   to the same functions on the CPU over a Gloo group of one; the
    reduce-scatters in the chosen container (fp16), a MAX all_reduce of
    the raw absmax, 1-byte and fp32 gathers;
 11. ``hvdrun``  the same data-parallel step as a job of the port's launcher,
@@ -139,7 +144,26 @@ printing one JSON line per phase:
    rank; the step spans on ``/tracez``'s rank-0 lane.  This process
    requires every loss bitwise equal to ``train``'s and prints the step
    median beside ``train_dp``'s and ``hvdrun``'s;
-13. ``train_parity``  two layers at full width, S=4096: loss and every
+13. ``elastic``  Llama-2-7B at full width, depth cut to 4 layers (train's
+   seed, batch and fused Adam through ``DistributedOptimizer``), as an
+   elastic job: ``python -m horovod_tpu_torch.runner -np 1 --min-np 1
+   --max-np 1 --host-discovery-script D -- python chip_smoke.py
+   --elastic-worker W``, D printing ``localhost:1`` and ``127.0.0.1:1``
+   (both run here, on the one card), with ``HVDTPU_FAULTS`` killing the
+   worker mid-step 4 and a ``FileBackedState`` committed each step and a
+   ``Checkpointer`` of the parameters and Adam's state every second step.
+   The job must exit 0 after exactly one relaunch, on 127.0.0.1, with
+   localhost blacklisted, resuming at a step > 0, its flight bundle naming
+   the injected death, and every loss bitwise equal to an uninterrupted
+   run of the same steps in this process.  Then the in-process path: a
+   ``dispatch:err`` in step 2 and another in step 3 under
+   ``hvd.elastic.run`` (no ``HVDTPU_ELASTIC``): NCCL re-initialized in
+   this process each time, ``TorchState`` restored, every loss bitwise
+   equal again, the flash launches of every forward and backward run,
+   device memory after each reinit within ``ELASTIC_MEM_REL`` of before.  Time to recover, the
+   checkpoint's save and restore GB/s, reinit seconds, step ms before and
+   after;
+14. ``train_parity``  two layers at full width, S=4096: loss and every
    gradient through the kernels against the same call through their plain
    versions (``llama._FORCE_ATTENTION_REFERENCE``).
 
@@ -149,8 +173,9 @@ Any failure raises and exits non-zero before the last line; without a
 CUDA device, or without the port's package beside the script, it exits
 2.  ``--phases`` runs a subset
 (``device,build,kernel,serve,frontdoor,train,train_variants,train_dp,
-train_zero,dataplane,hvdrun,hvdrun_obs,train_parity``; ``frontdoor``
-needs ``build``; ``train_variants``, ``train_dp`` and ``hvdrun_obs`` need
+train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity``;
+``frontdoor`` and ``elastic`` need ``build``; ``train_variants``,
+``train_dp`` and ``hvdrun_obs`` need
 ``train``, ``hvdrun`` and ``train_zero`` need ``train`` and
 ``train_dp``); ``--root DIR`` drives
 the package of another checkout (an unpacked parent commit, say) with
@@ -172,7 +197,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 PHASES = ("device", "build", "kernel", "serve", "frontdoor", "train",
           "train_variants", "train_dp", "train_zero", "dataplane", "hvdrun",
-          "hvdrun_obs", "train_parity")
+          "hvdrun_obs", "elastic", "train_parity")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -1723,7 +1748,15 @@ def dp_breakdown(torch, step, params, batch, wall_ms: float,
 # payload's own dtype on the wire, as every gradient of train_dp goes.
 DATAPLANE_MODES = {"fp32": ("fp32", ""), "bf16": ("bf16", ""),
                    "int8": ("int8", ""), "fp8": ("fp8", ""),
-                   "int8.rs_ag4": ("int8", "rs_ag:4")}
+                   "int8.rs_ag4": ("int8", "rs_ag:4"),
+                   "fp32.compiled4": ("fp32", "compiled:rs_ag:4"),
+                   "int8.compiled4": ("int8", "compiled:rs_ag:4")}
+# Modes each mode's result must equal bitwise on every group: the
+# compiled schedule replays the dispatched walk, which equals monolithic
+# (at one rank the fp32 walk hands each element back times 1.0).
+DATAPLANE_BITWISE = {"int8.rs_ag4": ("int8",),
+                     "int8.compiled4": ("int8.rs_ag4", "int8"),
+                     "fp32.compiled4": ("fp32",)}
 # Fused groups (first, middle, last) held against the same function on
 # the CPU, over a Gloo group of one.
 DATAPLANE_CPU_GROUPS = 3
@@ -1765,9 +1798,12 @@ def _dataplane_run(torch, eng, entries, groups, mode, sched):
     """One pass of the whole set through the engine's allreduce at one
     rank, on the engine's stream: device ms (CUDA events; the gaps the
     host leaves included), the host ms of issuing it, peak memory;
-    results dropped as they come."""
+    results dropped as they come.  A compiled schedule's pass must only
+    replay graphs the checks captured, one replay a group."""
+    from horovod_tpu_torch.ops.sched import compiled
     for e in entries:
         e.precision, e.schedule = mode, sched
+    before = compiled.stats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1781,9 +1817,20 @@ def _dataplane_run(torch, eng, entries, groups, mode, sched):
         end.record()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    return {"device_ms": start.elapsed_time(end), "host_ms": host_ms,
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "working_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    after = compiled.stats()
+    run = {"device_ms": start.elapsed_time(end), "host_ms": host_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "working_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           # a graph pool's temporaries are reserved, never "allocated"
+           "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "replays": after["replays"] - before["replays"],
+           "captures": after["captures"] - before["captures"]}
+    if sched.startswith("compiled:") and (
+            run["captures"] or run["replays"] != len(groups)):
+        raise AssertionError(f"dataplane {mode} {sched}: {run['captures']} "
+                             f"captures and {run['replays']} replays in "
+                             f"the timed pass of {len(groups)} groups")
+    return run
 
 
 def _dataplane_checks(torch, eng, entries, groups, cpu_group):
@@ -1848,9 +1895,11 @@ def _dataplane_checks(torch, eng, entries, groups, cpu_group):
                     worst[label] = max(worst.get(label, 0.0),
                                        float((err / amax.clamp_min(
                                            1e-30)).max()))
-            for a, b in zip(outs["int8"], outs["int8.rs_ag4"]):
-                if not torch.equal(_bits(a), _bits(b)):
-                    faults.append(f"group {gi}: rs_ag:4 != monolithic")
+            for label, others in DATAPLANE_BITWISE.items():
+                for other in others:
+                    if not all(torch.equal(_bits(a), _bits(b)) for a, b in
+                               zip(outs[label], outs[other])):
+                        faults.append(f"group {gi}: {label} != {other}")
             if gi not in picks:
                 continue
             mode_now[0] = "cpu"
@@ -1876,7 +1925,8 @@ def _dataplane_checks(torch, eng, entries, groups, cpu_group):
     finally:
         for name in names:
             setattr(dist, name, real[name])
-    want = {"int8": "float16", "fp8": "float16", "int8.rs_ag4": "float16"}
+    want = {"int8": "float16", "fp8": "float16", "int8.rs_ag4": "float16",
+            "int8.compiled4": "float16"}
     for label, cont in want.items():
         seen = calls.get(label, set())
         rs = {k.split(":")[1] for k in seen if k.startswith("reduce_scat")}
@@ -1901,6 +1951,7 @@ def phase_dataplane(torch, smi: str) -> None:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import llama
     from horovod_tpu_torch.ops import engine as E
+    from horovod_tpu_torch.ops.sched import compiled
 
     _free_cuda(torch)
     hvd.init()
@@ -1917,6 +1968,7 @@ def phase_dataplane(torch, smi: str) -> None:
         cpu_group = dist.new_group(backend="gloo")
         faults, calls, worst = _dataplane_checks(torch, eng, entries,
                                                  groups, cpu_group)
+        captured = compiled.stats()
         runs = {label: _dataplane_run(torch, eng, entries, groups, *ms)
                 for label, ms in DATAPLANE_MODES.items()}
         # the least traffic of any allreduce of the set at one rank: the
@@ -1938,8 +1990,17 @@ def phase_dataplane(torch, smi: str) -> None:
               "peak_mem_gb": {k: v["peak_gb"] for k, v in runs.items()},
               "working_mem_gb": {k: v["working_gb"]
                                  for k, v in runs.items()},
+              "peak_reserved_gb": {k: v["reserved_gb"]
+                                   for k, v in runs.items()},
               "elements": numel, "worst_err_over_block_amax": worst,
               "collectives": calls,
+              "compiled": {
+                  "graphs": captured["graphs"],
+                  "capture_s": captured["capture_s"],
+                  "pool_bytes": captured["pool_bytes"],
+                  "replays_in_timed_pass": {
+                      k: v["replays"] for k, v in runs.items()
+                      if DATAPLANE_MODES[k][1].startswith("compiled:")}},
               "cpu_checked_groups": DATAPLANE_CPU_GROUPS, "card": smi})
         if faults:
             raise AssertionError("dataplane: " + "; ".join(faults[:8]))
@@ -2504,6 +2565,416 @@ def hvdrun_worker(torch, out: Path, steps: int = 3,
     return 1 if faults else 0
 
 
+# ---------------------------------------------------------------------------
+# elastic: a 7B-width job killed, blacklisted, relaunched and resumed; the
+# in-process recovery path
+# ---------------------------------------------------------------------------
+
+ELASTIC_LAYERS = 4          # Llama-2-7B's width, depth cut to 4 layers
+ELASTIC_STEPS = 6
+ELASTIC_CKPT_EVERY = 2      # a checkpoint after every second step
+# The job runs with fusion off, so every step is exactly one allreduce
+# dispatch a trainable leaf (9 a layer and 3 more) after one broadcast a
+# leaf at start: the death lands in step ELASTIC_DIE_STEP, at its
+# ELASTIC_DIE_AT-th gradient, past the checkpoint of step 4.
+ELASTIC_DIE_STEP = 4
+ELASTIC_DIE_AT = 20
+# The in-process path: a dispatch error in step ELASTIC_ERR_STEP, then,
+# once recovered, another in the step after it (so a leak a reinit would
+# show twice).
+ELASTIC_ERR_STEP = 2
+ELASTIC_MEM_REL = 0.01      # device memory after each reinit against before
+ELASTIC_TIMEOUT_S = 600
+
+
+def _elastic_leaves() -> int:
+    return 9 * ELASTIC_LAYERS + 3
+
+
+def _elastic_model(torch, hvd):
+    """Train's model at Llama-2-7B width and ELASTIC_LAYERS layers, its
+    seed and batch, stepped through ``DistributedOptimizer`` over fused
+    Adam on the initialized runtime."""
+    import dataclasses
+
+    import numpy as np
+
+    from horovod_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(),
+                              n_layers=ELASTIC_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, "cuda")
+    named = llama.named_trainable(params)
+    hvd.broadcast_parameters(named, root_rank=0)
+    adam = torch.optim.Adam([t for _, t in named], lr=TRAIN_LR, fused=True)
+    opt = hvd.DistributedOptimizer(adam, named_parameters=named)
+    step = llama.make_train_step(cfg, opt)
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(1, TRAIN_S + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    return {"cfg": cfg, "params": params, "named": named, "adam": adam,
+            "opt": opt, "step": step, "batch": batch}
+
+
+def _elastic_per_step(cfg) -> dict:
+    return {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "paged_decode": 0}
+
+
+def elastic_worker(torch, work: Path) -> int:
+    """The elastic phase's worker, run by the port's elastic driver: the
+    kernels the parent built, ``hvd.init`` over NCCL, ``_elastic_model``,
+    a ``FileBackedState`` committed each step and a ``Checkpointer`` of
+    the parameters, Adam's state and the step every ELASTIC_CKPT_EVERY
+    steps; a start restores the latest checkpoint.  Appends one JSON
+    record a line to ``work/log.jsonl``."""
+    import os
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.elastic import FileBackedState
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import flash_attention as FA
+    from horovod_tpu_torch.utils.checkpoint import Checkpointer, tree_bytes
+
+    def log(**rec):
+        with open(work / "log.jsonl", "a") as f:
+            f.write(json.dumps({"t_unix": time.time(), **rec}) + "\n")
+
+    t_start = time.time()
+    for lib in KERNEL_LIBS:
+        _build.load(lib, FA._SIGNATURES[lib])
+    hvd.init()
+    try:
+        m = _elastic_model(torch, hvd)
+        params, adam = m["params"], m["adam"]
+        ckpt = Checkpointer(str(work / "ckpt"), max_to_keep=1)
+        state = FileBackedState(str(work / "state.json"), step=0)
+        file_step = state.step
+        start = 0
+        if ckpt.latest_step() is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tree = ckpt.restore(target={"params": params})
+            with torch.no_grad():
+                for k, v in tree["params"]["layers"].items():
+                    params["layers"][k].copy_(v)
+                for k in ("embed", "final_norm", "lm_head"):
+                    params[k].copy_(tree["params"][k])
+            adam.load_state_dict(tree["adam"])
+            torch.cuda.synchronize()
+            start = int(tree["step"])
+            log(kind="restore", step=start, s=time.perf_counter() - t0,
+                bytes=tree_bytes(tree))
+            del tree
+        state.step = start
+        log(kind="start", resume_step=start, file_state_step=file_step,
+            pid=os.getpid(), t_process=t_start,
+            elastic_env=os.environ.get("HVDTPU_ELASTIC"))
+        zero_launches()
+
+        @hvd.elastic.run
+        def train(state):
+            for i in range(state.step, ELASTIC_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = m["step"](params, m["batch"]).item()
+                log(kind="step", step=i, loss=loss.hex(),
+                    step_s=time.perf_counter() - t0,
+                    launches=read_launches())
+                if (i + 1) % ELASTIC_CKPT_EVERY == 0:
+                    tree = {"params": params, "adam": adam.state_dict(),
+                            "step": i + 1}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ckpt.save(i + 1, tree)
+                    log(kind="save", step=i + 1,
+                        s=time.perf_counter() - t0, bytes=tree_bytes(tree))
+                state.step = i + 1
+                state.commit()
+
+        train(state)
+        ckpt.close()
+        log(kind="done", step=state.step)
+    finally:
+        hvd.shutdown()
+    return 0
+
+
+def _elastic_measure(torch, leaves) -> dict:
+    """Device memory with the gradients dropped (the next step's
+    ``zero_grad`` would drop them) and the caches emptied."""
+    for t in leaves:
+        t.grad = None
+    _free_cuda(torch)
+    free, total = torch.cuda.mem_get_info()
+    return {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+            "device_used_gb": (total - free) / 1e9,
+            # the CUDA context, NCCL's buffers and anything else the
+            # caching allocator does not hold
+            "outside_allocator_gb": (total - free
+                                     - torch.cuda.memory_reserved()) / 1e9}
+
+
+def _elastic_job(torch, root: Path, work: Path) -> tuple:
+    """The launched job: the driver's output and the worker's records."""
+    import os
+    import signal
+
+    disc = work / "discover.sh"
+    disc.write_text("#!/bin/sh\necho localhost:1\necho 127.0.0.1:1\n")
+    disc.chmod(0o755)
+    latch = work / "die.latch"
+    after = _elastic_leaves() * (1 + ELASTIC_DIE_STEP) + ELASTIC_DIE_AT
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("HVDTPU_", "HOROVOD_"))}
+    env.update({
+        "PYTHONPATH": str(root) + os.pathsep + env.get("PYTHONPATH", ""),
+        "HVDTPU_FAULTS": f"dispatch:rank=0:die:after={after}:once={latch}",
+        "HVDTPU_FLIGHT_RECORDER_DIR": str(work / "flightrec"),
+        "HVDTPU_FUSION_THRESHOLD": "0",
+        "HVDTPU_LOG_LEVEL": "info"})
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "-np", "1",
+           "--min-np", "1", "--max-np", "1", "--host-discovery-script",
+           str(disc), "--verbose", "--", sys.executable,
+           str(Path(__file__).resolve()), "--elastic-worker", str(work),
+           "--root", str(root)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=str(root),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        text, _ = proc.communicate(timeout=ELASTIC_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            text, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+    wall_s = time.perf_counter() - t0
+    sys.stderr.write(text[-20000:])
+    sys.stderr.flush()
+    log = work / "log.jsonl"
+    recs = ([json.loads(x) for x in log.read_text().splitlines()]
+            if log.is_file() else [])
+    return proc.returncode, text, wall_s, recs, after
+
+
+def phase_elastic(torch, smi: str, root: Path) -> None:
+    """The elastic job (``python -m horovod_tpu_torch.runner
+    --host-discovery-script D --min-np 1 --max-np 1``, D printing
+    ``localhost:1`` and ``127.0.0.1:1``) killed by an injected death,
+    blacklisted and relaunched on the other "host", resumed from its
+    checkpoint; then the in-process path: a ``dispatch:err`` under
+    ``hvd.elastic.run`` re-initializes NCCL in this process and
+    ``TorchState`` restores.  Every loss of both against an uninterrupted
+    run in this process, bitwise."""
+    import glob
+    import os
+    import shutil
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import chaos
+    from horovod_tpu_torch.elastic import TorchState
+    from horovod_tpu_torch.elastic import runner as elastic_runner
+
+    _free_cuda(torch)
+    if torch.cuda.memory_reserved() > 1e9:
+        raise AssertionError("elastic: this process still holds "
+                             f"{torch.cuda.memory_reserved() / 1e9:.1f} GB")
+    work = root / "build" / f"elastic-{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    faults = []
+    try:
+        rc, text, wall_s, recs, after = _elastic_job(torch, root, work)
+        if rc != 0:
+            raise AssertionError(f"elastic: the launcher exited {rc}; its "
+                                 f"output ends\n{text[-4000:]}")
+        launches_on = [ln.split("launching on ", 1)[1] for ln in
+                       text.splitlines() if "elastic: launching on " in ln]
+        starts = [r for r in recs if r["kind"] == "start"]
+        steps = [r for r in recs if r["kind"] == "step"]
+        saves = [r for r in recs if r["kind"] == "save"]
+        restores = [r for r in recs if r["kind"] == "restore"]
+        bundles = glob.glob(str(work / "flightrec" /
+                                "flightrec-rank0-*-injected_death-*.json"))
+        if len(launches_on) != 2 or len(starts) != 2 or \
+                "localhost" not in launches_on[0] or \
+                "localhost" in launches_on[1] or \
+                "127.0.0.1" not in launches_on[1]:
+            faults.append(f"want one relaunch on 127.0.0.1: launches "
+                          f"{launches_on}, starts {len(starts)}")
+        if "elastic: blacklisted host localhost" not in text:
+            faults.append("the dead host was not blacklisted")
+        if len(starts) == 2 and not starts[1]["resume_step"] > 0:
+            faults.append(f"the relaunch resumed at {starts[1]}")
+        death = None
+        if not bundles:
+            faults.append("no injected_death flight bundle")
+        else:
+            b = json.loads(Path(bundles[0]).read_text())
+            death = b["t_unix"]
+            if b["extra"]["site"] != "dispatch" or \
+                    "die" not in b["extra"]["rule"]:
+                faults.append(f"the bundle names {b['extra']}")
+        job_losses = {r["step"]: float.fromhex(r["loss"]) for r in steps}
+
+        # the uninterrupted run, then the in-process recovery path
+        hvd.init(config=hvd.Config(fusion_threshold=0))
+        try:
+            m = _elastic_model(torch, hvd)
+            per_step = _elastic_per_step(m["cfg"])
+            zero_launches()
+            ref, ref_ms = [], []
+            for _ in range(ELASTIC_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref.append(m["step"](m["params"], m["batch"]).item())
+                ref_ms.append((time.perf_counter() - t0) * 1e3)
+            if read_launches() != {k: ELASTIC_STEPS * v
+                                   for k, v in per_step.items()}:
+                faults.append(f"uninterrupted launches {read_launches()}")
+            del m
+            _free_cuda(torch)
+            if [job_losses.get(i) for i in range(ELASTIC_STEPS)] != ref:
+                faults.append(f"job losses {job_losses} != uninterrupted "
+                              f"{ref}")
+
+            m = _elastic_model(torch, hvd)
+            leaves = [t for _, t in m["named"]]
+            state = TorchState(optimizer=m["opt"], params=m["params"],
+                               step=0)
+            got, step_ms, mem, times = {}, {}, {}, {}
+            real_reinit = elastic_runner._reinitialize
+
+            def timed_reinit():
+                t0 = time.perf_counter()
+                real_reinit()
+                times.setdefault("reinit_s", []).append(
+                    time.perf_counter() - t0)
+                engines.append(hvd.global_state().engine)
+
+            resets = []
+
+            def on_reset():
+                resets.append(time.perf_counter())
+                mem[f"after_reinit{len(resets)}"] = _elastic_measure(
+                    torch, leaves)
+                if len(resets) == 1:     # the next error, a step later
+                    chaos.arm(f"dispatch:err:after="
+                              f"{_elastic_leaves() + ELASTIC_DIE_AT}"
+                              ":times=1")
+            state.register_reset_callbacks([on_reset])
+            commit_s = []
+
+            @hvd.elastic.run
+            def train(state):
+                for i in range(state.step, ELASTIC_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    try:
+                        got[i] = m["step"](m["params"], m["batch"]).item()
+                    except hvd.HorovodInternalError:
+                        fails.append(time.perf_counter())
+                        raise
+                    step_ms.setdefault(i, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+                    state.step = i + 1
+                    t0 = time.perf_counter()
+                    state.commit()
+                    commit_s.append(time.perf_counter() - t0)
+                    if i == ELASTIC_ERR_STEP - 1 and "before" not in mem:
+                        mem["before"] = _elastic_measure(torch, leaves)
+                        engines.append(hvd.global_state().engine)
+
+            engines, fails = [], []
+            elastic_runner._reinitialize = timed_reinit
+            zero_launches()
+            chaos.arm(f"dispatch:err:after="
+                      f"{_elastic_leaves() * ELASTIC_ERR_STEP + ELASTIC_DIE_AT}"
+                      ":times=1")
+            try:
+                train(state)
+            finally:
+                chaos.disarm()
+                elastic_runner._reinitialize = real_reinit
+            in_process_launches = read_launches()
+            # two steps ran twice: each failed one and its retry
+            if in_process_launches != {k: (ELASTIC_STEPS + 2) * v
+                                       for k, v in per_step.items()}:
+                faults.append(f"in-process launches {in_process_launches}")
+            if [got.get(i) for i in range(ELASTIC_STEPS)] != ref:
+                faults.append(f"in-process losses {got} != {ref}")
+            if len(times.get("reinit_s", [])) != 2 or len(resets) != 2 or \
+                    len({id(e) for e in engines}) != 3:
+                faults.append(f"want two reinits, each a new engine: "
+                              f"{times}, {len(resets)} resets")
+            for label in ("after_reinit1", "after_reinit2"):
+                for key in ("allocated_gb", "device_used_gb"):
+                    a, b = mem["before"][key], mem[label][key]
+                    if abs(b - a) > ELASTIC_MEM_REL * a:
+                        faults.append(f"{key} {a} before the reinits, "
+                                      f"{b} {label}")
+            del m, state, leaves
+        finally:
+            hvd.shutdown()
+            _free_cuda(torch)
+
+        first_after = [r for r in steps if starts and len(starts) == 2
+                       and r["t_unix"] > starts[1]["t_unix"]]
+        relaunch = starts[1] if len(starts) == 2 else None
+        save_gb = [r["bytes"] / 1e9 for r in saves]
+        emit({"phase": "elastic", "model": "llama2_7b", "layers":
+              ELASTIC_LAYERS, "depth_cut_from": 32, "seq": TRAIN_S,
+              "command": "python -m horovod_tpu_torch.runner -np 1 "
+              "--min-np 1 --max-np 1 --host-discovery-script D -- python "
+              "chip_smoke.py --elastic-worker W",
+              "faults_spec": f"dispatch:rank=0:die:after={after}:once=L",
+              "launcher_rc": rc, "launcher_wall_s": wall_s,
+              "launches_on": launches_on,
+              "resume_step": relaunch and relaunch["resume_step"],
+              "job_losses": [job_losses.get(i)
+                             for i in range(ELASTIC_STEPS)],
+              "uninterrupted_losses": ref,
+              "uninterrupted_step_ms": ref_ms,
+              "time_to_recover_s": (first_after[0]["t_unix"] - death
+                                    if death and first_after else None),
+              "death_to_relaunch_start_s": (relaunch["t_unix"] - death
+                                            if death and relaunch
+                                            else None),
+              "death_to_relaunch_process_s": (relaunch["t_process"] - death
+                                              if death and relaunch
+                                              else None),
+              "checkpoint": {
+                  "gb": save_gb[0] if save_gb else None,
+                  "save_s": [r["s"] for r in saves],
+                  "save_gb_per_s": [r["bytes"] / 1e9 / r["s"]
+                                    for r in saves],
+                  "restore_s": [r["s"] for r in restores],
+                  "restore_gb_per_s": [r["bytes"] / 1e9 / r["s"]
+                                       for r in restores]},
+              "job_step_ms": {r["step"]: r["step_s"] * 1e3 for r in steps},
+              "job_launches": [r["launches"] for r in steps],
+              "in_process": {
+                  "losses": [got.get(i) for i in range(ELASTIC_STEPS)],
+                  "step_ms": step_ms,
+                  "reinit_s": times.get("reinit_s"),
+                  "failure_to_retry_s": [b - a for a, b in
+                                         zip(fails, resets)],
+                  "commit_s": commit_s,
+                  "memory": mem,
+                  "launches": in_process_launches},
+              "card": smi})
+        if faults:
+            raise AssertionError("elastic: " + "; ".join(faults[:8]))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 # Tolerance of train_parity.  Both runs are bf16; the kernels round p and
 # ds to bf16 before each product, as the Pallas kernels do, the plain
 # versions keep them in fp32, so every attention output and gradient
@@ -2582,6 +3053,9 @@ def main(argv=None) -> int:
     ap.add_argument("--hvdrun-worker", default=None, metavar="OUT",
                     help="run as the hvdrun phase's worker (started by the "
                     "port's launcher) and write what it found to OUT")
+    ap.add_argument("--elastic-worker", default=None, metavar="DIR",
+                    help="run as the elastic phase's worker (started by the "
+                    "port's elastic driver), its records and state in DIR")
     ap.add_argument("--obs", action="store_true",
                     help="with --hvdrun-worker: the hvdrun_obs phase's "
                     "worker (step spans, the rest of the plane checked)")
@@ -2608,6 +3082,9 @@ def main(argv=None) -> int:
                  "and train_variants")
     if "frontdoor" in phases and "build" not in phases:
         ap.error("frontdoor launches the kernels: run build and frontdoor")
+    if "elastic" in phases and "build" not in phases:
+        ap.error("elastic's worker loads the kernels build builds: run "
+                 "build and elastic")
 
     # The checkout's own package, never an installed one: without it (the
     # script alone in a directory) there is nothing to drive.
@@ -2632,6 +3109,8 @@ def main(argv=None) -> int:
         return 2
     if args.hvdrun_worker:
         return hvdrun_worker(torch, Path(args.hvdrun_worker), obs=args.obs)
+    if args.elastic_worker:
+        return elastic_worker(torch, Path(args.elastic_worker))
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as FA
 
@@ -2667,6 +3146,8 @@ def main(argv=None) -> int:
         if "hvdrun" in phases else None
     if "hvdrun_obs" in phases:
         phase_hvdrun_obs(torch, smi, trained, dp, hvdrun_ms, root)
+    if "elastic" in phases:
+        phase_elastic(torch, smi, root)
     if "train_parity" in phases:
         phase_train_parity(torch, smi)
     if res is not None and served is not None and trained is not None:

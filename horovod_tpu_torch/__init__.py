@@ -52,15 +52,20 @@ Ground rules:
 The collective data plane: wire precision (``compression=`` or
 ``HVDTPU_WIRE_PRECISION``: cast and block-scaled int8/fp8 wires,
 ``ops/reduction.py``), the decomposed ``rs_ag:<k>`` schedule
-(``HVDTPU_SCHED_MODE=decomposed``, ``ops/sched/``), Adasum
-(``op=hvd.Adasum``) and ``ZeroDistributedOptimizer`` (ZeRO-1).
+(``HVDTPU_SCHED_MODE=decomposed``, ``ops/sched/``) and its compiled form,
+one CUDA graph a schedule signature (``HVDTPU_SCHED_MODE=compiled``),
+Adasum (``op=hvd.Adasum``) and ``ZeroDistributedOptimizer`` (ZeRO-1).
+
+Elastic training: ``hvd.elastic`` (``run``, ``ObjectState``,
+``FileBackedState``, ``TorchState``, ``ElasticSampler``), the launcher's
+elastic driver (``--host-discovery-script``, ``runner/elastic.py``) and
+autoscale (``--autoscale``, ``autoscale/``).
 
 Not yet ported, and raising ``NotImplementedError`` where a caller could
 reach them: sharded models (``mesh=``) for serving, training and
 ``generate``, MoE configs, the front door's router and transport, KV
-migration, the elastic rejoin after a collective failure, the
-hierarchical allreduce and the compiled schedule, and the knobs
-:func:`.config.check_ported` lists.  Elastic mode is a later slice.
+migration, the hierarchical allreduce, and the knobs
+:func:`.config.check_ported` lists.
 """
 
 from __future__ import annotations
@@ -667,3 +672,13 @@ from .ops.sched.buckets import (  # noqa: E402,F401
     bucketed_distributed_gradients,
 )
 from .sync_batch_norm import SyncBatchNorm  # noqa: E402,F401
+
+
+def __getattr__(name: str):
+    if name == "elastic":
+        # † ``import horovod.torch as hvd; hvd.elastic.run`` — lazy so the
+        # elastic machinery is not paid for by collective-only users.
+        import importlib
+        return importlib.import_module("horovod_tpu_torch.elastic")
+    raise AttributeError(
+        f"module 'horovod_tpu_torch' has no attribute {name!r}")

@@ -30,9 +30,8 @@ Surface:
   and lands in the flight-recorder ring (``fault_injected`` events), so
   postmortem bundles name the injected fault next to its consequences.
 
-In this slice of the port the serving engine fires ``serving_admit`` and
-``serving_step``; the other sites and the scenario harness arrive with
-their slices.
+The scenario harness lives in :mod:`horovod_tpu_torch.chaos.run`
+(``python -m horovod_tpu_torch.chaos.run --scenario elastic``).
 """
 
 from __future__ import annotations

@@ -469,25 +469,21 @@ def from_yaml(path: str, base: Optional[Config] = None) -> Config:
 # items' numbers).  Set away from its default (and from the values of
 # :data:`_PORTED_VALUES`), each one raises at ``init`` rather than being
 # quietly ignored.
-_HIER = "'Hierarchy and the compiled schedule'"
-_ELASTIC = "'Elastic and autoscale'"
+_HIER = "'Hierarchy'"
 _NOT_PORTED = {
-    "sched_mode": _HIER,
     "hierarchical_allreduce": _HIER,
     "hierarchical_allgather": _HIER,
     "hierarchical_local_size": _HIER,
     "hierarchical_cross_precision": _HIER,
-    "elastic": _ELASTIC,
-    "autoscale": _ELASTIC,
 }
 # Values of a knob of _NOT_PORTED that the port does run.
-_PORTED_VALUES = {"sched_mode": ("decomposed",)}
+_PORTED_VALUES: dict = {}
 
 
 def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for the first knob of
     :data:`_NOT_PORTED` that ``cfg`` sets away from its default to a
-    value the port does not run (``sched_mode="compiled"``)."""
+    value the port does not run."""
     defaults = Config()
     for field, item in _NOT_PORTED.items():
         value = getattr(cfg, field)

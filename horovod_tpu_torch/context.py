@@ -374,6 +374,9 @@ def _stop_runtime() -> None:
         _state.engine.stop()
         _state.engine = None
     _state.process_set_table = None
+    # Captured schedules call into the process group destroyed below.
+    from .ops.sched import compiled
+    compiled.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
     if _state.timeline is not None:

@@ -30,8 +30,7 @@ memory bounded by construction:
   ``GET /query?expr=...`` on the existing :mod:`.server`
   endpoint (text / ``.json`` / ``.csv``);
 - :func:`forecast_points` is the robust linear trend (Theil–Sen) the
-  reference's autoscaler feeds on (the port's comes with ROADMAP section
-  A 'Elastic and autoscale').
+  reference's autoscaler feeds on (the port's ``autoscale.controller``).
 
 Stdlib-only, like the rest of ``obs``; never imports torch.
 """

@@ -15,8 +15,9 @@ contiguous buffer where the verb allows it.
 
 Semantics kept from the reference:
 
-- ``AVERAGE`` is a sum, then a division by the group's size, floor
-  division for integers (collectives.py:258-263).  NCCL's ``ncclAvg``
+- ``AVERAGE`` is a sum, then a division by the group's size with the
+  rounding XLA compiles it to (:func:`average_`), floor division for
+  integers (collectives.py:258-263).  NCCL's ``ncclAvg``
   truncates integers toward zero, so it is not used.
 - ``prescale``/``postscale`` multiply in the tensor's dtype before and
   after the reduction.
@@ -71,12 +72,29 @@ def _scale_(buf: torch.Tensor, factor: float) -> None:
 
 
 def average_(out: torch.Tensor, src: torch.Tensor, n: int) -> None:
-    """``out = src / n``, floor division for integer dtypes; ``out`` may
-    be ``src``."""
-    if src.is_floating_point() or src.is_complex():
+    """``out = src / n`` with the reference's rounding; ``out`` may be
+    ``src``.  XLA compiles the reference's ``out / n``
+    (collectives.py:258-263) into a product by the reciprocal rounded to
+    the payload's dtype for float64, float32 and float16, and keeps a
+    true division for bfloat16 (seen on XLA's CPU backend: at n=3 a
+    division differs from the compiled float32 average in a third of the
+    values, the product in none).  Integers floor-divide.  At a power of
+    two the reciprocal is exact, so the product is the division."""
+    if src.dtype == torch.bfloat16 or src.is_complex():
         torch.div(src, n, out=out)
+    elif src.is_floating_point():
+        # the reciprocal rounded to the dtype, as a Python float
+        torch.mul(src, torch.tensor(1.0 / n, dtype=src.dtype).item(),
+                  out=out)
     else:
         torch.div(src, n, rounding_mode="floor", out=out)
+
+
+def average(src: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`average_` into a new tensor."""
+    out = torch.empty_like(src)
+    average_(out, src, n)
+    return out
 
 
 def allreduce_(buf: torch.Tensor, op: ReduceOp, group, n: int, *,

@@ -81,7 +81,7 @@ import torch
 
 from . import collectives as C
 from . import reduction as R
-from .sched.lower import parse_descriptor
+from .sched.lower import parse_compiled_descriptor, parse_descriptor
 from .. import chaos
 from ..context import HorovodInternalError
 from ..obs import REGISTRY as _obs
@@ -217,7 +217,8 @@ def _parse_joinable_meta(meta: str) -> Optional[dict]:
             return None
         if m.get("wp", "") not in ("",) + R.MODES:
             return None     # a wire mode this build cannot run: skip
-        if m.get("sc", "") and parse_descriptor(m["sc"]) is None:
+        if m.get("sc", "") and parse_descriptor(m["sc"]) is None \
+                and parse_compiled_descriptor(m["sc"]) is None:
             return None     # a schedule this build cannot walk: skip
     except (ValueError, TypeError, KeyError):
         return None

@@ -65,10 +65,12 @@ def _m_sched_child(descriptor: str):
 
 
 def _scaled(x: torch.Tensor, factor: float) -> torch.Tensor:
-    """``x * factor`` in ``x``'s dtype, as ``collectives._scale_``."""
+    """``x * factor`` in ``x``'s dtype, as ``collectives._scale_``: the
+    factor rounded to that dtype, passed as a Python float (no host
+    tensor enters a captured graph)."""
     if factor == 1.0:
         return x
-    return x * torch.tensor(factor).to(x.dtype)
+    return x * torch.tensor(factor).to(x.dtype).item()
 
 
 # ---------------------------------------------------------------------------
@@ -131,30 +133,86 @@ def unit_order(k: int, has_combine: bool) -> list:
     return order
 
 
+def walk(chunk_bufs: Sequence[torch.Tensor], *, mode: str, group, n: int,
+         block: int, average: bool, prescale: float = 1.0,
+         postscale: float = 1.0, on_open=None, on_close=None) -> list:
+    """The ``rs_ag`` walk over the padded chunks ``chunk_bufs`` (each a
+    :func:`~.lower.chunk_layout` unit): per chunk reduce-scatter (issued
+    async), combine, allgather, in :func:`unit_order`.  Returns each
+    chunk's gathered result.  ``on_open(unit, c)`` and ``on_close(unit,
+    c)`` see each unit issued and its consumer issued (the executor's
+    spans); the compiled backend walks the same units with neither."""
+    from ..collectives import average as _average
+    quant = mode in R.QUANT_MODES
+    k = len(chunk_bufs)
+    vals: list = [None] * k           # per-chunk in-flight value(s)
+    outs: list = [None] * k           # per-chunk gathered result
+    opened = on_open or (lambda unit, c: None)
+    closed = on_close or (lambda unit, c: None)
+    has_combine = quant or average
+    for unit, c in unit_order(k, has_combine):
+        if unit == "rs":
+            opened("rs", c)
+            if quant:
+                vals[c] = R.quant_reduce_scatter(
+                    chunk_bufs[c], mode, group, n, block, prescale,
+                    async_op=True)
+            else:
+                vals[c] = rs_fp32(chunk_bufs[c], group, n, prescale,
+                                  async_op=True)
+        elif unit == "combine":
+            closed("rs", c)          # its consumer is now issued
+            opened("combine", c)
+            *v, work = vals[c]
+            work.wait()
+            vals[c] = (R.quant_combine(*v, mode, block, n, average)
+                       if quant else (_average(v[0], n),))
+        else:  # ag
+            closed("combine" if has_combine else "rs", c)
+            opened("ag", c)
+            v = vals[c]
+            if not has_combine:
+                v[1].wait()
+            outs[c] = (R.quant_all_gather(*v, mode, group, n, block,
+                                          postscale)
+                       if quant else ag_fp32(v[0], group, n, postscale))
+    return outs
+
+
+def check_wire(precision: str, what: str) -> str:
+    """The walk's wire mode; a cast wire raises (resolve_schedule never
+    admits one: running it would execute fp32 units while accounting
+    cast savings)."""
+    if precision in R.CAST_MODES:
+        raise ValueError(
+            f"{what} schedule does not support cast wire mode "
+            f"{precision!r}; resolve_schedule should have fallen back")
+    return precision or "fp32"
+
+
 def execute_allreduce(xs: Sequence[torch.Tensor], op, *, descriptor: str,
                       group, n: int, precision: str = "fp32",
                       prescale: float = 1.0, postscale: float = 1.0,
                       block: int = 512, name: str = "allreduce",
                       timeline=None) -> list:
     """Run a fused allreduce group (this rank's tensors ``xs``, one dtype)
-    through the ``rs_ag:<k>`` schedule over ``group`` of ``n`` ranks;
-    one new result per input, in input order."""
+    through the ``rs_ag:<k>`` schedule over ``group`` of ``n`` ranks (a
+    ``compiled:rs_ag:<k>`` descriptor goes to :mod:`.compiled`); one new
+    result per input, in input order."""
     from ..collectives import ReduceOp
+    if parse_compiled_descriptor(descriptor) is not None:
+        from . import compiled
+        return compiled.execute_allreduce(
+            xs, op, descriptor=descriptor, group=group, n=n,
+            precision=precision, prescale=prescale, postscale=postscale,
+            block=block, name=name, timeline=timeline)
     chunks = parse_descriptor(descriptor)
     if chunks is None:
-        if (parse_compiled_descriptor(descriptor) is not None
-                or parse_hier_descriptor(descriptor) is not None):
+        if parse_hier_descriptor(descriptor) is not None:
             from . import _refuse
             raise _refuse(f"schedule {descriptor!r}")
         raise ValueError(f"unknown schedule descriptor {descriptor!r}")
-    if precision in R.CAST_MODES:
-        # resolve_schedule never admits a cast wire; running one here
-        # would execute fp32 units while accounting cast savings.
-        raise ValueError(
-            f"decomposed schedule does not support cast wire mode "
-            f"{precision!r}; resolve_schedule should have fallen back")
-    mode = precision or "fp32"
-    quant = mode in R.QUANT_MODES
+    mode = check_wire(precision, "decomposed")
     average = op is ReduceOp.AVERAGE
     dtype = xs[0].dtype
     numels = [x.numel() for x in xs]
@@ -170,8 +228,6 @@ def execute_allreduce(xs: Sequence[torch.Tensor], op, *, descriptor: str,
     flat = (xs[0].reshape(-1) if len(xs) == 1
             else torch.cat([x.reshape(-1) for x in xs]))
     chunk_bufs = R._pad(flat, sum(layout)).split(layout)
-    vals: list = [None] * k           # per-chunk in-flight value(s)
-    outs: list = [None] * k           # per-chunk gathered result
     opened: dict = {}                 # (unit, c) -> (lane, t_open)
     windows: dict = {"comm": [], "compute": []}
     flows: dict = {}
@@ -202,34 +258,9 @@ def execute_allreduce(xs: Sequence[torch.Tensor], op, *, descriptor: str,
         if tl_on:
             timeline.end_activity(lane)
 
-    has_combine = quant or average
-    for unit, c in unit_order(k, has_combine):
-        if unit == "rs":
-            _open("rs", c)
-            if quant:
-                acc, scale, work = R.quant_reduce_scatter(
-                    chunk_bufs[c], mode, group, n, block, prescale,
-                    async_op=True)
-                vals[c] = (acc, scale, work)
-            else:
-                vals[c] = rs_fp32(chunk_bufs[c], group, n, prescale,
-                                  async_op=True)
-        elif unit == "combine":
-            _close("rs", c)          # its consumer is now issued
-            _open("combine", c)
-            *v, work = vals[c]
-            work.wait()
-            vals[c] = (R.quant_combine(*v, mode, block, n, average)
-                       if quant else (v[0] / n,))
-        else:  # ag
-            _close("combine" if has_combine else "rs", c)
-            _open("ag", c)
-            v = vals[c]
-            if not has_combine:
-                v[1].wait()
-            outs[c] = (R.quant_all_gather(*v, mode, group, n, block,
-                                          postscale)
-                       if quant else ag_fp32(v[0], group, n, postscale))
+    outs = walk(chunk_bufs, mode=mode, group=group, n=n, block=block,
+                average=average, prescale=prescale, postscale=postscale,
+                on_open=_open, on_close=_close)
     out = (outs[0] if k == 1 else torch.cat(outs))[:total]
     results = [piece.view(x.shape).to(dtype)
                for piece, x in zip(out.split(numels), xs)]

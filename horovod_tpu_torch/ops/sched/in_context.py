@@ -7,7 +7,7 @@ scheduler; here they run eagerly, one ``torch.distributed`` call per
 step, on the current stream.  The units are the executor's, so a chunk
 reduces to the same bits on both paths.  ``matmul_reducescatter`` and
 ``run_in_context`` wait for ROADMAP section A 'Parallel strategies, and
-what needs them' and 'Hierarchy and the compiled schedule'.
+what needs them' and 'Hierarchy'.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from .. import collectives as C
 from .. import reduction as R
 from .executor import ag_fp32, rs_fp32
 from .lower import chunk_layout
@@ -49,7 +50,8 @@ def overlap_allreduce(x: torch.Tensor, group=None, *, average: bool = True,
             outs.append(g * R.f32_recip(n) if average else g)
         else:
             sh, _ = rs_fp32(ch, group, n)
-            outs.append(ag_fp32(sh / n if average else sh, group, n))
+            outs.append(ag_fp32(C.average(sh, n) if average else sh, group,
+                                n))
     out = (outs[0] if len(outs) == 1 else torch.cat(outs))[:numel]
     return out.view(x.shape).to(x.dtype)
 
@@ -82,5 +84,5 @@ def overlap_reducescatter(flat: torch.Tensor, group=None, *, layout,
                 w2.view(-1, block), s2).view(-1))
         else:
             sh, _ = rs_fp32(ch, group, n)
-            outs.append(sh / n if average else sh)
+            outs.append(C.average(sh, n) if average else sh)
     return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -3,7 +3,7 @@
 A copy of the JAX package's ``ops/sched/lower.py``: the port lowers
 every collective exactly as the reference does.  The hierarchical
 lowerings are data only here; their executor family waits for ROADMAP
-section A 'Hierarchy and the compiled schedule'.
+section A 'Hierarchy'.
 
 Everything here is a pure function of values every rank agrees on
 (shape, dtype, reduce op, wire mode, chunk count, synchronized config),

@@ -25,10 +25,13 @@ frame is authenticated with the job's ``HVDTPU_SECRET``.
 One card a rank: the launcher leaves ``CUDA_VISIBLE_DEVICES`` as the user
 set it, and each rank takes ``cuda:<local_rank>`` of that view.
 
+Elastic mode (``--host-discovery-script`` with ``--min-np``, ``--max-np``,
+``--slots``, ``--elastic-timeout``, ``--autoscale``,
+``--autoscale-interval``) hands the job to
+:class:`~.elastic.ElasticDriver` (:func:`run_elastic`); without a
+discovery script the other elastic flags exit 2, as the reference's do.
 Not in the port yet, and refused with exit code 2 and the ROADMAP item
-that brings them (never quietly ignored): ``--tpu-pod``, the elastic flags
-(``--host-discovery-script``, ``--min-np``, ``--max-np``, ``--slots``,
-``--elastic-timeout``) and ``--autoscale``.
+that brings it (never quietly ignored): ``--tpu-pod``.
 """
 
 from __future__ import annotations
@@ -48,9 +51,8 @@ from .hosts import assign_ranks, parse_hosts
 from .. import chaos
 from .. import config as config_mod
 
-# What each refused flag waits for (ROADMAP.md section A, by title).
+# What the refused flag waits for (ROADMAP.md section A, by title).
 _TPU_POD_ITEM = "ROADMAP section A 'Remaining models, bindings and examples'"
-_ELASTIC_ITEM = "ROADMAP section A 'Elastic and autoscale'"
 _LOCAL_HOSTS = ("localhost", "127.0.0.1")
 
 
@@ -91,23 +93,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "package; not in the port, refused with exit code 2")
     p.add_argument("--ssh-port", type=int, default=22)
     # Elastic mode († horovodrun --min-np/--max-np/--host-discovery-script)
-    # and autoscale: parsed as the reference does, refused by main().
-    refused = "; not in the port yet, refused with exit code 2"
     p.add_argument("--min-np", type=int, default=None,
-                   help="elastic: minimum processes" + refused)
+                   help="minimum processes an elastic job may shrink to "
+                        "(default: -np)")
     p.add_argument("--max-np", type=int, default=None,
-                   help="elastic: maximum processes" + refused)
+                   help="maximum processes an elastic job may grow to "
+                        "(default: -np)")
     p.add_argument("--host-discovery-script", default=None,
-                   help="elastic: host discovery script" + refused)
+                   help="executable printing one 'host[:slots]' line per "
+                        "available host; enables elastic mode")
     p.add_argument("--slots", type=int, default=None,
-                   help="elastic: slots per discovered host" + refused)
+                   help="default slots per discovered host (elastic "
+                        "mode; lines without ':slots')")
     p.add_argument("--autoscale", action="store_true", default=False,
-                   help="elastic: autoscale the job" + refused)
+                   help="close the loop between the job's /cluster "
+                        "signals and the elastic rendezvous: the driver "
+                        "grows the job on queue or SLO-burn pressure and "
+                        "shrinks it when idle (elastic mode only; knobs "
+                        "HVDTPU_AUTOSCALE_*)")
     p.add_argument("--autoscale-interval", type=float, default=None,
-                   help="elastic: autoscale tick seconds" + refused)
+                   help="seconds between autoscale control ticks "
+                        "(HVDTPU_AUTOSCALE_INTERVAL_SECONDS)")
     p.add_argument("--elastic-timeout", type=float, default=None,
-                   help="elastic: seconds to wait for min-np slots"
-                        + refused)
+                   help="seconds to wait for min-np slots before giving up "
+                        "(elastic mode; default 600)")
     p.add_argument("--start-timeout", type=float, default=120.0,
                    help="seconds to wait for all workers to register")
     p.add_argument("--config-file", default=None,
@@ -190,12 +199,24 @@ class _Worker:
         self.proc = proc
 
 
+# Reserved worker exit code: "membership changed — restart me on the new
+# assignment".  The monitor still tears the job down, but the elastic
+# driver relaunches without blacklisting anyone (a voluntary restart is
+# not a fault).  EX_TEMPFAIL by analogy.
+RESTART_EXIT_CODE = 75
+# Reserved worker exit code: "a collective failed UNDER me — I am a
+# victim of some other rank's fault, not the fault itself".  The driver
+# relaunches but does not blacklist this worker's host.
+VICTIM_EXIT_CODE = 76
+
+
 def launch_workers(command: Sequence[str], *, np_total: int,
                    hosts_spec: Optional[str] = None,
                    extra_env: Optional[dict] = None,
                    ssh_port: int = 22,
                    verbose: bool = False,
                    connectivity_check: bool = True,
+                   failure_info: Optional[dict] = None,
                    services_hook=None,
                    timeline_dir: Optional[str] = None) -> int:
     """Start services + workers; wait; return the first failing rank's
@@ -203,7 +224,10 @@ def launch_workers(command: Sequence[str], *, np_total: int,
     processes, remote ranks through ``ssh`` († gloo_run exec path).
 
     ``services_hook(services)`` runs once the control-plane services are
-    up — :func:`..api.run_func` uses it to reach the job's KV store.
+    up — :func:`..api.run_func` and the elastic driver use it to reach the
+    job's KV store.  ``failure_info``, when given, receives the first
+    failing rank's ``rank``, ``host`` and ``code`` (the elastic driver
+    blacklists that host).
     With ``verbose``, every rank's exit code is reported on stderr as
     ``[launcher] rank <r> exited <code>``."""
     from .cluster import DriverServices, pick_coordinator_port
@@ -378,10 +402,15 @@ def launch_workers(command: Sequence[str], *, np_total: int,
             # launcher's heartbeat over its workers) — a driver-side
             # fault here tears the job down like a dying launcher would.
             chaos.fire("heartbeat")
-            for rank_id, w in list(pending.items()):
-                rc = w.proc.poll()
-                if rc is None:
-                    continue
+            exited = [(rank_id, rc) for rank_id, w in list(pending.items())
+                      if (rc := w.proc.poll()) is not None]
+            # A culprit's exit outranks a victim's or a restart's seen in
+            # the same pass: survivors of a dying rank exit with the
+            # victim code within milliseconds of it, and rank order alone
+            # would blame (and spare) the wrong host.
+            exited.sort(key=lambda e: e[1] in (RESTART_EXIT_CODE,
+                                               VICTIM_EXIT_CODE))
+            for rank_id, rc in exited:
                 exit_codes[rank_id] = rc
                 del pending[rank_id]
                 if verbose:
@@ -389,9 +418,15 @@ def launch_workers(command: Sequence[str], *, np_total: int,
                           file=sys.stderr, flush=True)
                 if rc != 0 and not failed.is_set():
                     # First failure only: later nonzero exits are the
-                    # launcher's own SIGTERMs, not independent faults.
+                    # launcher's own SIGTERMs, not independent faults
+                    # († blacklist the host that actually crashed).
                     failed.set()
                     code = rc
+                    if failure_info is not None:
+                        host = next(h for r, h, _ in assignment
+                                    if r == rank_id)
+                        failure_info.update(
+                            {"rank": rank_id, "host": host, "code": rc})
                     if verbose:
                         print(f"[launcher] rank {rank_id} exited {rc}; "
                               "terminating remaining workers",
@@ -540,6 +575,59 @@ def _refuse(flag: str, item: str) -> int:
     return 2
 
 
+def run_elastic(command: Sequence[str], args, extra_env: dict) -> int:
+    """Elastic CLI path († ``horovodrun -np 2 --min-np 1
+    --host-discovery-script ./d.sh python train.py``): hand supervision to
+    the ElasticDriver, which polls discovery, blacklists crashed hosts,
+    and relaunches on the surviving assignment; workers resume from their
+    last ``state.commit()``."""
+    from .elastic import ElasticDriver, ScriptDiscovery
+
+    if args.hosts:
+        print("hvdrun: -H/--hosts conflicts with --host-discovery-script "
+              "(elastic hosts come from the discovery script)",
+              file=sys.stderr)
+        return 2
+    min_np = args.min_np if args.min_np is not None else args.num_proc
+    max_np = args.max_np if args.max_np is not None else args.num_proc
+    if not (1 <= min_np <= args.num_proc <= max_np):
+        print(f"hvdrun: need 1 <= min-np ({min_np}) <= np "
+              f"({args.num_proc}) <= max-np ({max_np})", file=sys.stderr)
+        return 2
+    discovery = ScriptDiscovery(args.host_discovery_script,
+                                default_slots=args.slots or 1)
+    driver = ElasticDriver(discovery, min_np=min_np, max_np=max_np)
+    cfg = config_mod.from_env()
+    autoscale = None
+    if args.autoscale or cfg.autoscale:
+        from ..autoscale import PolicyConfig
+        autoscale = PolicyConfig(
+            min_np=min_np, max_np=max_np,
+            queue_high=cfg.autoscale_queue_high,
+            queue_low=cfg.autoscale_queue_low,
+            burn_threshold=cfg.autoscale_burn_threshold,
+            scale_up_cooldown_s=cfg.autoscale_up_cooldown_s,
+            scale_down_cooldown_s=cfg.autoscale_down_cooldown_s,
+            stale_after_s=cfg.autoscale_stale_s,
+            forecast_horizon_s=cfg.autoscale_forecast_horizon_s)
+    return driver.run_job(
+        command, extra_env=extra_env,
+        autoscale=autoscale,
+        autoscale_interval_s=(args.autoscale_interval
+                              if args.autoscale_interval is not None
+                              else cfg.autoscale_interval_s),
+        slot_timeout_s=(args.elastic_timeout
+                        if args.elastic_timeout is not None else 600.0),
+        launch_kwargs={
+            "ssh_port": args.ssh_port,
+            "verbose": args.verbose,
+            "connectivity_check": not args.no_connectivity_check,
+            # Per-epoch rank timelines share the dir; each relaunch
+            # overwrites rank files and refreshes merged.json.
+            "timeline_dir": args.timeline_dir,
+        })
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.check_build:
@@ -555,23 +643,23 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     if args.tpu_pod:
         return _refuse("--tpu-pod", _TPU_POD_ITEM)
-    elastic = [flag for flag, on in (
-        ("--host-discovery-script", args.host_discovery_script),
-        ("--min-np", args.min_np is not None),
-        ("--max-np", args.max_np is not None),
-        ("--slots", args.slots is not None),
-        ("--elastic-timeout", args.elastic_timeout is not None),
-        ("--autoscale", args.autoscale),
-        ("--autoscale-interval", args.autoscale_interval is not None))
-        if on]
-    if elastic:
-        return _refuse("/".join(elastic), _ELASTIC_ITEM)
     if args.num_proc is None or args.num_proc < 1:
         print("hvdrun: -np/--num-proc (>= 1) is required", file=sys.stderr)
         return 2
+    extra_env = _knob_env(args)
+    if not args.host_discovery_script and (
+            args.min_np is not None or args.max_np is not None
+            or args.slots is not None or args.elastic_timeout is not None
+            or args.autoscale or args.autoscale_interval is not None):
+        print("hvdrun: --min-np/--max-np/--slots/--elastic-timeout/"
+              "--autoscale require --host-discovery-script (elastic "
+              "mode)", file=sys.stderr)
+        return 2
     _install_sigterm_exit()
+    if args.host_discovery_script:
+        return run_elastic(command, args, extra_env)
     return launch_workers(command, np_total=args.num_proc,
-                          hosts_spec=args.hosts, extra_env=_knob_env(args),
+                          hosts_spec=args.hosts, extra_env=extra_env,
                           ssh_port=args.ssh_port, verbose=args.verbose,
                           connectivity_check=not args.no_connectivity_check,
                           timeline_dir=args.timeline_dir)

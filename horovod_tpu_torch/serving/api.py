@@ -271,10 +271,10 @@ class ServingSession:
         lied about), hold the ``serving`` component unready through the
         drain window, then resume serving.  Past ``max_recoveries`` the
         failure is re-raised (a permanently sick engine should die
-        loudly, not flap).  A collective failure would need an elastic
-        rejoin, which waits for the elastic slice: it raises
-        ``NotImplementedError`` after the abort."""
-        from ..context import set_component_health
+        loudly, not flap).  After a collective failure
+        (``HorovodInternalError``) a running runtime is re-initialized
+        through the elastic path before serving resumes."""
+        from ..context import is_initialized, set_component_health
         self.recoveries += 1
         log.error("serving: engine step failed (%s); aborting in-flight "
                   "requests and degrading (recovery %d/%d)",
@@ -304,12 +304,19 @@ class ServingSession:
             # The drain window: probes must see 503 long enough for a
             # router to pull this replica before traffic resumes.
             time.sleep(self._recovery_pause_s)
-        if isinstance(exc, HorovodInternalError):
-            # Collective failure: the world itself is suspect and the
-            # replica would have to re-rendezvous before serving again.
-            raise NotImplementedError(
-                "rejoining after a collective failure waits for the "
-                "elastic slice of the port") from exc
+        if isinstance(exc, HorovodInternalError) and is_initialized():
+            # Collective failure: the world itself is suspect — rejoin
+            # through the elastic path (shutdown -> init -> republish)
+            # so this replica re-rendezvouses instead of serving on a
+            # dead world.
+            try:
+                from ..elastic.runner import _reinitialize
+                _reinitialize()
+            except Exception as e2:
+                set_component_health(
+                    "serving", False,
+                    reason=f"re-rendezvous failed: {e2}")
+                raise
         set_component_health("serving", True)
         log.warning("serving: recovered after engine failure (%d request"
                     "(s) aborted); accepting traffic again", len(futs))

@@ -3,11 +3,12 @@
 ``launch(mode, outdir, np_)`` runs ``np_`` copies of this script, one rank
 each, through the port's launcher on the CPU over Gloo (the machinery of
 ``tests/mp_torch_port_worker.py``), with ``HVDTPU_QUANT_MIN_BYTES=0``.
-Every rank runs the battery of ``mode`` (``reduction``, ``sched`` or
-``zero``) and writes what it got to ``outdir/<mode>.rank<r>.npz`` and
-``.json``; ``tests/test_torch_reduction.py``, ``_sched.py`` and
-``_zero.py`` compare it with the JAX package run in-process on the same
-rows, which the functions below make with numpy from fixed seeds.
+Every rank runs the battery of ``mode`` (``reduction``, ``sched``,
+``zero``, ``compiled`` or ``average``) and writes what it got to
+``outdir/<mode>.rank<r>.npz`` and ``.json``; ``tests/test_torch_reduction.py``,
+``_sched.py``, ``_zero.py``, ``_compiled.py`` and ``_average.py`` compare
+it with the JAX package run in-process on the same rows, which the
+functions below make with numpy from fixed seeds.
 """
 
 from __future__ import annotations
@@ -28,6 +29,16 @@ ENV = {"HVDTPU_QUANT_MIN_BYTES": "0", "OMP_NUM_THREADS": "1"}
 def launch(mode: str, outdir: str, np_: int, timeout: float = 150) -> list:
     return W.launch(mode, outdir, np_=np_, timeout=timeout, extra_env=ENV,
                     script=__file__)
+
+
+def check_ranks(results: list) -> None:
+    """Every rank exited 0; else fail with the text of the rank whose
+    exit ended the job (the launcher terminates the others, -15)."""
+    bad = [(rc, r, text) for r, (rc, text) in enumerate(results) if rc != 0]
+    if bad:
+        bad.sort(key=lambda b: b[0] in (-15, None))
+        rc, r, text = bad[0]
+        raise AssertionError(f"rank {r} exited {rc}:\n{text}")
 
 
 def load(mode: str, outdir, np_: int) -> list:
@@ -81,6 +92,30 @@ SCHED_FUSED = (5, 1000)
 INCTX_CHUNKS = 3
 BUCKET_SIZES = {"a": 300, "b": 1000, "c": 17, "d": 2000, "e": 5}
 BUCKET_BYTES = 4096
+
+COMPILED_CHUNKS = (2, 4)
+COMPILED_FUSED = (4, 2048)      # entries of one compiled cycle, elements
+COMPILED_JOIN = 4096
+
+# np=3 AVERAGE: payload dtypes and the bits of each one's significand.
+AVG_DTYPES = (("float32", 24), ("float16", 11), ("bfloat16", 8))
+AVG_NUMEL = 20000
+AVG_CHUNKS = (2, 4)
+
+
+def avg_rows(dtype: str, rank: int, n: int) -> np.ndarray:
+    """Rank ``rank``'s float32 input of the np=3 AVERAGE case: per element
+    a small integer times a power of two shared by every rank, sized so
+    that the sum over ``n`` ranks is exact in ``dtype`` in any order.  The
+    sums then agree bitwise whatever order Gloo and XLA add in, and only
+    the division by ``n`` can differ."""
+    bits = dict(AVG_DTYPES)[dtype]
+    kmax = (2 ** bits - 1) // n
+    exp = np.random.RandomState(7).randint(-8, 5, AVG_NUMEL)
+    k = np.random.RandomState(100 + rank).randint(-kmax, kmax + 1,
+                                                  AVG_NUMEL)
+    return (k * np.exp2(exp.astype(np.float64))).astype(np.float32)
+
 
 ZERO_SHAPES = ((33, 20), (20,), (513,), (8, 64), (7,))
 ZERO_LR = 1e-2
@@ -327,8 +362,121 @@ def run_zero(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
     ).__name__
 
 
+def run_compiled(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
+    """The compiled schedule against the dispatched walk and monolithic
+    (the reference's ``main_compiled`` battery)."""
+    from horovod_tpu_torch.ops.sched import compiled as SC
+    from horovod_tpu_torch.ops.sched import executor as SE
+    cfg = hvd.global_state().config
+    sched0, comp0 = _counter(SE._m_sched), _counter(SC._m_compiled)
+    n_compiled = n_decomposed = 0
+    for tag, mode, op, numel in SCHED_CASES:
+        x = _t(rows(tag, me, numel))
+        cfg.sched_mode = "monolithic"
+        arrays[f"{tag}.mono"] = _np(hvd.allreduce(
+            x, _op(hvd, op), compression=mode, name=f"{tag}.mono"))
+        for k in COMPILED_CHUNKS:
+            cfg.sched_chunks = k
+            for sm, key in (("decomposed", "rs_ag"),
+                            ("compiled", "compiled")):
+                cfg.sched_mode = sm
+                arrays[f"{tag}.{key}{k}"] = _np(hvd.allreduce(
+                    x, _op(hvd, op), compression=mode,
+                    name=f"{tag}.{key}{k}"))
+            n_decomposed += 1
+            n_compiled += 1
+    info["sched_dispatches"] = _counter(SE._m_sched) - sched0
+    info["sched_expected"] = n_decomposed
+    info["compiled_dispatches"] = _counter(SC._m_compiled) - comp0
+    info["compiled_expected"] = n_compiled
+    info["compiled_label"] = _counter(SC._m_compiled,
+                                      schedule="compiled:rs_ag:2")
+
+    # pre- and postscale; a fused async cycle of one compiled group
+    x = _t(rows("scaled", me, 4097))
+    eng = hvd.global_state().engine
+    cfg.sched_chunks = 2
+    for sm in ("monolithic", "compiled"):
+        cfg.sched_mode = sm
+        arrays[f"scaled.{sm}"] = _np(hvd.allreduce(
+            x, hvd.Sum, prescale_factor=0.5, postscale_factor=3.0,
+            name=f"scaled.{sm}"))
+        for mode in ("", "int8"):
+            eng.pause()
+            hs = [hvd.allreduce_async(
+                _t(rows(f"cfused.{i}", me, COMPILED_FUSED[1])),
+                hvd.Average, compression=mode or None,
+                name=f"cfused.{sm}.{mode}.{i}")
+                for i in range(COMPILED_FUSED[0])]
+            eng.resume()
+            for i, h in enumerate(hs):
+                arrays[f"cfused.{sm}.{mode or 'fp32'}.{i}"] = _np(
+                    hvd.synchronize(h))
+
+    # mixed pins: the last rank asks for the dispatched walk, the others
+    # for the compiled one; every rank adopts the echoed descriptor
+    sched1, comp1 = _counter(SE._m_sched), _counter(SC._m_compiled)
+    cfg.sched_mode = "decomposed" if me == n - 1 else "compiled"
+    arrays["mixed"] = _np(hvd.allreduce(
+        _t(rows("mixed", me, 4096)), hvd.Average, name="mixed"))
+    info["mixed_sched"] = _counter(SE._m_sched) - sched1
+    info["mixed_compiled"] = _counter(SC._m_compiled) - comp1
+
+    # compiled and monolithic entries in one cycle fuse apart alike
+    eng.pause()
+    cfg.sched_mode = "compiled"
+    ha = hvd.allreduce_async(_t(rows("mix.cmp", me, 4096)), hvd.Average,
+                             name="mix.cmp")
+    cfg.sched_mode = "monolithic"
+    hb = hvd.allreduce_async(_t(rows("mix.mono", me, 64)), hvd.Average,
+                             name="mix.mono")
+    eng.resume()
+    arrays["mix.cmp"] = _np(hvd.synchronize(ha))
+    arrays["mix.mono"] = _np(hvd.synchronize(hb))
+
+    # join: rank 0 stops after one step; the others rebuild the compiled
+    # descriptor for its zeros from the echoed meta
+    cfg.sched_mode, cfg.sched_chunks = "compiled", 2
+    for step in range(1 if me == 0 else 3):
+        arrays[f"cjoin.{step}"] = _np(hvd.allreduce(
+            _t(rows(f"cjoin.{step}", me, COMPILED_JOIN)), hvd.Average,
+            name=f"cjoin.{step}"))
+    info["join_last"] = hvd.join(timeout=60)
+    info["sched_total"] = _counter(SE._m_sched) - sched0
+    cfg.sched_mode = "monolithic"
+
+
+def run_average(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
+    """AVERAGE of :func:`avg_rows` in each payload dtype: monolithic, a
+    fused cycle, ``rs_ag:<k>`` and ``compiled:rs_ag:<k>``."""
+    import torch
+    cfg = hvd.global_state().config
+    eng = hvd.global_state().engine
+    for dt, _ in AVG_DTYPES:
+        x = _t(avg_rows(dt, me, n)).to(getattr(torch, dt))
+        cfg.sched_mode = "monolithic"
+        arrays[f"{dt}.mono"] = _np(hvd.allreduce(x, hvd.Average,
+                                                 name=f"{dt}.mono"))
+        half = AVG_NUMEL // 2
+        eng.pause()
+        hs = [hvd.allreduce_async(x[i * half:(i + 1) * half], hvd.Average,
+                                  name=f"{dt}.fused.{i}") for i in (0, 1)]
+        eng.resume()
+        arrays[f"{dt}.fused"] = np.concatenate(
+            [_np(hvd.synchronize(h)) for h in hs])
+        for k in AVG_CHUNKS:
+            cfg.sched_chunks = k
+            for sm, key in (("decomposed", "rs_ag"),
+                            ("compiled", "compiled")):
+                cfg.sched_mode = sm
+                arrays[f"{dt}.{key}{k}"] = _np(hvd.allreduce(
+                    x, hvd.Average, name=f"{dt}.{key}{k}"))
+    cfg.sched_mode = "monolithic"
+
+
 BATTERIES = {"reduction": run_reduction, "sched": run_sched,
-             "zero": run_zero}
+             "zero": run_zero, "compiled": run_compiled,
+             "average": run_average}
 
 
 def main(mode: str, outdir: str) -> int:

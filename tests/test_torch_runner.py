@@ -7,8 +7,9 @@ env it yields.  One difference is by design: ``--platform`` takes ``gpu``
 where the reference takes ``tpu``.
 
 Then the launcher end to end on the CPU: a failing rank's exit code ends
-the job, the refusals (no command, no ``-np``, the flags of features the
-port does not have yet, each naming its ROADMAP item), ``--check-build``,
+the job, the refusals (no command, no ``-np``, ``--tpu-pod`` naming its
+ROADMAP item, the elastic flags without a discovery script as the
+reference refuses them), an elastic job, ``--check-build``,
 ``--timeline-dir``, the job's secret on the control plane, and a SIGTERM
 to the launcher ending every rank.  Every subprocess has a timeout.
 """
@@ -198,11 +199,31 @@ def _roadmap_titles() -> set:
     (["--autoscale"], "Elastic and autoscale"),
     (["--autoscale-interval", "1"], "Elastic and autoscale"),
 ])
-def test_unported_flags_exit_2_naming_their_item(capsys, flags, title):
-    # main() itself, in this process: the refusal comes before any spawn
-    assert port_launch.main(["-np", "2", *flags, "--", "true"]) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and f"'{title}'" in err, err
+def test_unported_flags_exit_2_naming_their_item(capsys, tmp_path, flags,
+                                                 title):
+    """``--tpu-pod`` is still refused, naming its item.  The elastic flags
+    are ported: with a discovery script the job runs under the elastic
+    driver; without one each exits 2 as the reference's does, with its
+    message."""
+    if flags[0] == "--tpu-pod":
+        # main() itself, in this process: the refusal precedes any spawn
+        assert port_launch.main(["-np", "2", *flags, "--", "true"]) == 2
+        err = capsys.readouterr().err
+        assert "not ported" in err and f"'{title}'" in err, err
+    elif flags[0] == "--host-discovery-script":
+        script = tmp_path / "d.sh"
+        script.write_text("#!/bin/sh\necho localhost:2\n")
+        script.chmod(0o755)
+        res = _hvdrun(["-np", "2", "--platform", "cpu",
+                       "--host-discovery-script", str(script), "--",
+                       sys.executable, "-c", "pass"], timeout=120)
+        assert res.returncode == 0, res.stdout + res.stderr
+    else:
+        assert ref_launch.main(["-np", "2", *flags, "--", "true"]) == 2
+        ref_err = capsys.readouterr().err
+        assert port_launch.main(["-np", "2", *flags, "--", "true"]) == 2
+        err = capsys.readouterr().err
+        assert err == ref_err and "host-discovery-script" in err, err
     assert title in _roadmap_titles()
 
 

@@ -21,7 +21,7 @@ the reference test's bound.
 In this process: the copied IR and lowering against the reference's
 (signatures, chunk layouts, the executor's unit order against
 ``interleaved_order``), ``resolve_schedule``'s decisions on a grid, the
-refusals of the compiled and hierarchical families, the negotiation meta
+refusal of the hierarchical family, the negotiation meta
 (``wp``, ``sc``), fusion keys, meta adoption and a joined rank's zero
 entry.
 """
@@ -268,15 +268,22 @@ def test_resolve_schedule_decides_as_the_reference():
 
 @pytest.mark.parametrize("req", ["compiled", "compiled:rs_ag:2", "hier:2:2"])
 def test_compiled_and_hierarchical_schedules_are_refused(req):
+    """The compiled family resolves and runs now
+    (``tests/test_torch_compiled.py``); the hierarchical family is still
+    refused, naming its ROADMAP item."""
     cfg = port_config.Config()
-    with pytest.raises(NotImplementedError,
-                       match="'Hierarchy and the compiled schedule'"):
-        tsched.resolve_schedule(req, "allreduce", TC.ReduceOp.SUM,
-                                torch.float32, 1 << 20, cfg, 4, "fp32")
-    with pytest.raises(NotImplementedError, match="Hierarchy"):
-        TSE.execute_allreduce([torch.zeros(8)], TC.ReduceOp.SUM,
-                              descriptor=req if ":" in req
-                              else "compiled:rs_ag:2", group=None, n=2)
+    if req.startswith("compiled"):
+        assert tsched.resolve_schedule(
+            req, "allreduce", TC.ReduceOp.SUM, torch.float32, 1 << 20, cfg,
+            4, "fp32") == "compiled:rs_ag:" + (req.split(":")[-1]
+                                               if ":" in req else "4")
+    else:
+        with pytest.raises(NotImplementedError, match="'Hierarchy'"):
+            tsched.resolve_schedule(req, "allreduce", TC.ReduceOp.SUM,
+                                    torch.float32, 1 << 20, cfg, 4, "fp32")
+        with pytest.raises(NotImplementedError, match="Hierarchy"):
+            TSE.execute_allreduce([torch.zeros(8)], TC.ReduceOp.SUM,
+                                  descriptor=req, group=None, n=2)
     with pytest.raises(ValueError, match="cast wire"):
         TSE.execute_allreduce([torch.zeros(8)], TC.ReduceOp.SUM,
                               descriptor="rs_ag:2", group=None, n=2,

@@ -15,6 +15,7 @@ test process imports both packages.
 
 from __future__ import annotations
 
+import os
 import re
 import subprocess
 import sys
@@ -358,20 +359,40 @@ def test_serving_admission_fault_rejects_before_queue(models):
 def test_collective_failure_rejoin_waits_for_elastic_slice(models,
                                                            monkeypatch):
     """A collective failure aborts the in-flight requests like any other
-    engine failure; the elastic rejoin after it is not ported yet."""
+    engine failure, then the replica rejoins through the elastic path:
+    the runtime is shut down and initialized anew in this process (as the
+    reference's ``_handle_engine_failure`` does), and serving goes on."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import context
+    for k in list(os.environ):
+        if k.startswith(("HVDTPU_", "HOROVOD_")):
+            monkeypatch.delenv(k)
     _, _, tcfg, tparams = models
-    with tserving.serve(tparams, tcfg, device="cpu", num_blocks=16,
-                        block_size=8, max_active=2) as sess:
-        fut = sess.submit(np.arange(4, dtype=np.int32), 4)
+    hvd.init(config=hvd.Config(platform="cpu"))
+    try:
+        engine_before = hvd.global_state().engine
+        with tserving.serve(tparams, tcfg, device="cpu", num_blocks=16,
+                            block_size=8, max_active=2) as sess:
+            fut = sess.submit(np.arange(4, dtype=np.int32), 4)
+            real_step = sess.engine.step
 
-        def broken_step():
-            raise HorovodInternalError("allreduce aborted")
+            def broken_step():
+                monkeypatch.setattr(sess.engine, "step", real_step)
+                raise HorovodInternalError("allreduce aborted")
 
-        monkeypatch.setattr(sess.engine, "step", broken_step)
-        with pytest.raises(NotImplementedError, match="elastic"):
+            monkeypatch.setattr(sess.engine, "step", broken_step)
             sess.drain()
-        assert fut.result(timeout=0).metrics["finish_reason"] == "error"
-        assert not sess.engine.has_work()
+            assert fut.result(timeout=0).metrics["finish_reason"] == "error"
+            assert sess.recoveries == 1
+            assert hvd.is_initialized()
+            assert hvd.global_state().engine is not engine_before
+            assert context.component_health("serving") is True
+            again = sess.submit(np.arange(4, dtype=np.int32), 4)
+            sess.drain()
+            assert again.result(timeout=0).metrics["finish_reason"] != \
+                "error"
+    finally:
+        hvd.shutdown()
 
 
 # ---------------------------------------------------------------------------
