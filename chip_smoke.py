@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 
 It drives the port's main paths on the card, serving (with the front
 door's prefix cache and speculative decoding, and batch ``generate``),
+multi-replica serving (the router, disaggregated prefill/decode),
 training (with its recompute and loss variants) and data-parallel
 training through Horovod's runtime, and checks them, phase by phase,
 printing one JSON line per phase:
@@ -57,7 +58,31 @@ printing one JSON line per phase:
    width in fp32 with TF32 off: ``generate``, ``serve()`` through the
    paged kernel, a prefix-hit ``serve()`` and ``serve(spec_k=2)`` with
    the target as its draft emit the same tokens, acceptance 1.0;
-6. ``train``   Llama-2-7B at full width and depth, bf16, per-layer
+6. ``replicas``  multi-replica serving on the same model (serve's seed,
+   one set of weights for every session), pools of 512 blocks of 16, 8
+   slots and the prefix cache each, serve's 8 prompts, 32 new tokens a
+   request, every launch counter zeroed before each part and read after
+   it: the front door's ``Router`` (default config) over two
+   ``LocalReplica`` sessions, the one holding the most flights killed once
+   every request streamed a token (both replicas placed on first, every
+   request complete, failovers at least the flights it held); then the
+   ``DisaggRouter`` over one prefill and two decode
+   ``LocalDisaggReplica`` sessions, every migration through the port's
+   native ``KvServer``/``KvClient`` on 127.0.0.1, the decode replica
+   holding the most flights killed after the first decode tokens (every
+   request migrated and complete, its flights re-imported on the other,
+   the imported pages bitwise equal to the payload's blocks not attached
+   from the prefix cache, the prefill engine without a decode tick).  In
+   both ``paged_decode`` launches 32 times a decode tick of each engine,
+   the flash kernels never; the emitted tokens teacher-forced as in
+   ``frontdoor``; TTFT and ITL as the client sees them beside serve's, the
+   router's host ms a pump, migration bytes, each leg's ms and GB/s
+   (gather and D2H, ``tobytes``, publish, fetch, H2D and scatter; each
+   closed by a synchronise) and ``hvd_disagg_handoff_seconds``.  Last, 2
+   layers at full width in fp32 with TF32 off: a router run and a
+   disaggregated run, each with a replica killed, emit plain
+   ``serve()``'s tokens exactly;
+7. ``train``   Llama-2-7B at full width and depth, bf16, per-layer
    recompute, one sequence of 4096 tokens a step, Adam (lr 1e-3, fused):
    one warm-up step and three timed steps on one batch.  Every counter is
    zeroed just before and read just after: per step ``flash_fwd`` must
@@ -65,13 +90,13 @@ printing one JSON line per phase:
    ``flash_bwd_dkv`` 32 times each, ``paged_decode`` never; the losses
    must be finite, start near ln(32000) and fall.  Then a profile of one
    step: device time, idle share, top kernels;
-7. ``train_variants``  train's model, seed and batch, fresh weights for
+8. ``train_variants``  train's model, seed and batch, fresh weights for
    each, one warm-up and three timed steps: ``remat="dots"`` (the weight
    products kept, the rest recomputed; first loss bitwise equal to
    train's) and ``blockwise_ce=True`` (first loss within
    ``BLOCKWISE_FIRST_REL``); later losses within ``DP_LOSS_REL``, train's
    flash launches a step, step time and peak memory beside train's;
-8. ``train_dp``  the same model, weights and batch through the runtime at
+9. ``train_dp``  the same model, weights and batch through the runtime at
    one rank: ``hvd.init()`` (NCCL on cuda:0), ``broadcast_parameters``,
    ``DistributedOptimizer`` over the same fused Adam, one warm-up and
    three timed steps.  Per step exactly one allreduce entry per
@@ -84,7 +109,7 @@ printing one JSON line per phase:
    allreduce timed, and the engine's CUDA-event timing of a group for
    the performance model (which times nothing at one rank, so the rank
    poses as two for one call);
-9. ``train_zero``  under ``Config(wire_precision="int8",
+10. ``train_zero``  under ``Config(wire_precision="int8",
    sched_mode="decomposed")`` at one rank: train_dp's step again, whose
    losses must be bitwise equal to train_dp's with no schedule walked and
    no wire byte saved (the knobs are inert at one rank, as in the JAX
@@ -95,7 +120,7 @@ printing one JSON line per phase:
    gradient a view into a flat bucket, ``hvd_zero_state_bytes`` equal to
    Adam's moments over the shard (padding included) and a step counter
    a piece; step time and peak memory beside train_dp's;
-10. ``dataplane``  the engine's allreduce at one rank over NCCL, on its
+11. ``dataplane``  the engine's allreduce at one rank over NCCL, on its
    stream, with each entry's wire mode and schedule set past the one-rank
    gate: a gradient set of the 7B DP step's shape (291 bf16 tensors,
    13,477,363,712 bytes) fused as the engine fuses it, through the plain
@@ -111,7 +136,7 @@ printing one JSON line per phase:
    to the same functions on the CPU over a Gloo group of one; the
    reduce-scatters in the chosen container (fp16), a MAX all_reduce of
    the raw absmax, 1-byte and fp32 gathers;
-11. ``hvdrun``  the same data-parallel step as a job of the port's launcher,
+12. ``hvdrun``  the same data-parallel step as a job of the port's launcher,
    ``python -m horovod_tpu_torch.runner -np 1 -- python chip_smoke.py
    --hvdrun-worker OUT``, with ``HVDTPU_METRICS_PORT`` set, once this
    process has released the card.  The worker checks the launcher's env
@@ -127,7 +152,7 @@ printing one JSON line per phase:
    code 0, the first loss bitwise equal to ``train``'s and the later ones
    within ``DP_LOSS_REL``, and prints the step median beside
    ``train_dp``'s and the launcher's wall seconds;
-12. ``hvdrun_obs``  the same job with the rest of the observability plane
+13. ``hvdrun_obs``  the same job with the rest of the observability plane
    armed: ``python -m horovod_tpu_torch.runner -np 1 --autotune
    --autotune-log D/autotune.log -- python chip_smoke.py --hvdrun-worker
    OUT --obs``, with an SLO on the engine's cycle time, an alert rule that
@@ -144,7 +169,7 @@ printing one JSON line per phase:
    rank; the step spans on ``/tracez``'s rank-0 lane.  This process
    requires every loss bitwise equal to ``train``'s and prints the step
    median beside ``train_dp``'s and ``hvdrun``'s;
-13. ``elastic``  Llama-2-7B at full width, depth cut to 4 layers (train's
+14. ``elastic``  Llama-2-7B at full width, depth cut to 4 layers (train's
    seed, batch and fused Adam through ``DistributedOptimizer``), as an
    elastic job: ``python -m horovod_tpu_torch.runner -np 1 --min-np 1
    --max-np 1 --host-discovery-script D -- python chip_smoke.py
@@ -163,7 +188,7 @@ printing one JSON line per phase:
    device memory after each reinit within ``ELASTIC_MEM_REL`` of before.  Time to recover, the
    checkpoint's save and restore GB/s, reinit seconds, step ms before and
    after;
-14. ``train_parity``  two layers at full width, S=4096: loss and every
+15. ``train_parity``  two layers at full width, S=4096: loss and every
    gradient through the kernels against the same call through their plain
    versions (``llama._FORCE_ATTENTION_REFERENCE``).
 
@@ -172,9 +197,10 @@ the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero before the last line; without a
 CUDA device, or without the port's package beside the script, it exits
 2.  ``--phases`` runs a subset
-(``device,build,kernel,serve,frontdoor,train,train_variants,train_dp,
-train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity``;
-``frontdoor`` and ``elastic`` need ``build``; ``train_variants``,
+(``device,build,kernel,serve,frontdoor,replicas,train,train_variants,
+train_dp,train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity``;
+``frontdoor``, ``replicas`` and ``elastic`` need ``build``;
+``train_variants``,
 ``train_dp`` and ``hvdrun_obs`` need
 ``train``, ``hvdrun`` and ``train_zero`` need ``train`` and
 ``train_dp``); ``--root DIR`` drives
@@ -195,9 +221,9 @@ from pathlib import Path
 # Published H100 SXM rates (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-PHASES = ("device", "build", "kernel", "serve", "frontdoor", "train",
-          "train_variants", "train_dp", "train_zero", "dataplane", "hvdrun",
-          "hvdrun_obs", "elastic", "train_parity")
+PHASES = ("device", "build", "kernel", "serve", "frontdoor", "replicas",
+          "train", "train_variants", "train_dp", "train_zero", "dataplane",
+          "hvdrun", "hvdrun_obs", "elastic", "train_parity")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -691,7 +717,7 @@ def phase_serve(torch, smi: str) -> dict:
     logits_parity(torch, params, cfg, eng)
     decode_breakdown(torch, eng, smi)
     sess.close()
-    return counts
+    return {"counts": counts, "metrics": res}
 
 
 def device_kernels(prof) -> list:
@@ -1190,6 +1216,526 @@ def frontdoor_fp32(torch, smi: str) -> None:
         torch.backends.cudnn.allow_tf32 = tf32[1]
     del params
     _free_cuda(torch)
+
+
+# ---------------------------------------------------------------------------
+# multi-replica serving on full-width Llama-2-7B: the router with a replica
+# killed, disaggregated prefill/decode over the native KV store with a
+# decode replica killed, fp32 exactness of both
+# ---------------------------------------------------------------------------
+
+RP_KNOBS = dict(num_blocks=512, block_size=16, max_active=8,
+                prefix_cache=True)
+RP_FP32_NEW = 16            # new tokens a request in the fp32 part
+
+
+def _quantiles(xs: list) -> dict:
+    xs = sorted(xs)
+    if not xs:
+        return {"p50": None, "p99": None}
+    return {"p50": xs[len(xs) // 2],
+            "p99": xs[min(len(xs) - 1, int(0.99 * len(xs)))]}
+
+
+class _ClientClock:
+    """What a client of a router sees: each flight's submit time and the
+    time of every token streamed to it (the tokens a failed-over flight
+    replays included, as the router relays them)."""
+
+    def __init__(self):
+        self.t_submit: dict = {}
+        self.t_emit: dict = {}
+
+    def submit(self, router, prompt, max_tokens):
+        t = time.perf_counter()
+        fut = router.submit(prompt, max_tokens, stream_cb=self.on_token)
+        self.t_submit[len(self.t_submit)] = t
+        return fut
+
+    def on_token(self, fid, tok):
+        self.t_emit.setdefault(fid, []).append(time.perf_counter())
+
+    def latency(self, moved=()) -> dict:
+        """TTFT and ITL quantiles over every flight, and ITL over the
+        flights that never failed over (``moved`` are the others)."""
+        ttft = [ts[0] - self.t_submit[f] for f, ts in self.t_emit.items()]
+        gaps = {f: [b - a for a, b in zip(ts, ts[1:])]
+                for f, ts in self.t_emit.items()}
+        return {"ttft_s": _quantiles(ttft),
+                "itl_s": _quantiles([g for gs in gaps.values()
+                                     for g in gs]),
+                "itl_s_not_failed_over": _quantiles(
+                    [g for f, gs in gaps.items() if f not in moved
+                     for g in gs])}
+
+
+def _count_decode_launches(eng, per_engine: dict, name: str) -> None:
+    """Attribute ``paged_decode`` launches to the engine whose decode tick
+    made them."""
+    from horovod_tpu_torch.ops import flash_attention as FA
+    real = eng._decode
+    per_engine[name] = {"launches": 0, "ticks": 0}
+
+    def counted(tok, pos, tables):
+        n0 = FA.paged_attention.launches
+        out = real(tok, pos, tables)
+        per_engine[name]["launches"] += FA.paged_attention.launches - n0
+        per_engine[name]["ticks"] += 1
+        return out
+
+    eng._decode = counted
+
+
+def _pump_until(router, cond, what: str, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"replicas: {what} never happened")
+        router.pump()
+
+
+def _kill_busiest(router, replicas) -> tuple:
+    """Kill the replica holding the most of the router's flights."""
+    held: dict = {}
+    for fl in router._flights.values():
+        rid = fl.replica.replica_id
+        held[rid] = held.get(rid, 0) + 1
+    victim = max(held, key=lambda r: (held[r], r))
+    next(r for r in replicas if r.replica_id == victim).kill()
+    return victim, held
+
+
+def _serve_latency(served) -> dict:
+    if served is None:
+        return None
+    m = served["metrics"]
+    return {k: m[k] for k in ("ttft_p50_s", "ttft_max_s", "itl_p50_s",
+                              "itl_p99_s")}
+
+
+def _router_run(torch, router, replicas, prompts, max_tokens):
+    """Submit ``prompts``, kill the busiest replica once every request has
+    streamed a token, drain; (results, victim, flights held, client
+    clock, wall seconds)."""
+    clock = _ClientClock()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [clock.submit(router, p, max_tokens) for p in prompts]
+    _pump_until(router, lambda: len(clock.t_emit) == len(prompts),
+                "a first token of every request")
+    victim, held = _kill_busiest(router, replicas)
+    router.drain(timeout_s=300)
+    torch.cuda.synchronize()
+    return ([f.result() for f in futs], victim, held, clock,
+            time.perf_counter() - t0)
+
+
+def replicas_router(torch, smi, params, cfg, prompts, served) -> list:
+    """Two replicas behind the router with its default config; the one
+    holding the most flights is killed once every request streamed a
+    token."""
+    import numpy as np
+
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.serving.frontdoor import LocalReplica, Router
+
+    sessions = [serving.serve(params, cfg, **RP_KNOBS) for _ in range(2)]
+    warm = np.random.RandomState(3).randint(0, cfg.vocab_size, size=(16,))
+    for s in sessions:
+        _run_requests(s, [warm], 2)
+    reps = [LocalReplica(str(i), s) for i, s in enumerate(sessions)]
+    per_engine: dict = {}
+    drive_s = [0.0]
+    for rep in reps:
+        _count_decode_launches(rep.session.engine, per_engine,
+                               rep.replica_id)
+
+        def drive(real=rep.drive):
+            t = time.perf_counter()
+            real()
+            drive_s[0] += time.perf_counter() - t
+
+        rep.drive = drive
+    router = Router(reps)
+    pumps: list = []               # (host s of the pump, of its steps)
+
+    def pump(real=router.pump):
+        d0, t = drive_s[0], time.perf_counter()
+        real()
+        pumps.append((time.perf_counter() - t, drive_s[0] - d0))
+
+    router.pump = pump
+    placed = []
+    real_place = router._place
+
+    def place(fl, sigs):
+        real_place(fl, sigs)
+        placed.append(fl.replica.replica_id)
+
+    router._place = place
+    before = _counters_now(("hvd_router_failovers_total",))
+    zero_launches()
+    results, victim, held, clock, wall = _router_run(
+        torch, router, reps, prompts, FD_NEW)
+    counts = read_launches()
+    failovers = _counter_deltas(before)["hvd_router_failovers_total"]
+    if set(placed[:len(prompts)]) != {"0", "1"}:
+        raise AssertionError(f"router: first placements {placed}")
+    if failovers < held[victim]:
+        raise AssertionError(f"router: {failovers} failovers, the killed "
+                             f"replica held {held[victim]} flights")
+    if any(len(r.tokens) != FD_NEW or r.metrics["finish_reason"] != "length"
+           for r in results):
+        raise AssertionError(f"router: a request did not complete: "
+                             f"{[r.metrics for r in results]}")
+    ticks = sum(e["ticks"] for e in per_engine.values())
+    _check_launches("replicas router", counts, {
+        "paged_decode": cfg.n_layers * ticks, "flash_fwd": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+    for name, e in per_engine.items():
+        if e["launches"] != cfg.n_layers * e["ticks"]:
+            raise AssertionError(f"router: replica {name}: {e}")
+    emit({"phase": "replicas", "part": "router", "replicas": 2,
+          "requests": len(prompts), "new_tokens": FD_NEW,
+          "placements": placed, "killed": victim,
+          "flights_held_at_kill": held, "failovers": failovers,
+          "attempts": [r.metrics["router_attempts"] for r in results],
+          "finished_on": [r.metrics["replica"] for r in results],
+          "per_engine": per_engine, "launches": counts, "wall_s": wall,
+          **clock.latency({i for i, r in enumerate(results)
+                           if r.metrics["router_attempts"] > 1}),
+          "serve": _serve_latency(served), "pumps": len(pumps),
+          "router_host_ms_per_pump": _quantiles(
+              [(p - d) * 1e3 for p, d in pumps]),
+          "pump_host_ms_with_steps": _quantiles(
+              [p * 1e3 for p, _ in pumps]),
+          "card": smi})
+    for s in sessions:
+        s.close()
+    return [(p, r.tokens) for p, r in zip(prompts, results)]
+
+
+class _Legs:
+    """Host-clock spans of the migration's legs, each closed by a
+    synchronise (the library has none), with the bytes each moved."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ms: dict = {}
+        self.bytes: dict = {}
+        self.restore: list = []
+
+    def wrap(self, owner, name: str, leg: str, nbytes) -> None:
+        real = getattr(owner, name)
+        torch = self.torch
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self.ms.setdefault(leg, []).append(
+                (time.perf_counter() - t) * 1e3)
+            self.bytes.setdefault(leg, []).append(nbytes(a, out))
+            return out
+
+        setattr(owner, name, timed)
+        self.restore.append((owner, name, real))
+
+    def unwrap(self) -> None:
+        for owner, name, real in reversed(self.restore):
+            setattr(owner, name, real)
+        self.restore.clear()
+
+    def report(self) -> dict:
+        out = {}
+        for leg, ms in self.ms.items():
+            b = self.bytes[leg]
+            out[leg] = {"calls": len(ms),
+                        "ms_median": sorted(ms)[len(ms) // 2],
+                        "ms_max": max(ms), "ms_total": sum(ms),
+                        "bytes": sum(b),
+                        "gb_per_s": sum(b) / (sum(ms) / 1e3) / 1e9}
+        return out
+
+
+def _disagg_fleet(params, cfg, kv, knobs):
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.serving.disagg import LocalDisaggReplica
+    return [LocalDisaggReplica(f"{pool[0]}{i}",
+                               serving.serve(params, cfg, **knobs), kv,
+                               pool=pool)
+            for i, pool in enumerate(("prefill", "decode", "decode"))]
+
+
+def _disagg_run(torch, router, replicas, prompts, max_tokens, on_kill=None):
+    """Submit ``prompts``; once every flight decodes on a decode replica
+    and has its first decode token, kill the decode replica holding the
+    most flights; drain.  (results, victim, flights held, client clock,
+    wall seconds)."""
+    clock = _ClientClock()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [clock.submit(router, p, max_tokens) for p in prompts]
+    _pump_until(router, lambda: bool(router._flights) and all(
+        fl.state == "decoding" and fl.delivered >= 2
+        for fl in router._flights.values()),
+        "a decode token on every flight")
+    if on_kill is not None:
+        on_kill()
+    victim, held = _kill_busiest(router, replicas)
+    router.drain(timeout_s=300)
+    torch.cuda.synchronize()
+    return ([f.result() for f in futs], victim, held, clock,
+            time.perf_counter() - t0)
+
+
+def _hist_totals(name: str) -> tuple:
+    from horovod_tpu_torch.obs import REGISTRY
+    fam = next(f for f in REGISTRY.snapshot() if f["name"] == name)
+    return (sum(s["count"] for s in fam["samples"]),
+            sum(s["sum"] for s in fam["samples"]))
+
+
+def replicas_disagg(torch, smi, params, cfg, prompts, served) -> list:
+    """One prefill and two decode replicas behind the DisaggRouter, every
+    migration through the native KV store on 127.0.0.1; the decode
+    replica holding the most flights is killed after the first decode
+    tokens, and its requests re-import on the other."""
+    import numpy as np
+
+    from horovod_tpu_torch._native import KvClient, KvServer
+    from horovod_tpu_torch.serving.disagg import DisaggRouter, migration
+    from horovod_tpu_torch.serving.disagg import transport as mig_t
+
+    kv_srv = KvServer(secret="")
+    kv = KvClient("127.0.0.1", kv_srv.port, timeout_ms=30000, secret="")
+    legs = _Legs(torch)
+    try:
+        reps = _disagg_fleet(params, cfg, kv, RP_KNOBS)
+        warm = np.random.RandomState(4).randint(0, cfg.vocab_size,
+                                                size=(16,))
+        per_engine: dict = {}
+        for rep in reps:
+            _run_requests(rep.session, [warm], 2)
+            _count_decode_launches(rep.session.engine, per_engine,
+                                   rep.replica_id)
+        prefill_ticks0 = reps[0].session.engine.decode_ticks
+        # Every import: the request's pages kept on the device right
+        # after it, compared with the payload once the run is over.
+        imports = []
+        for rep in reps[1:]:
+            eng = rep.session.engine
+
+            def checked(manifest, k_bytes, v_bytes, *, stream_cb=None,
+                        eng=eng, real=eng.import_migrated,
+                        rid=rep.replica_id):
+                req = real(manifest, k_bytes, v_bytes, stream_cb=stream_cb)
+                idx = torch.as_tensor(
+                    eng.pager.table(req.req_id)[:manifest["n_blocks"]],
+                    device=eng.device)
+                imports.append({
+                    "replica": rid, "manifest": manifest,
+                    "payload": (k_bytes, v_bytes),
+                    "ncb": req.cached_tokens // eng.cache.block_size,
+                    "pages": tuple(p.index_select(1, idx)
+                                   for p in (eng.k_pool, eng.v_pool))})
+                return req
+
+            eng.import_migrated = checked
+            legs.wrap(eng, "import_migrated", "import_h2d_scatter",
+                      lambda a, out: len(a[1]) + len(a[2]))
+        legs.wrap(migration, "gather_pages", "export_gather_d2h",
+                  lambda a, out: sum(t.numel() * t.element_size()
+                                     for t in out))
+        legs.wrap(migration, "payload_bytes", "export_tobytes",
+                  lambda a, out: len(out))
+        legs.wrap(mig_t, "publish_migration", "publish",
+                  lambda a, out: len(a[3]) + len(a[4]))
+        legs.wrap(mig_t, "fetch_migration", "fetch",
+                  lambda a, out: len(out[1]) + len(out[2]))
+
+        router = DisaggRouter(reps, kv)
+        names = ("hvd_disagg_kv_bytes_total", "hvd_disagg_exports_total",
+                 "hvd_disagg_imports_total",
+                 "hvd_disagg_blocks_attached_total",
+                 "hvd_disagg_failovers_total")
+        before = _counters_now(names)
+        h0 = _hist_totals("hvd_disagg_handoff_seconds")
+        at_kill = []
+        zero_launches()
+        results, victim, held, clock, wall = _disagg_run(
+            torch, router, reps, prompts, FD_NEW,
+            on_kill=lambda: at_kill.append(len(imports)))
+        counts = read_launches()
+        legs.unwrap()
+        moved = _counter_deltas(before)
+        h1 = _hist_totals("hvd_disagg_handoff_seconds")
+        if not all(r.metrics["migrated"] for r in results):
+            raise AssertionError(f"disagg: a request did not migrate: "
+                                 f"{[r.metrics for r in results]}")
+        if any(len(r.tokens) != FD_NEW or r.metrics["finish_reason"]
+               != "length" for r in results):
+            raise AssertionError(f"disagg: a request did not complete: "
+                                 f"{[r.metrics for r in results]}")
+        ticks = sum(e["ticks"] for e in per_engine.values())
+        _check_launches("replicas disagg", counts, {
+            "paged_decode": cfg.n_layers * ticks, "flash_fwd": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
+        pre = per_engine[reps[0].replica_id]
+        if pre["ticks"] or pre["launches"] or \
+                reps[0].session.engine.decode_ticks != prefill_ticks0:
+            raise AssertionError(f"disagg: the prefill engine decoded: "
+                                 f"{pre}")
+        for name, e in per_engine.items():
+            if e["launches"] != cfg.n_layers * e["ticks"]:
+                raise AssertionError(f"disagg: replica {name}: {e}")
+        reimports = [im for im in imports[at_kill[0]:]
+                     if im["replica"] != victim]
+        if len(reimports) < held[victim]:
+            raise AssertionError(
+                f"disagg: {len(reimports)} imports after the kill for the "
+                f"{held[victim]} flights of {victim}")
+        # The imported pages, bitwise, against the payload's blocks that
+        # were not attached from the prefix cache.
+        compared = 0
+        for im in imports:
+            for page, raw in zip(im["pages"], im["payload"]):
+                want = migration.payload_tensor(
+                    raw, im["manifest"]["dtype"], tuple(page.shape),
+                    "cpu")[:, im["ncb"]:]
+                got = page[:, im["ncb"]:].cpu()
+                if not torch.equal(got.view(torch.int16),
+                                   want.view(torch.int16)):
+                    raise AssertionError(
+                        f"disagg: the pages of {im['manifest']['version']} "
+                        f"on {im['replica']} differ from its payload")
+                compared += got.numel() * got.element_size()
+        per_request = {im["manifest"]["version"]:
+                       im["manifest"]["k_len"] + im["manifest"]["v_len"]
+                       for im in imports}
+        emit({"phase": "replicas", "part": "disagg",
+              "replicas": {"prefill": 1, "decode": 2},
+              "kv": "native KvServer/KvClient on 127.0.0.1",
+              "requests": len(prompts), "new_tokens": FD_NEW,
+              "killed": victim, "flights_held_at_kill": held,
+              "imports": len(imports), "reimports": len(reimports),
+              "per_engine": per_engine, "launches": counts,
+              "counters": moved,
+              "migration_bytes_total": moved["hvd_disagg_kv_bytes_total"],
+              "migration_bytes_per_request": sorted(per_request.values()),
+              "pages_compared_bytes": compared, "pages_bitwise": True,
+              "legs": legs.report(),
+              "handoff_s": {"count": h1[0] - h0[0],
+                            "mean": (h1[1] - h0[1]) / max(1, h1[0] - h0[0])},
+              "wall_s": wall,
+              **clock.latency({i for i, r in enumerate(results)
+                               if r.metrics["disagg_attempts"] > 2}),
+              "serve": _serve_latency(served), "card": smi})
+        imports.clear()
+        for rep in reps:
+            rep.session.close()
+        return [(p, r.tokens) for p, r in zip(prompts, results)]
+    finally:
+        legs.unwrap()
+        kv.close()
+        kv_srv.stop()
+
+
+def replicas_fp32(torch, smi) -> None:
+    """Two layers at full width in fp32, TF32 off: a disaggregated run and
+    a router run with a replica killed emit plain ``serve()``'s tokens."""
+    import dataclasses
+
+    import numpy as np
+
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.serving.disagg import DictKV, DisaggRouter
+    from horovod_tpu_torch.serving.frontdoor import LocalReplica, Router
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(),
+                                  n_layers=2, dtype=torch.float32)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        params = llama.init_params(cfg, gen, "cuda")
+        rng = np.random.RandomState(5)
+        prompts = [rng.randint(0, cfg.vocab_size, size=(n,))
+                   for n in (48, 96, 160, 256)]
+        knobs = dict(num_blocks=128, block_size=16, max_active=4,
+                     prefix_cache=True)
+        plain = serving.serve(params, cfg, **knobs)
+        want = [r.tokens for r in
+                _run_requests(plain, prompts, RP_FP32_NEW)[0]]
+        plain.close()
+        runs = {}
+        zero_launches()
+        reps = [LocalReplica(str(i), serving.serve(params, cfg, **knobs))
+                for i in range(2)]
+        res, victim, held, _, _ = _router_run(torch, Router(reps), reps,
+                                              prompts, RP_FP32_NEW)
+        runs["router_killed"] = {
+            "tokens_equal": [r.tokens == w for r, w in zip(res, want)],
+            "killed": victim, "flights_held_at_kill": held,
+            "attempts": [r.metrics["router_attempts"] for r in res]}
+        for rep in reps:
+            rep.session.close()
+        kv = DictKV()
+        reps = _disagg_fleet(params, cfg, kv, knobs)
+        res, victim, held, _, _ = _disagg_run(
+            torch, DisaggRouter(reps, kv), reps, prompts, RP_FP32_NEW)
+        runs["disagg_killed"] = {
+            "tokens_equal": [r.tokens == w for r, w in zip(res, want)],
+            "migrated": [r.metrics["migrated"] for r in res],
+            "killed": victim, "flights_held_at_kill": held}
+        for rep in reps:
+            rep.session.close()
+        counts = read_launches()
+        emit({"phase": "replicas", "part": "fp32_exactness", "layers": 2,
+              "d_model": cfg.d_model, "dtype": "float32", "tf32": False,
+              "prompt_lens": [len(p) for p in prompts],
+              "new_tokens": RP_FP32_NEW, "runs": runs, "launches": counts,
+              "card": smi})
+        if not all(all(r["tokens_equal"]) for r in runs.values()) or \
+                not all(runs["disagg_killed"]["migrated"]):
+            raise AssertionError(f"replicas fp32: {runs}")
+        if counts["paged_decode"] == 0 or any(
+                counts[n] for n in counts if n != "paged_decode"):
+            raise AssertionError(f"replicas fp32: launches {counts}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+    del params
+    _free_cuda(torch)
+
+
+def phase_replicas(torch, smi: str, served) -> None:
+    from horovod_tpu_torch.models import llama
+
+    _free_cuda(torch)
+    cfg = llama.LlamaConfig.llama2_7b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)                          # the serve phase's weights
+    params = llama.init_params(cfg, gen, "cuda")
+    prompts = _serve_prompts(cfg)
+    seqs = {"router": replicas_router(torch, smi, params, cfg, prompts,
+                                      served)}
+    _free_cuda(torch)
+    seqs["disagg"] = replicas_disagg(torch, smi, params, cfg, prompts,
+                                     served)
+    _free_cuda(torch)
+    shares = {part: teacher_forced(torch, params, cfg, s)
+              for part, s in seqs.items()}
+    emit({"phase": "replicas", "part": "teacher_forced",
+          "delta_rel": FD_DELTA_REL, "parts": shares, "card": smi})
+    del params
+    _free_cuda(torch)
+    replicas_fp32(torch, smi)
 
 
 # ---------------------------------------------------------------------------
@@ -3082,6 +3628,8 @@ def main(argv=None) -> int:
                  "and train_variants")
     if "frontdoor" in phases and "build" not in phases:
         ap.error("frontdoor launches the kernels: run build and frontdoor")
+    if "replicas" in phases and "build" not in phases:
+        ap.error("replicas launches the kernels: run build and replicas")
     if "elastic" in phases and "build" not in phases:
         ap.error("elastic's worker loads the kernels build builds: run "
                  "build and elastic")
@@ -3133,6 +3681,8 @@ def main(argv=None) -> int:
     served = phase_serve(torch, smi) if "serve" in phases else None
     if "frontdoor" in phases:
         phase_frontdoor(torch, smi)
+    if "replicas" in phases:
+        phase_replicas(torch, smi, served)
     trained = phase_train(torch, smi) if "train" in phases else None
     if "train_variants" in phases:
         phase_train_variants(torch, smi, trained)
@@ -3154,7 +3704,7 @@ def main(argv=None) -> int:
         # launches: paged_decode on the serving path, the flash kernels on
         # the training path (each counted in its own run).
         launches = dict(trained["launches"],
-                        paged_decode=served["paged_decode"])
+                        paged_decode=served["counts"]["paged_decode"])
         keys = ("max_abs_err", "worst_row_rel_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
         emit({"kernels": [

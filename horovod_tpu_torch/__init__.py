@@ -61,10 +61,15 @@ Elastic training: ``hvd.elastic`` (``run``, ``ObjectState``,
 elastic driver (``--host-discovery-script``, ``runner/elastic.py``) and
 autoscale (``--autoscale``, ``autoscale/``).
 
+Multi-replica serving: the front door's router and its KV-store request
+transport (``serving.frontdoor``: ``Router``, ``LocalReplica``,
+``ReplicaServer``, ``KVReplicaClient``) and disaggregated prefill/decode
+with KV migration (``serving.disagg``: ``DisaggRouter``,
+``LocalDisaggReplica``, ``export_request``/``import_request``).
+
 Not yet ported, and raising ``NotImplementedError`` where a caller could
 reach them: sharded models (``mesh=``) for serving, training and
-``generate``, MoE configs, the front door's router and transport, KV
-migration, the hierarchical allreduce, and the knobs
+``generate``, MoE configs, the hierarchical allreduce, and the knobs
 :func:`.config.check_ported` lists.
 """
 

@@ -17,17 +17,29 @@ recovery is the unit under test:
   death shrinks the job, an SLO burn holds scale-up pressure, and the
   controller grows it back when the blacklist cooldown lapses.  A
   deterministic predictive leg runs first.
+- **serving** (np=1, in-process): a live serving session takes an
+  injected engine-step fault mid-decode; in-flight requests finish with
+  ``finish_reason="error"`` (partial tokens kept), ``/healthz`` goes
+  200 → 503 (the drain window) → 200, and a request after the recovery
+  completes normally.
+- **router** (two replica processes behind the front door's router over
+  the native KV store): a ``serving_step:die`` kills one replica
+  mid-stream; every request completes on the survivor token-identical to
+  greedy ``generate``, the router records failovers, and
+  ``hvd_router_replica_healthy`` and ``/healthz`` show the dead/live split.
+- **disagg** (four replica processes, 2 prefill + 2 decode, behind the
+  ``DisaggRouter``): a ``mig_export:die`` kills a prefill replica between
+  its migration blobs; every request completes token-identical through
+  the migration path, the decode pool never dips, and one ``/tracez``
+  pull shows a migrated request as one trace across at least three
+  processes.
 - **determinism**: the same seeded spec driven over the same traversal
   schedule twice produces the bit-identical fault sequence.
 
-The serving, router and disagg scenarios of the reference need the front
-door's router and transport and the KV migration, which come with ROADMAP
-section A 'Parallel strategies, and what needs them': ``--scenario``
-names them and exits 2.  (Serving's own recovery, rejoin included, is
-held by ``tests/test_torch_serving.py`` and ``tests/test_torch_chaos.py``.)
-
-Exit 0 iff every selected scenario passes.  ``--worker`` and
-``--moe-worker`` are the internal worker entry points.
+Every scenario runs on the CPU (the tiny model, Gloo).  Exit 0 iff every
+selected scenario passes.  ``--worker``, ``--moe-worker``,
+``--router-worker`` and ``--disagg-worker`` are the internal worker entry
+points.
 """
 
 from __future__ import annotations
@@ -47,14 +59,6 @@ ELASTIC_BUDGET_S = 240.0
 _WORKER_TOTAL_STEPS = 10
 _MOE_TOTAL_STEPS = 150
 
-#: scenarios of the reference that wait for later slices of the port
-_WAITING = {
-    "serving": "the serving scenario (its /healthz drain is tested in "
-               "tests/test_torch_chaos.py)",
-    "router": "the front door's router",
-    "disagg": "disaggregated serving's KV migration",
-}
-_WAITING_ITEM = "ROADMAP section A 'Parallel strategies, and what needs them'"
 
 
 def _log_to(path: str):
@@ -436,6 +440,491 @@ def scenario_autoscale(verbose: bool = False) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the tiny model every serving scenario runs (replicas and the parent
+# build the same weights from the same seed)
+# ---------------------------------------------------------------------------
+
+def _tiny_model():
+    import torch
+
+    from ..models import llama
+    cfg = llama.LlamaConfig.tiny()
+    return cfg, llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                  "cpu")
+
+
+def _greedy_oracle(cfg, params):
+    import numpy as np
+    import torch
+
+    from ..models import llama
+
+    def oracle(prompt, m):
+        p = torch.as_tensor(np.asarray(prompt, np.int64))[None]
+        full = llama.generate(params, p, cfg, max_new_tokens=m)[0]
+        return [int(t) for t in full[p.shape[1]:]]
+    return oracle
+
+
+def _replica_session(cfg, params):
+    from .. import serving
+    return serving.serve(params, cfg, device="cpu", num_blocks=64,
+                         block_size=8, max_active=4, use_flash="never",
+                         prefix_cache=True)
+
+
+def _replica_env(prefix: str) -> tuple:
+    """A KV store for the fleet, and the env its replica workers share."""
+    import secrets
+
+    from .._native import KvServer
+
+    kv_srv = KvServer(secret=os.environ.setdefault(
+        "HVDTPU_SECRET", secrets.token_hex(8)))
+    os.environ["HVDTPU_RENDEZVOUS_ADDR"] = f"127.0.0.1:{kv_srv.port}"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [p for p in (os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))),
+            os.environ.get("PYTHONPATH", "")) if p])
+    env["OMP_NUM_THREADS"] = "1"
+    env.pop("HVDTPU_FAULTS", None)
+    # An injected death dumps a flight-recorder bundle; keep it out of
+    # the caller's cwd.
+    env["HVDTPU_FLIGHT_RECORDER_DIR"] = tempfile.mkdtemp(prefix=prefix)
+    return kv_srv, env
+
+
+def _wait_registered(kv, ranks, timeout_s: float) -> None:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if all(kv.get(f"fd/member/{r}") is not None
+               and kv.get(f"obs/rank/{r}/meta") is not None
+               for r in ranks):
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"replicas {list(ranks)} never registered")
+
+
+# ---------------------------------------------------------------------------
+# scenario: serving degradation + /healthz transitions (np=1)
+# ---------------------------------------------------------------------------
+
+def _healthz(port: int) -> int:
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/healthz", timeout=5) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def scenario_serving() -> None:
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from . import arm, disarm
+    from .. import serving
+    from ..obs import server
+
+    hvd.init(config=hvd.Config(platform="cpu"))
+    srv = server.MetricsServer(0, addr="127.0.0.1")
+    try:
+        cfg, params = _tiny_model()
+        sess = serving.serve(params, cfg, device="cpu", num_blocks=16,
+                             block_size=8, max_active=2,
+                             recovery_pause_s=0.75)
+        with sess:
+            assert _healthz(srv.port) == 200
+            # Arm + submit BEFORE the loop starts so step 1 admits both
+            # requests and step 2 (the armed traversal) aborts both.
+            arm("serving_step:err:after=2:times=1")
+            futs = [sess.submit(np.arange(4, dtype=np.int32) + r,
+                                max_tokens=8) for r in range(2)]
+            sess.start()
+            # 200 -> 503 (the drain window) ...
+            deadline = time.monotonic() + 30.0
+            saw_503 = False
+            while time.monotonic() < deadline:
+                if _healthz(srv.port) == 503:
+                    saw_503 = True
+                    break
+                time.sleep(0.02)
+            assert saw_503, "healthz never went 503 during the abort"
+            # ... -> 200 again after the recovery.
+            while time.monotonic() < deadline:
+                if _healthz(srv.port) == 200:
+                    break
+                time.sleep(0.05)
+            assert _healthz(srv.port) == 200, \
+                "healthz never recovered to 200"
+            for f in futs:
+                res = f.result(timeout=60)
+                assert res.metrics["finish_reason"] == "error", res.metrics
+            assert sess.recoveries == 1, sess.recoveries
+            # The degraded session is a live session: post-recovery
+            # traffic completes normally.
+            res = sess.submit(np.arange(5, dtype=np.int32),
+                              max_tokens=4).result(timeout=60)
+            assert res.metrics["finish_reason"] == "length", res.metrics
+            assert len(res.tokens) == 4
+    finally:
+        disarm()
+        srv.close()
+        hvd.shutdown()
+    print("CHAOS-SERVING-OK healthz 200->503->200, aborts carry "
+          "finish_reason=error")
+
+
+# ---------------------------------------------------------------------------
+# scenario: router failover across np=2 serving replicas
+# ---------------------------------------------------------------------------
+
+def router_worker_main(rank: int) -> int:
+    """One serving replica behind the front-door transport: session +
+    ReplicaServer + RankPublisher + /healthz endpoint, serving until the
+    parent writes ``fd/stop``.  Rank 1 carries an injected mid-stream
+    death (``serving_step:die`` via env, armed at package import)."""
+    from ..context import component_health
+    from ..obs import flightrec, server
+    from ..obs.aggregate import RankPublisher, _kv_from_env
+    from ..serving.frontdoor.transport import ReplicaServer
+
+    # No hvd.init() in this worker (single-process serving), so arm the
+    # flight recorder's dump directory from the env directly — the
+    # injected death dumps unconditionally and must not litter the cwd.
+    flightrec.RECORDER.arm(os.environ.get("HVDTPU_FLIGHT_RECORDER_DIR"))
+    sess = _replica_session(*_tiny_model())
+    server.set_health_provider(
+        lambda: {"ready": bool(component_health("serving")),
+                 "status": "ok", "rank": rank})
+    srv = server.MetricsServer(0, addr="127.0.0.1")
+    kv = _kv_from_env()
+    kv.set(f"fd/port/{rank}", str(srv.port).encode())
+    replica = ReplicaServer(sess, rank).start()
+    pub = RankPublisher(rank, 2, interval_s=0.5).start()
+    sess.start()
+    try:
+        while kv.get("fd/stop") is None:
+            time.sleep(0.1)
+    finally:
+        pub.stop()
+        replica.stop()
+        sess.close()
+        srv.close()
+    return 0
+
+
+def scenario_router() -> None:
+    """np=2 replicas + router; a ``serving_step:die`` kills one replica
+    mid-stream.  Asserts: every in-flight request completes on the
+    survivor token-identical to the greedy reference, the router
+    recorded failovers, ``hvd_router_replica_healthy`` and ``/healthz``
+    reflect the dead/live split, and the dead worker exited with the
+    injected ``DIE_EXIT_CODE``."""
+    import subprocess
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from . import DIE_EXIT_CODE
+    from .._native import KvClient
+    from ..obs import REGISTRY
+    from ..serving.frontdoor import Router, RouterConfig
+    from ..serving.frontdoor.transport import KVReplicaClient
+
+    kv_srv, env_base = _replica_env("hvdtpu-fd-flightrec-")
+    workers = []
+    for rank in range(2):
+        env = dict(env_base)
+        if rank == 1:
+            # Dies on its 6th serving round — mid-stream of every
+            # request placed on it (each needs ~max_tokens rounds).
+            env["HVDTPU_FAULTS"] = "serving_step:die:after=6"
+        workers.append(subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.chaos.run",
+             "--router-worker", str(rank)], env=env))
+    kv = KvClient("127.0.0.1", kv_srv.port, timeout_ms=5000)
+    try:
+        _wait_registered(kv, range(2), 90.0)
+        ports = {r: int(kv.get(f"fd/port/{r}").decode()) for r in range(2)}
+        oracle = _greedy_oracle(*_tiny_model())
+
+        router = Router([KVReplicaClient(r, kv) for r in range(2)],
+                        RouterConfig(max_attempts=4))
+        rng = np.random.RandomState(5)
+        prompts = [rng.randint(0, 256, size=(8 + 2 * i,)).astype(np.int32)
+                   for i in range(6)]
+        futs = [router.submit(p, 16) for p in prompts]
+        router.drain(timeout_s=150.0)
+
+        for p, f in zip(prompts, futs):
+            res = f.result(timeout=5)
+            assert res.metrics["finish_reason"] == "length", res.metrics
+            assert res.tokens == oracle(p, 16), (res.tokens, oracle(p, 16))
+        assert router.failovers >= 1, \
+            "the injected death never forced a failover"
+
+        # Health gauges + /healthz reflect the dead/live split.  The
+        # gauge tracks snapshot freshness, so pump until the survivor's
+        # next publish lands.
+        healthy = {}
+        gauge_deadline = time.monotonic() + 30.0
+        while time.monotonic() < gauge_deadline:
+            router.pump()
+            healthy = {
+                s["labels"]["replica"]: s["value"]
+                for fam in REGISTRY.snapshot()
+                if fam["name"] == "hvd_router_replica_healthy"
+                for s in fam["samples"]}
+            if healthy.get("0") == 1.0 and healthy.get("1") == 0.0:
+                break
+            time.sleep(0.1)
+        assert healthy.get("0") == 1.0, healthy
+        assert healthy.get("1") == 0.0, healthy
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{ports[0]}/healthz", timeout=5) as r:
+            assert r.status == 200
+        try:
+            urllib.request.urlopen(
+                f"http://127.0.0.1:{ports[1]}/healthz", timeout=5)
+            raise AssertionError("dead replica's /healthz still answers")
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+
+        kv.set("fd/stop", b"1")
+        assert workers[1].wait(timeout=30) == DIE_EXIT_CODE, \
+            workers[1].returncode
+        assert workers[0].wait(timeout=30) == 0, workers[0].returncode
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+        kv.close()
+        kv_srv.stop()
+    print(f"CHAOS-ROUTER-OK np=2 failovers={router.failovers} "
+          f"(in-flight requests finished token-identical on the "
+          f"survivor)")
+
+
+# ---------------------------------------------------------------------------
+# scenario: disaggregated prefill/decode with a mid-migration kill
+# ---------------------------------------------------------------------------
+
+def disagg_worker_main(rank: int, pool: str) -> int:
+    """One pool-tagged disagg replica: session + ReplicaServer +
+    RankPublisher + TracePublisher, serving until the parent writes
+    ``fd/stop``.  The victim prefill rank carries ``mig_export:die``
+    (armed via env at package import) so it dies between migration blob
+    publishes."""
+    from ..obs import flightrec
+    from ..obs.aggregate import RankPublisher, _kv_from_env
+    from ..obs.tracemerge import TracePublisher
+    from ..serving.frontdoor.transport import ReplicaServer
+
+    flightrec.RECORDER.arm(os.environ.get("HVDTPU_FLIGHT_RECORDER_DIR"))
+    sess = _replica_session(*_tiny_model())
+    kv = _kv_from_env()
+    replica = ReplicaServer(sess, rank, pool=pool).start()
+    # 2s cadence -> 4s staleness tolerance: four CPU replicas decoding at
+    # once starve publisher threads for >1s routinely, and a transiently
+    # late DECODE publish must not read as a pool dip when the fault
+    # targets a PREFILL rank.
+    pub = RankPublisher(rank, 4, interval_s=2.0).start()
+    # Fleet trace plane: publish ended spans + answer clock pings so the
+    # parent's /tracez shows the migrated request as one connected
+    # chain across processes.
+    tpub = TracePublisher(rank, pool=pool, interval_s=1.0).start()
+    sess.start()
+    try:
+        while kv.get("fd/stop") is None:
+            time.sleep(0.1)
+    finally:
+        tpub.stop()
+        pub.stop()
+        replica.stop()
+        sess.close()
+    return 0
+
+
+def _tracez_chain(kv_port: int, artifact_dir: str) -> tuple:
+    """Serve ``/tracez`` from this (router) process over the workers'
+    trace publishers, pull it once over HTTP, and check that the merged
+    Perfetto view shows a migrated request as ONE trace id spanning at
+    least three processes, with cross-process flow arrows, per-lane
+    monotonic spans and a critical-path report.  Writes the artefact;
+    returns (trace id, processes, artefact path)."""
+    import urllib.request
+    from collections import defaultdict
+
+    from .._native import KvClient
+    from ..obs import server as obs_server
+    from ..obs.tracemerge import TraceCollector
+
+    collector = TraceCollector(
+        own_rank=4, own_pool="router",
+        kv_factory=lambda: KvClient("127.0.0.1", kv_port, timeout_ms=5000))
+    obs_server.set_trace_provider(collector.collect)
+    srv = obs_server.MetricsServer(0, addr="127.0.0.1")
+    try:
+        merged, chain_tid, by_tid = None, None, {}
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/tracez",
+                    timeout=10) as resp:
+                merged = json.loads(resp.read().decode())
+            by_tid = defaultdict(set)
+            for ev in merged["traceEvents"]:
+                if ev.get("ph") == "X" and \
+                        ev.get("args", {}).get("trace_id"):
+                    by_tid[ev["args"]["trace_id"]].add(ev["pid"])
+            spanning = [t for t, pids in by_tid.items() if len(pids) >= 3]
+            if spanning:
+                chain_tid = spanning[0]
+                break
+            time.sleep(0.5)     # worker publishers on a 1s cadence
+        assert chain_tid is not None, \
+            "no trace spans >= 3 processes in the merged /tracez view"
+        flows = [ev for ev in merged["traceEvents"]
+                 if ev.get("cat") == "trace" and ev.get("ph") in ("s", "f")]
+        assert flows, "merged trace has no cross-process flow arrows"
+        lanes = defaultdict(list)
+        for ev in merged["traceEvents"]:
+            if ev.get("ph") == "X":
+                lanes[(ev["pid"], ev["tid"])].append(ev["ts"])
+        assert all(ts == sorted(ts) for ts in lanes.values()), \
+            "merged trace is not monotonic per lane"
+        report = merged.get("report", {})
+        assert report.get("dominant_phase") is not None \
+            and report.get("dominant_rank") is not None, report
+        artifact = os.environ.get(
+            "HVDTPU_TRACE_ARTIFACT",
+            os.path.join(artifact_dir, "disagg_tracez.json"))
+        with open(artifact, "w") as fh:
+            json.dump(merged, fh)
+    finally:
+        obs_server.set_trace_provider(None)
+        collector.close()
+        srv.close()
+    return chain_tid, len(by_tid[chain_tid]), artifact
+
+
+def scenario_disagg() -> None:
+    """np=4 disaggregated fleet (2 prefill + 2 decode replicas); a
+    ``mig_export:die`` kills one prefill replica between its migration
+    blob publishes (K landed, manifest did not).  Asserts: every
+    request completes token-identical to the greedy reference AND took
+    the migration path (``metrics["migrated"]``), exactly once on the
+    stream, the router recorded the prefill-stage failover,
+    ``hvd_disagg_pool_replicas{pool="decode"}`` never dropped below 2
+    (decode pool untouched by a prefill kill), the victim exited with
+    ``DIE_EXIT_CODE``, and one ``/tracez`` pull shows a migrated request
+    as one connected trace across at least three processes (written as
+    the ``disagg_tracez.json`` artefact)."""
+    import subprocess
+
+    import numpy as np
+
+    from . import DIE_EXIT_CODE
+    from .._native import KvClient
+    from ..obs import REGISTRY
+    from ..serving.disagg import DisaggRouter, DisaggRouterConfig
+    from ..serving.frontdoor.transport import KVReplicaClient
+
+    kv_srv, env_base = _replica_env("hvdtpu-disagg-flightrec-")
+    die_latch = os.path.join(
+        tempfile.mkdtemp(prefix="hvdtpu-disagg-latch-"), "die")
+    pools = {0: "prefill", 1: "prefill", 2: "decode", 3: "decode"}
+    workers = []
+    for rank, pool in pools.items():
+        env = dict(env_base)
+        if rank == 0:
+            # Dies on its second mig_export traversal: the K payload is
+            # published, the V payload and manifest are not — the
+            # durable-point probe must come up empty and the router
+            # must re-prefill from the prompt on the pool survivor.
+            env["HVDTPU_FAULTS"] = \
+                f"mig_export:die:after=2:once={die_latch}"
+        workers.append(subprocess.Popen(
+            [sys.executable, "-m", "horovod_tpu_torch.chaos.run",
+             "--disagg-worker", str(rank), pool], env=env))
+    kv = KvClient("127.0.0.1", kv_srv.port, timeout_ms=5000)
+    try:
+        _wait_registered(kv, range(4), 120.0)
+        oracle = _greedy_oracle(*_tiny_model())
+        clients = [KVReplicaClient(r, kv) for r in range(4)]
+        assert [c.pool for c in clients] == \
+            ["prefill", "prefill", "decode", "decode"], \
+            [c.pool for c in clients]
+        router = DisaggRouter(clients, kv,
+                              DisaggRouterConfig(max_attempts=6))
+        rng = np.random.RandomState(11)
+        prompts = [rng.randint(0, 256, size=(8 + 2 * i,)).astype(np.int32)
+                   for i in range(4)]
+        streamed: dict[int, list] = {}
+        futs = [router.submit(
+            p, 16,
+            stream_cb=lambda fid, t: streamed.setdefault(
+                fid, []).append(t)) for p in prompts]
+
+        # Drain by hand so the decode-pool health gauge is sampled on
+        # every pump — "never drops" holds at every pass, not just at
+        # the end.
+        decode_gauge = REGISTRY.get("hvd_disagg_pool_replicas")
+        min_decode = float("inf")
+        drain_deadline = time.monotonic() + 240.0
+        while router._flights:
+            router.pump()
+            min_decode = min(min_decode,
+                             decode_gauge.labels(pool="decode").value)
+            if not router._flights:
+                break
+            if time.monotonic() > drain_deadline:
+                raise AssertionError(
+                    f"disagg drain stuck: "
+                    f"{[(f.fid, f.state) for f in router._flights.values()]}")
+            time.sleep(0.05)
+
+        for i, (p, f) in enumerate(zip(prompts, futs)):
+            res = f.result(timeout=5)
+            want = oracle(p, 16)
+            assert res.tokens == want, (i, res.tokens, want)
+            assert res.metrics["migrated"] is True, (i, res.metrics)
+            assert res.metrics["finish_reason"] == "length", res.metrics
+            # Exactly-once streaming under replay.
+            assert streamed.get(i, []) == want, (i, streamed.get(i), want)
+        assert router.failovers >= 1, \
+            "the mid-migration death never forced a failover"
+        assert min_decode >= 2.0, \
+            f"decode pool dipped to {min_decode} after a PREFILL kill"
+        chain_tid, n_procs, artifact = _tracez_chain(
+            kv_srv.port, env_base["HVDTPU_FLIGHT_RECORDER_DIR"])
+
+        kv.set("fd/stop", b"1")
+        assert workers[0].wait(timeout=30) == DIE_EXIT_CODE, \
+            workers[0].returncode
+        for w in workers[1:]:
+            assert w.wait(timeout=30) == 0, w.returncode
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+        kv.close()
+        kv_srv.stop()
+    print(f"CHAOS-DISAGG-OK np=4 (2 prefill + 2 decode) "
+          f"failovers={router.failovers} min_decode_pool={min_decode:.0f} "
+          f"(mid-migration prefill kill, token-identical completion; "
+          f"/tracez chain {chain_tid} spans {n_procs} processes -> "
+          f"{artifact})")
+
+
+# ---------------------------------------------------------------------------
 # scenario: determinism (same seed => identical fault sequence)
 # ---------------------------------------------------------------------------
 
@@ -475,9 +964,15 @@ def main(argv=None) -> int:
                    help=argparse.SUPPRESS)   # internal np=4 worker
     p.add_argument("--moe-worker", action="store_true",
                    help=argparse.SUPPRESS)   # internal MoE worker
+    p.add_argument("--router-worker", type=int, default=None,
+                   metavar="RANK",
+                   help=argparse.SUPPRESS)   # internal router replica
+    p.add_argument("--disagg-worker", nargs=2, default=None,
+                   metavar=("RANK", "POOL"),
+                   help=argparse.SUPPRESS)   # internal disagg replica
     p.add_argument("--scenario", default="all",
-                   choices=("all", "elastic", "autoscale", "determinism",
-                            *_WAITING))
+                   choices=("all", "elastic", "serving", "determinism",
+                            "router", "autoscale", "disagg"))
     p.add_argument("--np", type=int, default=4, dest="np_total")
     p.add_argument("--verbose", "-v", action="store_true")
     args = p.parse_args(argv)
@@ -485,16 +980,24 @@ def main(argv=None) -> int:
         return worker_main()
     if args.moe_worker:
         return moe_worker_main()
-    if args.scenario in _WAITING:
-        print(f"chaos: --scenario {args.scenario} ({_WAITING[args.scenario]}"
-              f") is not ported to horovod_tpu_torch yet ({_WAITING_ITEM})",
-              file=sys.stderr)
-        return 2
+    if args.router_worker is not None:
+        return router_worker_main(args.router_worker)
+    if args.disagg_worker is not None:
+        return disagg_worker_main(int(args.disagg_worker[0]),
+                                  args.disagg_worker[1])
+    # Not in "all": the disagg and router scenarios start four and two
+    # serving replicas, and autoscale runs a full 4->2->4 resize circle
+    # with real cooldowns.
+    if args.scenario == "disagg":
+        scenario_disagg()
+    if args.scenario == "router":
+        scenario_router()
     if args.scenario == "autoscale":
-        # Not in "all": a full 4->2->4 resize circle with real cooldowns.
         scenario_autoscale(verbose=args.verbose)
     if args.scenario in ("all", "elastic"):
         scenario_elastic(args.np_total, verbose=args.verbose)
+    if args.scenario in ("all", "serving"):
+        scenario_serving()
     if args.scenario in ("all", "determinism"):
         scenario_determinism()
     print("CHAOS-OK")

@@ -80,17 +80,17 @@ def _reinitialize() -> None:
     card) are destroyed and made anew in this process, with the knobs the
     runtime had.  ``init`` re-arms the metrics plane with the new rank and
     size; the immediate publish makes ``/cluster`` show the new world
-    without waiting out a publish interval.  (The reference also
-    re-announces the front door's serving replicas here,
-    ``transport.republish_membership``; the port's front-door transport
-    comes with ROADMAP section A 'Parallel strategies, and what needs
-    them'.)"""
+    without waiting out a publish interval.  Serving replicas behind the
+    front door then re-announce themselves, so the router sees them in
+    the re-formed world (a no-op when this process hosts none)."""
     import horovod_tpu_torch as hvd
     cfg = hvd.global_state().config if hvd.is_initialized() else None
     hvd.shutdown()
     hvd.init(config=cfg)
     from ..obs import aggregate
     aggregate.publish_now()
+    from ..serving.frontdoor import transport
+    transport.republish_membership()
 
 
 def run(func: Callable[..., Any]) -> Callable[..., Any]:

@@ -208,13 +208,17 @@ class SamplingProfiler:
         # locals once its function returned (tensors), alive until the
         # next collection.  Dropped first, the dict dies with this call.
         frames.pop(self_ident, None)
+        # The frames become keys before the lock is taken: a tick that
+        # waits for the lock holding them would keep a returned
+        # function's frame, and its locals, alive until the tick ends.
+        keys = [(names.get(ident, f"tid-{ident}"), _stack_key(frame))
+                for ident, frame in frames.items()]
+        del frames
         tick_view = {}
         with self._lock:
             self._samples += 1
             self._tick += 1
-            for ident, frame in frames.items():
-                name = names.get(ident, f"tid-{ident}")
-                key = _stack_key(frame)
+            for name, key in keys:
                 tick_view[name] = key[0] if key else "?"
                 skey = (name, key)
                 if skey in self._stacks:

@@ -13,10 +13,12 @@ The port of ``horovod_tpu/serving``'s single-replica path:
   tok/s metrics;
 - :mod:`~horovod_tpu_torch.serving.frontdoor` — the radix prefix cache
   and speculative decoding (``serve(prefix_cache=True)``,
-  ``serve(spec_k=k, draft_params=..., draft_cfg=...)``).
-
-The front door's router and transport and disaggregated prefill/decode
-wait for later slices of the port.
+  ``serve(spec_k=k, draft_params=..., draft_cfg=...)``), and the
+  multi-replica router with its KV-store request transport
+  (``Router``, ``LocalReplica``, ``ReplicaServer``, ``KVReplicaClient``);
+- :mod:`~horovod_tpu_torch.serving.disagg` — disaggregated prefill/decode:
+  KV-block export and import between engines, the migration transport
+  and the pool-aware ``DisaggRouter``.
 """
 
 from .api import RequestResult, ServingSession, serve  # noqa: F401

@@ -116,10 +116,13 @@ class ServingSession:
                ) -> Future:
         """Queue a request; the future resolves to a
         :class:`RequestResult`.  ``stream_cb(req_id, token)`` fires once
-        per generated token, in order.  ``migrate_cb`` (disaggregated
-        serving) waits for a later slice of the port and raises.
-        ``trace_ctx`` joins an upstream trace (a ``Span.context()``
-        dict)."""
+        per generated token, in order.  ``migrate_cb`` makes this a
+        prefill-only request (disaggregated serving): the future
+        resolves after the prefill emission with
+        ``finish_reason="migrated"`` and the callback receives the
+        exported KV — see :mod:`horovod_tpu_torch.serving.disagg`.
+        ``trace_ctx`` joins an upstream trace (a router ingress span's
+        ``Span.context()`` dict, carried over the request transport)."""
         fut: Future = Future()
         with self._lock:
             req = self.engine.submit(prompt, max_tokens,
@@ -138,10 +141,25 @@ class ServingSession:
                     self._trace_ids.pop(next(iter(self._trace_ids)))
         return fut
 
-    def import_migrated(self, *args, **kwargs) -> Future:
-        """Resuming a migrated request (disaggregated serving) waits for
-        a later slice of the port."""
-        return self.engine.import_migrated(*args, **kwargs)
+    def import_migrated(self, manifest: dict, k_bytes: bytes,
+                        v_bytes: bytes, *,
+                        stream_cb: Optional[Callable[[int, int], None]]
+                        = None) -> Future:
+        """Resume a migrated request on this (decode-pool) session: the
+        exported KV blocks attach to the local pool with zero
+        re-prefill and the request joins the running decode batch.  The
+        future resolves to the FULL generated continuation (the
+        prefill-emitted token plus every decode token).  Raises
+        ``OutOfBlocks``/``ValueError`` when this engine cannot take the
+        request right now — the router retries another replica."""
+        fut: Future = Future()
+        with self._lock:
+            req = self.engine.import_migrated(manifest, k_bytes, v_bytes,
+                                              stream_cb=stream_cb)
+            self._futures[req.req_id] = fut
+            if req.trace.sampled:
+                self._trace_ids[req.req_id] = req.trace.trace_id
+        return fut
 
     def request_trace(self, req_id: int) -> Optional[dict]:
         """The finished request's trace as a JSON-ready dict (span chain

@@ -25,8 +25,11 @@ single-replica features ride on top: the radix prefix cache
 through :func:`~horovod_tpu_torch.models.llama.extend_step_paged`) and
 speculative decoding (:attr:`EngineConfig.spec_k` with a draft model;
 :class:`~horovod_tpu_torch.serving.frontdoor.SpecDecoder` replaces the
-decode tick).  Sharded serving and KV migration wait for later slices of
-the port and raise ``NotImplementedError``.
+decode tick).  Disaggregated serving moves a request's KV blocks between
+engines: ``submit(migrate_cb=)`` exports them after the prefill emission
+and :meth:`ServingEngine.import_migrated` resumes decoding them
+(:mod:`horovod_tpu_torch.serving.disagg`).  Sharded serving waits for a
+later slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -259,9 +262,6 @@ class ServingEngine:
         # queues (the caller sees the raise, nothing leaks into the
         # scheduler); delay throttles intake.
         chaos.fire("serving_admit")
-        if migrate_cb is not None:
-            raise NotImplementedError(
-                f"KV migration (migrate_cb) {_WAITS}")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -278,7 +278,7 @@ class ServingEngine:
                 f"pool only has {usable} (raise num_blocks/block_size)")
         req = Request(req_id=self._next_id, prompt=prompt,
                       max_new_tokens=max_new_tokens, eos_token=eos_token,
-                      stream_cb=stream_cb)
+                      stream_cb=stream_cb, migrate_cb=migrate_cb)
         self._next_id += 1
         # Admission is the root of the request's causal chain: one trace
         # id covers every phase span from here to the terminal state.
@@ -290,9 +290,6 @@ class ServingEngine:
             prompt_len=int(prompt.size), max_new_tokens=max_new_tokens)
         self.scheduler.submit(req)
         return req
-
-    def import_migrated(self, *args, **kwargs):
-        raise NotImplementedError(f"KV migration (import_migrated) {_WAITS}")
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()
@@ -322,6 +319,13 @@ class ServingEngine:
             _m_prefill_tokens.inc(
                 int(req.prefill_tokens.shape[0]) - req.cached_tokens)
             emitted.append((req, self._prefill_one(req)))
+            if req.migrate_cb is not None \
+                    and req.state == RequestState.RUNNING:
+                # Disaggregated handoff: this replica's job ends at the
+                # prefill emission — export the KV blocks while the
+                # pager table is still held and let a decode replica
+                # continue the request (serving/disagg).
+                self._migrate_out(req)
         if self.scheduler.running:
             ticked = (self.spec.tick() if self.spec is not None
                       else self._decode_tick())
@@ -500,6 +504,49 @@ class ServingEngine:
             self.scheduler.finish(req)
             self._drop_slot(req)
         return token
+
+    def _migrate_out(self, req: Request) -> None:
+        """Export ``req``'s KV blocks and retire it locally with
+        ``finish_reason="migrated"``.  Runs right after the prefill
+        emission, BEFORE ``scheduler.finish`` releases the blocks; the
+        export copies the pages to the host, so by the time the callback
+        gets the payload the pool blocks are free to recycle.  A callback
+        failure (KV store down, injected fault) fails THIS request only —
+        the batch keeps serving."""
+        from .disagg import migration
+        sp = req.open_phase("migrate", context_len=req.context_len)
+        try:
+            with sp.use():
+                manifest, k_bytes, v_bytes = migration.export_request(
+                    self, req)
+            req.close_phase("migrate",
+                            bytes=len(k_bytes) + len(v_bytes))
+            req.finish_reason = "migrated"
+            self.scheduler.finish(req)
+            self._drop_slot(req)
+            req.migrate_cb(manifest, k_bytes, v_bytes)
+        except Exception as e:
+            req.close_phase("migrate", error=str(e))
+            if req in self.scheduler.running:
+                self.scheduler.fail_running(req, e)
+                self._drop_slot(req)
+            else:
+                # Export succeeded but the publish callback failed after
+                # finish(): surface through the failed list so the
+                # session fails the future instead of hanging it.
+                req.state = RequestState.CANCELLED
+                req.finish_reason = "error"
+                self.scheduler.failed.append((req, e))
+
+    def import_migrated(self, manifest: dict, k_bytes: bytes,
+                        v_bytes: bytes, *, stream_cb=None) -> Request:
+        """Attach a migrated request's exported KV blocks to this
+        engine's pool and resume decoding it — zero re-prefill, token
+        identical to a local prefill (greedy decode).  See
+        :mod:`horovod_tpu_torch.serving.disagg.migration`."""
+        from .disagg import migration
+        return migration.import_request(self, manifest, k_bytes, v_bytes,
+                                        stream_cb=stream_cb)
 
     def abort_inflight(self, exc: BaseException) -> list[Request]:
         """Graceful-degradation half of a step failure: finish every

@@ -200,6 +200,68 @@ def test_a_tick_keeps_no_sampled_local_alive():
     assert json.loads(res.stdout.splitlines()[-1]) == [True, False]
 
 
+class _Gate:
+    """Stands in for a profiler's ``_lock``: says when a tick reaches it,
+    then waits for the real lock, which the test holds."""
+
+    def __init__(self, lock: threading.Lock) -> None:
+        self.lock = lock
+        self.reached = threading.Event()
+
+    def __enter__(self):
+        self.reached.set()
+        self.lock.acquire()
+
+    def __exit__(self, *exc):
+        self.lock.release()
+
+
+def test_a_tick_waiting_for_its_lock_holds_no_returned_frame():
+    """A tick blocked at the profiler's lock must not keep a sampled
+    function's frame, and with it its locals, alive after the function
+    returned: the tick turns frames into keys before it takes the lock."""
+    import gc
+    import weakref
+
+    import torch
+
+    profiler = prof.SamplingProfiler()
+    gate = _Gate(profiler._lock)
+    profiler._lock = gate
+    inside, leave = threading.Event(), threading.Event()
+    refs = []
+
+    def holder():
+        big = torch.empty(1 << 20)
+        refs.append(weakref.ref(big))
+        inside.set()
+        leave.wait(10)
+
+    t = threading.Thread(target=holder)
+    t.start()
+    assert inside.wait(10)
+    gate.lock.acquire()
+    s = threading.Thread(
+        target=lambda: profiler._sample_once(threading.get_ident()))
+    try:
+        s.start()
+        assert gate.reached.wait(10)
+        leave.set()
+        t.join(10)
+        assert not t.is_alive()
+        deadline = time.monotonic() + 2.0
+        while refs[0]() is not None and time.monotonic() < deadline:
+            gc.collect()
+            time.sleep(0.01)
+        assert refs[0]() is None, \
+            "a tick waiting for the lock kept the returned frame's tensor"
+    finally:
+        gate.lock.release()
+        s.join(10)
+    assert not s.is_alive()
+    assert profiler._samples == 1
+
+
 class _FakeCuda:
     def __init__(self, initialized: bool) -> None:
         self.initialized = initialized

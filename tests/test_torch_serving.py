@@ -174,14 +174,37 @@ def test_later_slices_raise_not_implemented(models, what):
 
 
 def test_migration_raises_not_implemented(models):
+    """Only a speculative engine still refuses a migration (the name is
+    kept from when every migration was refused): ``submit(migrate_cb=)``
+    ends the request at its prefill emission
+    with the exported KV; ``import_migrated`` resumes it on another
+    session to the tokens of an unmigrated run; a speculative engine
+    refuses the import, as the JAX package's does, and stays empty."""
     _, _, tcfg, tparams = models
+    prompt = np.arange(4, dtype=np.int32)
+    box = []
     sess = tserving.serve(tparams, tcfg, device="cpu", num_blocks=8)
-    with pytest.raises(NotImplementedError, match="migrate_cb"):
-        sess.submit(np.arange(4, dtype=np.int32), 2,
-                    migrate_cb=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="import_migrated"):
-        sess.import_migrated({}, b"", b"")
+    fut = sess.submit(prompt, 5, migrate_cb=lambda *m: box.append(m))
+    sess.drain()
+    head = fut.result()
+    assert head.metrics["finish_reason"] == "migrated"
+    assert len(head.tokens) == 1 and len(box) == 1
     assert not sess.engine.has_work()
+    assert sess.engine.pager.free_blocks == sess.engine.cache.num_blocks - 1
+    manifest, k_bytes, v_bytes = box[0]
+    other = tserving.serve(tparams, tcfg, device="cpu", num_blocks=8)
+    res = other.import_migrated(manifest, k_bytes, v_bytes)
+    other.drain()
+    plain = _run(tserving.serve(tparams, tcfg, device="cpu", num_blocks=8),
+                 [prompt], [5])[0]
+    assert res.result().tokens == plain.tokens
+    assert res.result().tokens[:1] == head.tokens
+    spec = tserving.serve(tparams, tcfg, device="cpu", num_blocks=8,
+                          spec_k=2, draft_params=tparams, draft_cfg=tcfg)
+    with pytest.raises(NotImplementedError, match="speculative"):
+        spec.import_migrated(manifest, k_bytes, v_bytes)
+    assert not spec.engine.has_work()
+    assert spec.engine.pager.free_blocks == spec.engine.cache.num_blocks - 1
 
 
 def test_init_reads_launcher_env_and_serve_borrows_its_timeline(
