@@ -8,9 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 It drives the port's main paths on the card, serving (with the front
 door's prefix cache and speculative decoding, and batch ``generate``),
 multi-replica serving (the router, disaggregated prefill/decode),
-training (with its recompute and loss variants) and data-parallel
-training through Horovod's runtime, and checks them, phase by phase,
-printing one JSON line per phase:
+training (with its recompute and loss variants, and as a Switch-MoE) and
+data-parallel training through Horovod's runtime, and checks them, phase
+by phase, printing one JSON line per phase:
 
 1. ``device``  the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
@@ -190,7 +190,33 @@ printing one JSON line per phase:
    after;
 15. ``train_parity``  two layers at full width, S=4096: loss and every
    gradient through the kernels against the same call through their plain
-   versions (``llama._FORCE_ATTENTION_REFERENCE``).
+   versions (``llama._FORCE_ATTENTION_REFERENCE``);
+16. ``train_moe``  Llama-2-7B at full width as a Switch-MoE of 8 SwiGLU
+   experts a layer (capacity factor 1.25, top-1), depth cut to 4 layers
+   (4,859,269,120 parameters), bf16, per-layer recompute, one sequence
+   of 4096 tokens a step, fused Adam at ``MOE_LR``: one warm-up and
+   three timed steps.  Every counter zeroed just before and read just
+   after: per step
+   ``flash_fwd`` 8 times, ``flash_bwd_dq`` and ``flash_bwd_dkv`` 4 times
+   each, ``paged_decode`` never; ``hvd_moe_dropped_tokens_total``
+   untouched (the model path counts no drops, as in the JAX package);
+   the losses finite, the first within 2 of ln V, then below it.  Step
+   ms, tokens/s, the model's TFLOP a step by product and the MFU, peak
+   memory, each layer's drops and the aux at the first and the last
+   weights; a profile
+   of one step by product (flash, expert products, dispatch and combine,
+   router, projections and lm_head, Adam, the elementwise rest); last,
+   layer 0's MoE MLP in fp32 on 4096 tokens on the card (TF32 off)
+   against the CPU: every token to the same expert, the same drops,
+   outputs within ``MOE_OUT_REL`` of the largest (a token routed
+   differently would print its top-2 logit gap);
+17. ``hier``  the hierarchy's one-rank gate over NCCL: ``init`` accepts
+   ``hierarchical_allreduce``, ``hierarchical_local_size=2`` and an int8
+   cross hop; at one rank no split is valid, so no tier group is made, a
+   16 MB allreduce and the 7B gradient set (291 tensors, fused as the DP
+   step fuses them) come back bitwise whole and no tiered dispatch or
+   two-tier route runs; ``build_mesh`` gives a ``DeviceMesh`` on the card
+   with every axis of size 1.
 
 Then a ``total`` line (the script's wall seconds), a ``kernels`` line,
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -198,8 +224,9 @@ Any failure raises and exits non-zero before the last line; without a
 CUDA device, or without the port's package beside the script, it exits
 2.  ``--phases`` runs a subset
 (``device,build,kernel,serve,frontdoor,replicas,train,train_variants,
-train_dp,train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity``;
-``frontdoor``, ``replicas`` and ``elastic`` need ``build``;
+train_dp,train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity,
+train_moe,hier``; ``frontdoor``, ``replicas``, ``elastic`` and
+``train_moe`` need ``build``;
 ``train_variants``,
 ``train_dp`` and ``hvdrun_obs`` need
 ``train``, ``hvdrun`` and ``train_zero`` need ``train`` and
@@ -223,7 +250,8 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 PHASES = ("device", "build", "kernel", "serve", "frontdoor", "replicas",
           "train", "train_variants", "train_dp", "train_zero", "dataplane",
-          "hvdrun", "hvdrun_obs", "elastic", "train_parity")
+          "hvdrun", "hvdrun_obs", "elastic", "train_parity", "train_moe",
+          "hier")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -3527,6 +3555,369 @@ def phase_elastic(torch, smi: str, root: Path) -> None:
 # differs by a few bf16 ulps (2^-8 relative) and the weight gradients that
 # sum them by about that.  A wrong block, head or mask moves a leaf by
 # order 1.
+# ---------------------------------------------------------------------------
+# Switch-MoE training at Llama-2-7B width, and the hierarchy's one-rank gate
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 4          # Llama-2-7B's width, depth cut to 4 layers
+MOE_EXPERTS = 8
+# Adam's first steps move every weight by about lr.  At train's 1e-3 the
+# fp32 router's logits move by up to D * lr = 4 a step, and on one
+# repeated batch the routing collapsed onto one expert by the third step
+# (3,448 of 4,096 tokens a layer dropped, aux 7.9 a layer of at most 8)
+# and the fourth loss rose above the first (H100 run, PR 12).  At 1e-4 a
+# step moves a logit by 0.4 at most, and an update still survives bf16
+# rounding of a weight near 1/64 (its spacing is 6.1e-5).
+MOE_LR = 1e-4
+MOE_OUT_REL = 1e-4      # the fp32 layer on the card against the CPU's
+MOE_CATEGORIES = ("flash", "experts", "dispatch_combine", "router",
+                  "projections_lm_head", "adam", "elementwise_other")
+
+
+def _moe_flops(cfg, T: int) -> dict:
+    """Model FLOPs of one step, by product: under per-layer recompute a
+    layer's products run four times (forward, recompute, two backward
+    products), the lm_head three; attention at bench.py's 12 L D S a
+    token (forward and backward)."""
+    from horovod_tpu_torch.parallel.moe import capacity_of
+    L, D, F, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
+    C = capacity_of(T, E, cfg.capacity_factor)
+    return {"experts": 3 * 2 * E * C * D * F * 4 * L,
+            "dispatch_combine": 2 * 2 * T * E * C * D * 4 * L,
+            "projections": 4 * 2 * T * D * D * 4 * L,
+            "router": 2 * T * D * E * 4 * L,
+            "attention": 12 * L * D * T * T,
+            "lm_head": 2 * T * D * cfg.vocab_size * 3}
+
+
+def _moe_category(op: str, shapes, cfg, C: int) -> str:
+    """The product a CPU-side op's kernels belong to, by its input shapes:
+    the expert products carry d_ff, dispatch and combine the E x C slot
+    dim, the router's products E as a matrix dim."""
+    dims = {d for s in shapes or () for d in s}
+    if cfg.d_ff in dims and cfg.n_experts in dims:
+        return "experts"
+    if cfg.n_experts * C in dims:
+        return "dispatch_combine"
+    gemm = op in ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+    if gemm and any(len(s) == 2 and cfg.n_experts in s
+                    for s in shapes or ()):
+        return "router"
+    if gemm:
+        return "projections_lm_head"
+    return "elementwise_other"
+
+
+def moe_breakdown(torch, step, params, batch, cfg, wall_ms: float,
+                  smi: str) -> dict:
+    """Device ms of one MoE step by product: the flash kernels and fused
+    Adam by kernel name, every other kernel by the CPU-side op that
+    launched it (:func:`_moe_category`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.parallel.moe import capacity_of
+    C = capacity_of(TRAIN_S, cfg.n_experts, cfg.capacity_factor)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(params, batch)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ms = dict.fromkeys(MOE_CATEGORIES, 0.0)
+    for e in kernels:
+        if "flash_" in e.key:
+            ms["flash"] += e.self_device_time_total / 1e3
+        elif "Adam" in e.key:
+            ms["adam"] += e.self_device_time_total / 1e3
+    attributed = 0.0
+    for ev in prof.events():
+        if ev.device_type.name != "CPU" or not ev.kernels:
+            continue
+        for k in ev.kernels:
+            if "flash_" in k.name or "Adam" in k.name:
+                continue
+            cat = _moe_category(ev.name, ev.input_shapes, cfg, C)
+            ms[cat] += k.duration / 1e3
+            attributed += k.duration / 1e3
+    # kernels no CPU-side op claimed go with the elementwise rest
+    ms["elementwise_other"] += max(
+        0.0, device_ms - ms["flash"] - ms["adam"] - attributed)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    res = {"phase": "train_moe_breakdown", "wall_ms_per_step": wall_ms,
+           "device_ms_per_step": device_ms if kernels else "not measured",
+           "device_idle_share": (1 - device_ms / wall_ms) if kernels
+           else "not measured",
+           "ms_per_step": ms if kernels else "not measured",
+           "top_kernels_ms_per_step": {
+               e.key[:80]: e.self_device_time_total / 1e3 for e in top},
+           "card": smi}
+    emit(res)
+    return res
+
+
+def _switch_routing(x, lp, cfg):
+    """The routing ``_moe_mlp`` takes on ``x``: each token's expert, the
+    dropped mask and the top-2 logit gap."""
+    from horovod_tpu_torch.parallel.moe import capacity_of, switch_route
+    flat = x.reshape(-1, x.shape[-1])
+    logits = flat.float() @ lp["router"].float()
+    cap = capacity_of(flat.shape[0], cfg.n_experts, cfg.capacity_factor)
+    _, _, _, dropped = switch_route(logits, cap)
+    top2 = logits.topk(2, dim=-1).values
+    return logits.argmax(-1), dropped, top2[:, 0] - top2[:, 1]
+
+
+def moe_mlp_parity(torch, llama, params, cfg) -> dict:
+    """Layer 0's MoE MLP in fp32 at full width on 4096 tokens, on the card
+    (TF32 off) and on the CPU: the same expert for every token, the same
+    drops, outputs within ``MOE_OUT_REL`` of the largest.  A token routed
+    differently has its top-2 logit gap printed."""
+    import dataclasses
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    lp = {k: params["layers"][k][0].float()
+          for k in ("router", "w_gate", "w_up", "w_down")}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    x = torch.randn(1, TRAIN_S, cfg.d_model, generator=gen, device="cuda")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out_g, aux_g = llama._moe_mlp(x, lp, cfg32)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            route_g = _switch_routing(x, lp, cfg32)
+            lp_c = {k: v.cpu() for k, v in lp.items()}
+            t0 = time.perf_counter()
+            out_c, aux_c = llama._moe_mlp(x.cpu(), lp_c, cfg32)
+            cpu_s = time.perf_counter() - t0
+            route_c = _switch_routing(x.cpu(), lp_c, cfg32)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    flips = (route_g[0].cpu() != route_c[0]).nonzero()[:, 0].tolist()
+    drops_differ = int((route_g[1].cpu() != route_c[1]).sum())
+    rel = ((out_g.cpu() - out_c).abs().max()
+           / out_c.abs().max().clamp_min(1e-30)).item()
+    res = {"tokens": TRAIN_S, "dtype": "float32", "tf32": False,
+           "routing_flips": len(flips),
+           "flip_top2_gaps": [route_c[2][t].item() for t in flips[:16]],
+           "dropped_card": int(route_g[1].sum()),
+           "dropped_cpu": int(route_c[1].sum()),
+           "drops_differ": drops_differ, "out_rel_err": rel,
+           "out_rel_tol": MOE_OUT_REL,
+           "aux_card": aux_g.item(), "aux_cpu": aux_c.item(),
+           "smallest_top2_gap": route_c[2].min().item(),
+           "card_s": card_s, "cpu_s": cpu_s}
+    if flips or drops_differ or not rel <= MOE_OUT_REL:
+        emit({"phase": "train_moe_mlp_parity", **res})
+        raise AssertionError(f"train_moe: the fp32 MoE layer on the card "
+                             f"against the CPU: {res}")
+    return res
+
+
+def _moe_routing(torch, llama, moe, params, batch, cfg) -> dict:
+    """One forward without gradients on the batch: each layer's dropped
+    tokens (a spy on ``switch_route``, which ``_moe_mlp`` looks up at each
+    call) and the aux loss summed over layers."""
+    seen = []
+    real = moe.switch_route
+
+    def spy(logits, capacity):
+        out = real(logits, capacity)
+        seen.append(int(out[3].sum()))
+        return out
+
+    moe.switch_route = spy
+    try:
+        with torch.no_grad():
+            _, aux = llama.forward(params, batch["tokens"][:, :-1], cfg)
+    finally:
+        moe.switch_route = real
+    return {"dropped": seen, "aux": aux.item()}
+
+
+def phase_train_moe(torch, smi: str, steps: int = 3) -> dict:
+    """Llama-2-7B at full width as a Switch-MoE of 8 experts, depth cut
+    to 4 layers, bf16, per-layer recompute, one sequence of 4096 tokens a
+    step, fused Adam: one warm-up and ``steps`` timed steps.  Every
+    counter is zeroed just before and read just after: 8/4/4 flash
+    launches a step (forward and recompute), ``paged_decode`` never; the
+    drop counter untouched (the model path records no drops, as in the
+    JAX package); the losses finite, starting near ln V and falling.
+    Then the routing of the last weights (drops a layer, aux), the
+    profile by product and the fp32 layer's card-against-CPU check."""
+    import numpy as np
+
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import moe
+
+    _free_cuda(torch)
+    cfg = llama.LlamaConfig.llama2_7b(use_moe=True, n_experts=MOE_EXPERTS,
+                                      n_layers=MOE_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, "cuda")
+    n_params = sum(t.numel() for t in llama.trainable(params))
+    opt = torch.optim.Adam(llama.trainable(params), lr=MOE_LR, fused=True)
+    step = llama.make_train_step(cfg, opt)
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(1, TRAIN_S + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    first_routing = _moe_routing(torch, llama, moe, params, batch, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dropped0 = moe._m_dropped.total()
+
+    zero_launches()                            # every counter of the path
+    losses, step_s = [step(params, batch).item()], []   # warm-up step
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counted_drops = moe._m_dropped.total() - dropped0
+
+    last_routing = _moe_routing(torch, llama, moe, params, batch, cfg)
+
+    n_steps = steps + 1
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "paged_decode": 0}
+    med = sorted(step_s)[len(step_s) // 2]
+    flops = _moe_flops(cfg, TRAIN_S)
+    res = {"phase": "train_moe", "model": "llama2_7b", "moe": True,
+           "experts": cfg.n_experts, "capacity_factor": cfg.capacity_factor,
+           "capacity": moe.capacity_of(TRAIN_S, cfg.n_experts,
+                                       cfg.capacity_factor),
+           "layers": cfg.n_layers, "reduced": "n_layers 32 -> 4",
+           "dtype": "bfloat16", "remat": cfg.remat, "batch": 1,
+           "seq": TRAIN_S, "optimizer": f"Adam(lr={MOE_LR}, fused=True)",
+           "params": n_params, "losses": losses, "step_s": step_s,
+           "step_ms_median": med * 1e3, "tokens_per_s": TRAIN_S / med,
+           "model_tflop_per_step": {k: v / 1e12 for k, v in flops.items()},
+           "mfu": sum(flops.values()) / med / BF16_FLOPS,
+           "routing_at_first_weights": first_routing,
+           "routing_at_last_weights": last_routing,
+           "drop_counter_delta": counted_drops,
+           "launches": counts, "launches_per_step": want,
+           "peak_mem_gb": peak_gb, "card": smi}
+    emit(res)
+    if counts != {k: n_steps * v for k, v in want.items()}:
+        raise AssertionError(f"train_moe: launches over {n_steps} steps "
+                             f"{counts}; want per step {want}")
+    ln_v = math.log(cfg.vocab_size)
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - ln_v) <= 2
+            and all(x < losses[0] for x in losses[1:])):
+        raise AssertionError(f"train_moe: losses {losses}: want finite, the "
+                             f"first within 2 of ln V = {ln_v}, then below")
+    if counted_drops != 0 or len(last_routing["dropped"]) != cfg.n_layers:
+        raise AssertionError(f"train_moe: the model path counted "
+                             f"{counted_drops} drops; routed "
+                             f"{len(last_routing['dropped'])} layers")
+    moe_breakdown(torch, step, params, batch, cfg, med * 1e3, smi)
+    del opt, step, batch
+    _free_cuda(torch)
+    parity = moe_mlp_parity(torch, llama, params, cfg)
+    emit({"phase": "train_moe_mlp_parity", **parity, "card": smi})
+    del params
+    _free_cuda(torch)
+    return res
+
+
+def phase_hier(torch, smi: str) -> None:
+    """The hierarchy's one-rank gate over NCCL: ``init`` accepts the
+    hierarchical knobs; at one rank no split is valid, so no tier group
+    is made, a 16 MB allreduce and the 7B gradient set (291 tensors fused
+    as the DP step fuses them) come back bitwise whole and no tiered
+    dispatch or two-tier route runs; the rank mesh builds with every
+    axis of size 1 on the card."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import hierarchical as H
+    from horovod_tpu_torch.ops.sched import executor
+    from horovod_tpu_torch.parallel import AXES, MeshConfig, build_mesh
+
+    _free_cuda(torch)
+    knobs = dict(hierarchical_allreduce=True, hierarchical_local_size=2,
+                 hierarchical_cross_precision="int8")
+    hvd.init(config=hvd.Config(**knobs))
+    routes = [0]
+    real = H.hierarchical_allreduce_
+
+    def counting(*a, **kw):
+        routes[0] += 1
+        return real(*a, **kw)
+
+    H.hierarchical_allreduce_ = counting
+    try:
+        state = hvd.global_state()
+        cfg = state.config
+        faults = [f"{k}={getattr(cfg, k)!r}" for k, v in knobs.items()
+                  if getattr(cfg, k) != v]
+        sched0 = executor._m_sched.total()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        x = torch.randn(4 << 20, generator=gen, device="cuda")
+        want = x.clone()
+        t0 = time.perf_counter()
+        got = hvd.allreduce(x, name="hier.16mb")
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(_bits(got), _bits(want)):
+            faults.append("16 MB allreduce changed")
+        grads = _grad_set(torch, llama, llama.LlamaConfig.llama2_7b())
+        copies = [g.clone() for _, g in grads]
+        eng = state.engine
+        eng.pause()
+        hs = [hvd.allreduce_async_(g, hvd.Average, name=f"hier.{n}")
+              for n, g in grads]
+        eng.resume()
+        for h in hs:
+            hvd.synchronize(h)
+        torch.cuda.synchronize()
+        changed = sum(not torch.equal(_bits(g), _bits(c))
+                      for (_, g), c in zip(grads, copies))
+        if changed:
+            faults.append(f"{changed} gradients changed")
+        mesh = build_mesh(MeshConfig())
+        res = {"phase": "hier", "ranks": state.size, "backend": state.backend,
+               "knobs": {k: getattr(cfg, k) for k in knobs},
+               "split": C._hier_split(None),
+               "tier_groups": len(state.tier_groups),
+               "allreduce_16mb_ms": one_ms,
+               "grad_tensors": len(grads),
+               "grad_bytes": sum(g.numel() * g.element_size()
+                                 for _, g in grads),
+               "hier_dispatches": executor._m_sched.total() - sched0,
+               "two_tier_routes": routes[0],
+               "mesh_axes": list(mesh.mesh_dim_names),
+               "mesh_shape": list(mesh.mesh.shape),
+               "mesh_device_type": mesh.device_type, "card": smi}
+        emit(res)
+        if (res["split"] is not None or res["tier_groups"]
+                or res["hier_dispatches"] or routes[0]
+                or res["mesh_axes"] != list(AXES)
+                or res["mesh_shape"] != [1] * len(AXES)
+                or mesh.device_type != "cuda"):
+            faults.append("the one-rank gate let a tier through")
+        if faults:
+            raise AssertionError("hier: " + "; ".join(faults))
+        del grads, copies, hs, x, want, got
+    finally:
+        H.hierarchical_allreduce_ = real
+        hvd.shutdown()
+        _free_cuda(torch)
+
+
 PARITY_LOSS_REL = 1e-2
 PARITY_GRAD_REL_L2 = 5e-2
 
@@ -3630,6 +4021,8 @@ def main(argv=None) -> int:
         ap.error("frontdoor launches the kernels: run build and frontdoor")
     if "replicas" in phases and "build" not in phases:
         ap.error("replicas launches the kernels: run build and replicas")
+    if "train_moe" in phases and "build" not in phases:
+        ap.error("train_moe launches the kernels: run build and train_moe")
     if "elastic" in phases and "build" not in phases:
         ap.error("elastic's worker loads the kernels build builds: run "
                  "build and elastic")
@@ -3700,16 +4093,26 @@ def main(argv=None) -> int:
         phase_elastic(torch, smi, root)
     if "train_parity" in phases:
         phase_train_parity(torch, smi)
+    moe_trained = phase_train_moe(torch, smi) if "train_moe" in phases \
+        else None
+    if "hier" in phases:
+        phase_hier(torch, smi)
     if res is not None and served is not None and trained is not None:
         # launches: paged_decode on the serving path, the flash kernels on
-        # the training path (each counted in its own run).
-        launches = dict(trained["launches"],
-                        paged_decode=served["counts"]["paged_decode"])
+        # the training paths (each counted in its own run), summed.
+        paths = {"serve": {"paged_decode":
+                           served["counts"]["paged_decode"]},
+                 "train": trained["launches"]}
+        if moe_trained is not None:
+            paths["train_moe"] = moe_trained["launches"]
         keys = ("max_abs_err", "worst_row_rel_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
         emit({"kernels": [
             {"name": name, "route": "cuda", "source": f"{SRC}{lib}.cu",
-             "replaces": replaces, "launches": launches[name],
+             "replaces": replaces,
+             "launches": sum(p.get(name, 0) for p in paths.values()),
+             "launches_by_path": {k: p.get(name, 0)
+                                  for k, p in paths.items()},
              **{k: res[name][k] for k in keys}}
             for name, (lib, replaces) in KERNELS.items()]})
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start,

@@ -67,10 +67,15 @@ transport (``serving.frontdoor``: ``Router``, ``LocalReplica``,
 with KV migration (``serving.disagg``: ``DisaggRouter``,
 ``LocalDisaggReplica``, ``export_request``/``import_request``).
 
+The two-tier allreduce (``HVDTPU_HIERARCHICAL_ALLREDUCE``,
+``ops/hierarchical.py`` and the ``hier:<n_local>:<k>`` schedule), the
+rank mesh (``parallel.build_mesh``) and Switch-MoE (``parallel.moe``, and
+``LlamaConfig(use_moe=True)`` in training; ``generate`` and serving
+refuse MoE, as the JAX package's do).
+
 Not yet ported, and raising ``NotImplementedError`` where a caller could
 reach them: sharded models (``mesh=``) for serving, training and
-``generate``, MoE configs, the hierarchical allreduce, and the knobs
-:func:`.config.check_ported` lists.
+``generate``.
 """
 
 from __future__ import annotations

@@ -120,31 +120,36 @@ def worker_main() -> int:
 # expert-parallel worker (internal entry point for --scenario autoscale)
 # ---------------------------------------------------------------------------
 
-def _moe_step(hvd, x, router, experts, me: int, n: int, tag: str):
-    """One top-1 expert-parallel layer over ``hvd.alltoall``: each token
-    goes to the rank owning its expert, ``tanh(x @ w_e)`` there, and back
-    into its place.  Returns the outputs and the load-balancing term."""
+_MOE_D, _MOE_E, _MOE_T = 8, 4, 16
+
+
+def moe_inputs(me: int, n: int, step: int):
+    """The expert-parallel worker's inputs at one step: this rank's
+    tokens ``[T, D]`` (seeded by rank and step), the router ``[D, E]``
+    and this rank's slice of a fixed expert table, so any world size n
+    with ``E % n == 0`` computes with the same experts (the JAX
+    package's worker draws the same numbers)."""
+    import numpy as np
     import torch
-    e_local = experts.shape[0]
-    probs = torch.softmax(x @ router, dim=-1)
-    expert = probs.argmax(-1)
-    owner = expert // e_local
-    order = torch.argsort(owner, stable=True)
-    splits = torch.bincount(owner, minlength=n)
-    recv_counts = hvd.alltoall(splits, splits=[1] * n, name=f"{tag}.counts")
-    tokens = hvd.alltoall(x[order], splits=splits.tolist(),
-                          name=f"{tag}.dispatch")
-    which = hvd.alltoall(expert[order], splits=splits.tolist(),
-                         name=f"{tag}.experts")
-    w = experts[which - me * e_local]
-    y = torch.tanh(torch.bmm(tokens[:, None, :], w)[:, 0])
-    back = hvd.alltoall(y, splits=recv_counts.tolist(), name=f"{tag}.combine")
-    out = torch.empty_like(back)
-    out[order] = back
-    frac = torch.bincount(expert, minlength=probs.shape[1]).float() \
-        / x.shape[0]
-    aux = float((frac * probs.mean(0)).sum() * probs.shape[1])
-    return out, aux
+    rng = np.random.RandomState(0)
+    router = torch.from_numpy(rng.randn(_MOE_D, _MOE_E).astype(np.float32))
+    w_full = torch.from_numpy(
+        rng.randn(_MOE_E, _MOE_D, _MOE_D).astype(np.float32))
+    e_local = _MOE_E // n
+    toks = torch.from_numpy(np.random.RandomState(1000 * me + step).randn(
+        _MOE_T, _MOE_D).astype(np.float32))
+    return toks, router, w_full[me * e_local:(me + 1) * e_local]
+
+
+def moe_layer(toks, router, experts):
+    """The worker's layer: the ported ``moe_layer_hvd`` with the JAX
+    package's worker's expert (``tanh(x @ w)``), capacity factor 1.25 and
+    drop label ``chaos``.  Returns (outputs, aux, dropped)."""
+    import torch
+
+    from ..parallel.moe import moe_layer_hvd
+    return moe_layer_hvd(toks, router, lambda w, x: torch.tanh(x @ w),
+                         experts, capacity_factor=1.25, layer="chaos")
 
 
 def moe_worker_main() -> int:
@@ -164,24 +169,15 @@ def moe_worker_main() -> int:
     me, n = hvd.rank(), hvd.size()
     log_line(f"START rank={me} size={n}")
 
-    D, E_total, T = 8, 4, 16
-    rng = np.random.RandomState(0)
-    router = torch.from_numpy(rng.randn(D, E_total).astype(np.float32))
-    w_full = torch.from_numpy(rng.randn(E_total, D, D).astype(np.float32))
-    e_local = E_total // n
-    experts = w_full[me * e_local:(me + 1) * e_local]
-
     state = FileBackedState(state_path, step=0)
     log_line(f"RESUME rank={me} size={n} resume_step={state.step}")
 
     @hvd.elastic.run
     def train(state):
         for step in range(state.step, total):
-            toks = torch.from_numpy(np.random.RandomState(
-                1000 * me + step).randn(T, D).astype(np.float32))
-            out, aux = _moe_step(hvd, toks, router, experts, me, n,
-                                 f"chaos.moe.{step}")
-            if out.shape != (T, D) or not bool(torch.isfinite(out).all()) \
+            toks, router, experts = moe_inputs(me, n, step)
+            out, aux, _ = moe_layer(toks, router, experts)
+            if out.shape != toks.shape or not bool(torch.isfinite(out).all()) \
                     or not np.isfinite(aux):
                 log_line(f"BAD rank={me} step={step} moe shape="
                          f"{tuple(out.shape)} aux={aux}")
@@ -368,9 +364,9 @@ def scenario_autoscale(verbose: bool = False) -> None:
 
     work = tempfile.mkdtemp(prefix="hvdtpu_chaos_as_")
     die_latch = os.path.join(work, "die.latch")
-    # Death lands a few steps in (each step is 5 engine dispatches after
-    # the 4 init broadcasts); the once-latch keeps the relaunched
-    # incarnations alive.
+    # Death lands a few steps in (each step is 4 engine dispatches, the
+    # layer's three alltoalls and the probe's allreduce, after the 4 init
+    # broadcasts); the once-latch keeps the relaunched incarnations alive.
     env = _scenario_env(
         work, f"dispatch:rank=1:die:after=24:once={die_latch}",
         _MOE_TOTAL_STEPS)

@@ -260,16 +260,16 @@ class Config:
     log_hide_timestamp: bool = False
 
     # --- hierarchical collectives († nccl_operations.cc hierarchical mode) ---
-    # On TPU: two-level = ICI within a slice + DCN across slices.
+    # On H100s: two tiers = NVLink within a node + the fabric across nodes
+    # (ops/hierarchical.py).  hierarchical_allgather is read by nothing,
+    # as in the JAX package.
     hierarchical_allreduce: bool = False
     hierarchical_allgather: bool = False
-    # ICI-group size for the two-level split (ranks per slice).  None =
-    # detect from topology: multislice slice boundaries first, else the
-    # runner's per-host rank layout (HVDTPU_LOCAL_SIZE), else this
-    # process's device count — the analogue of the reference's "local
-    # ranks per node".  Setting it is the explicit override.
+    # Fast-tier group size (ranks per node).  None = the launcher's
+    # per-host local size (HVDTPU_LOCAL_SIZE), else the ranks on this
+    # rank's host.  Setting it is the explicit override.
     hierarchical_local_size: Optional[int] = None
-    # Wire mode for the cross-tier (DCN) hop only: ""/fp32 = same as the
+    # Wire mode for the cross-tier hop only: ""/fp32 = same as the
     # collective's resolved mode; int8/fp8 = block-scaled quantization on
     # the bandwidth-starved slow tier while the fast tier stays at the
     # base mode (EQuARX's placement).  Cast modes are rejected.
@@ -468,14 +468,9 @@ def from_yaml(path: str, base: Optional[Config] = None) -> Config:
 # section A item that ports it, named by its title (titles outlive the
 # items' numbers).  Set away from its default (and from the values of
 # :data:`_PORTED_VALUES`), each one raises at ``init`` rather than being
-# quietly ignored.
-_HIER = "'Hierarchy'"
-_NOT_PORTED = {
-    "hierarchical_allreduce": _HIER,
-    "hierarchical_allgather": _HIER,
-    "hierarchical_local_size": _HIER,
-    "hierarchical_cross_precision": _HIER,
-}
+# quietly ignored.  Empty since the hierarchical knobs were ported; kept
+# for the knobs of later slices.
+_NOT_PORTED: dict = {}
 # Values of a knob of _NOT_PORTED that the port does run.
 _PORTED_VALUES: dict = {}
 

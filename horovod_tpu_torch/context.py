@@ -105,6 +105,9 @@ class _GlobalState:
         self.timeline: Optional[Timeline] = None
         self.engine = None                  # ops.engine.CollectiveEngine
         self.process_set_table = None       # ops.process_sets table
+        # (n_cross, n_local) -> this rank's tier groups
+        # (ops.hierarchical.tier_groups), created at init or by the caller.
+        self.tier_groups: dict = {}
         # Rendezvous stores, kept for the process's life (see
         # _start_process_group), and the count of inits that used them.
         self.stores: dict = {}
@@ -232,6 +235,13 @@ def _start_runtime(cfg, rank: int, size: int, local_rank: int,
     _state.local_size = local_size
     _state.cross_rank, _state.cross_size = cross_rank, cross_size
     _state.device, _state.backend = dev, backend
+    _state.tier_groups = {}
+    from .ops import collectives
+    split = collectives._hier_split(None)
+    if split is not None:
+        # Collective, so here on every rank: never lazily in the engine.
+        from .ops import hierarchical
+        hierarchical.tier_groups(*split)
 
     path = timeline or cfg.timeline
     if path:
@@ -374,6 +384,7 @@ def _stop_runtime() -> None:
         _state.engine.stop()
         _state.engine = None
     _state.process_set_table = None
+    _state.tier_groups = {}
     # Captured schedules call into the process group destroyed below.
     from .ops.sched import compiled
     compiled.clear()

@@ -13,14 +13,22 @@ across with :func:`params_from_jax` and the tests compare like with like:
 
 - parameters are a plain dict; layer weights are stacked over a leading
   layer axis (``wq [L, D, H, Dh]``, ``wk/wv [L, D, KV, Dh]``,
-  ``wo [L, H, Dh, D]``, ``w_gate/w_up [L, D, F]``, ``w_down [L, F, D]``),
-  matrices in the config's dtype, norm weights in fp32;
+  ``wo [L, H, Dh, D]``, ``w_gate/w_up [L, D, F]``, ``w_down [L, F, D]``;
+  an MoE config's ``router [L, D, E]`` in fp32, ``w_gate/w_up
+  [L, E, D, F]`` and ``w_down [L, E, F, D]``), matrices in the config's
+  dtype, norm weights in fp32;
 - the layer ``lax.scan`` becomes a Python loop over the layer index;
 - bf16 activations and weights with RMSNorm, RoPE and softmax in fp32,
-  fp32 logits; RoPE is half-split (not interleaved); GQA; SwiGLU.
+  fp32 logits; RoPE is half-split (not interleaved); GQA; SwiGLU;
+- ``use_moe``: a Switch-MoE MLP of ``n_experts`` SwiGLU experts, top-1
+  routing at ``capacity_factor`` (:mod:`..parallel.moe`), its
+  load-balancing loss summed over layers and added to the training loss
+  times ``moe_aux_weight``; one expert group (the reference's ``ep=1``
+  branch).
 
 Still raising ``NotImplementedError``: sharded meshes (``mesh=``, which
-also covers ``generate``'s pipelined and sharded caches) and MoE configs.
+also covers ``generate``'s pipelined and sharded caches), and MoE configs
+in ``generate`` and the serving steps, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     use_moe: bool = False
     n_experts: int = 8
+    capacity_factor: float = 1.25
     # Recompute of the layer body in the backward: True = per-layer
     # recompute (the layer inputs are all that is kept; the Llama-2-7B
     # training step needs it to fit one 80 GB card), False = keep every
@@ -58,6 +67,8 @@ class LlamaConfig:
     # recompute the rest (the JAX package's
     # dots_with_no_batch_dims_saveable policy).
     remat: Union[bool, str] = True
+    # Weight of the MoE load-balancing loss in loss_fn.
+    moe_aux_weight: float = 0.01
     # Loss through ops/losses.py's blockwise cross-entropy: the [B, S, V]
     # logits are never materialised.
     blockwise_ce: bool = False
@@ -83,9 +94,10 @@ class LlamaConfig:
 
 
 def _no_moe(cfg: LlamaConfig) -> None:
+    """The serving steps refuse MoE configs, with the JAX package's
+    serving engine's message."""
     if cfg.use_moe:
-        raise NotImplementedError(
-            "MoE configs wait for the parallel slice of the port")
+        raise NotImplementedError("serving does not support MoE configs")
 
 
 def _no_mesh(mesh) -> None:
@@ -96,7 +108,6 @@ def _no_mesh(mesh) -> None:
 
 
 def _check_train_cfg(cfg: LlamaConfig) -> None:
-    _no_moe(cfg)
     if cfg.remat not in (True, False, "dots"):
         raise ValueError(
             f"remat must be True, False or 'dots', got {cfg.remat!r}")
@@ -140,8 +151,9 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     fp32 ones.  ``generator`` must live on ``device`` (default: the
     process's card).  The values differ from ``jax.random``'s for the
     same seed; tests that compare the two packages draw with numpy and
-    use :func:`params_from_jax`."""
-    _no_moe(cfg)
+    use :func:`params_from_jax`.  An MoE config's router is drawn like a
+    matrix, rounded to ``cfg.dtype`` and kept in fp32, as the JAX
+    package's."""
     dev = context.device(device)
     L, D, H, KV, Dh, Fd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                            cfg.n_kv_heads, cfg.head_dim, cfg.d_ff)
@@ -167,10 +179,21 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
         "wv": rnd((L, D, KV, Dh), D),
         "wo": rnd((L, H, Dh, D), H * Dh),
         "mlp_norm": norm((L, D)),
-        "w_gate": rnd((L, D, Fd), D),
-        "w_up": rnd((L, D, Fd), D),
-        "w_down": rnd((L, Fd, D), Fd),
     }
+    if cfg.use_moe:
+        E = cfg.n_experts
+        layers.update({
+            "router": rnd((L, D, E), D).float(),
+            "w_gate": rnd((L, E, D, Fd), D),
+            "w_up": rnd((L, E, D, Fd), D),
+            "w_down": rnd((L, E, Fd, D), Fd),
+        })
+    else:
+        layers.update({
+            "w_gate": rnd((L, D, Fd), D),
+            "w_up": rnd((L, D, Fd), D),
+            "w_down": rnd((L, Fd, D), Fd),
+        })
     return {
         "embed": rnd((cfg.vocab_size, D), D, stacked=False),
         "layers": layers,
@@ -318,6 +341,28 @@ def _swiglu_hidden(x2, lp):
 
 def _dense_mlp(x2, lp):
     return torch.matmul(_swiglu_hidden(x2, lp), lp["w_down"])
+
+
+def _moe_mlp(h2: torch.Tensor, lp: dict, cfg: LlamaConfig
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Switch-MoE MLP over one expert group (the JAX package's ``ep=1``
+    branch): fp32 router logits, :func:`~..parallel.moe.switch_route` at
+    ``cfg.capacity_factor``, the dispatch einsum into ``[E, C, D]``
+    expert buffers, the SwiGLU experts as batched products over E (the
+    reference's ``vmap`` of one expert), the combine einsum.  Returns
+    (output ``[B, S, D]``, the layer's aux loss).  Tokens past capacity
+    come back 0 (the residual carries them); the drops are not counted
+    here, as in the reference."""
+    from ..parallel.moe import capacity_of, switch_route
+    B, S, D = h2.shape
+    flat = h2.reshape(B * S, D)
+    cap = capacity_of(flat.shape[0], cfg.n_experts, cfg.capacity_factor)
+    logits = flat.float() @ lp["router"].float()
+    dispatch, combine, aux, _ = switch_route(logits, cap)
+    einputs = torch.einsum("tec,td->ecd", dispatch.to(flat.dtype), flat)
+    eouts = _dense_mlp(einputs, lp)                       # [E, C, D]
+    out = torch.einsum("tec,ecd->td", combine.to(flat.dtype), eouts)
+    return out.reshape(B, S, D), aux
 
 
 def _layer(layers: dict, li: int) -> dict:
@@ -605,8 +650,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
             mesh=None, causal: bool = True, return_hidden: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Logits for next-token prediction: tokens ``[B, S]`` int ->
-    (logits ``[B, S, V]`` fp32, aux = 0, the MoE loss of the JAX package's
-    dense configs).  With ``return_hidden`` the final normed hidden states
+    (logits ``[B, S, V]`` fp32, aux: the MoE load-balancing loss summed
+    over layers, 0 for a dense config).  With ``return_hidden`` the final
+    normed hidden states
     ``[B, S, D]`` come back instead of logits (the blockwise loss applies
     the lm_head itself, a vocab block at a time).  With ``cfg.remat`` each
     layer runs under ``torch.utils.checkpoint``: ``True`` keeps only the
@@ -625,19 +671,29 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
         ckpt_kw["context_fn"] = _dots_context()
 
     def layer(h, *weights):
+        # An MoE layer returns (h, its aux loss); a dense one h alone.
         lp = dict(zip(names, weights))
         h = _attn_block(h, lp, rope, mesh, causal)
-        return h + _dense_mlp(_rmsnorm(h, lp["mlp_norm"]), lp)
+        x2 = _rmsnorm(h, lp["mlp_norm"])
+        if cfg.use_moe:
+            mlp_out, moe_aux = _moe_mlp(x2, lp, cfg)
+            return h + mlp_out, moe_aux
+        return h + _dense_mlp(x2, lp)
 
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for li in range(cfg.n_layers):
         weights = _layer(params["layers"], li).values()
         if cfg.remat:
-            h = checkpoint(layer, h, *weights, use_reentrant=False,
-                           **ckpt_kw)
+            out = checkpoint(layer, h, *weights, use_reentrant=False,
+                             **ckpt_kw)
         else:
-            h = layer(h, *weights)
+            out = layer(h, *weights)
+        if cfg.use_moe:
+            h, moe_aux = out
+            aux = aux + moe_aux
+        else:
+            h = out
     h = _rmsnorm(h, params["final_norm"])
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     if return_hidden:
         return h, aux
     return torch.matmul(h, params["lm_head"]).float(), aux
@@ -652,7 +708,8 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, *,
     :func:`~horovod_tpu_torch.ops.losses.blockwise_cross_entropy` takes
     the hidden states and the lm_head a vocab block at a time, its block
     logits in fp32 (the dense path rounds its logits to the model's
-    dtype first)."""
+    dtype first).  The MoE load-balancing loss is added times
+    ``cfg.moe_aux_weight``."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if cfg.blockwise_ce:
@@ -661,11 +718,11 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, *,
         B, S, D = h.shape
         nll = blockwise_cross_entropy(h.reshape(B * S, D), params["lm_head"],
                                       targets.reshape(-1))
-        return nll.mean() + aux
+        return nll.mean() + cfg.moe_aux_weight * aux
     logits, aux = forward(params, inputs, cfg, mesh=mesh)
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, targets[..., None].long())[..., 0]
-    return (lse - picked).mean() + aux
+    return (lse - picked).mean() + cfg.moe_aux_weight * aux
 
 
 def trainable(params: dict) -> list[torch.Tensor]:
@@ -692,7 +749,8 @@ def trainable(params: dict) -> list[torch.Tensor]:
 def named_trainable(params: dict) -> list[tuple[str, torch.Tensor]]:
     """:func:`trainable`'s leaves with names that are the same in every
     process: ``layers.<weight>.<layer>`` (``layers.wq.3``; nine stacked
-    weights a layer), then ``embed``, ``final_norm`` and ``lm_head``.
+    weights a layer, ten with an MoE config's router), then ``embed``,
+    ``final_norm`` and ``lm_head``.
     ``DistributedOptimizer`` negotiates each gradient by its name, and
     ``broadcast_parameters`` takes the pairs as they are."""
     names = [f"layers.{k}.{i}" for k, stack in params["layers"].items()

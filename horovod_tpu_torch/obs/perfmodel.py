@@ -21,9 +21,9 @@ Achieved timings come from the instrumented call sites:
   around the group's work on the engine's stream, read once the group
   has finished (the host window there holds only the NCCL launch);
 - :meth:`PerfModel.observe_schedule` — the decomposed schedule's unit
-  windows (``ops/sched/executor.py``); :meth:`PerfModel.observe_tiers`
-  waits for the two-tier executor (ROADMAP section A 'Hierarchy and the
-  compiled schedule').
+  windows (``ops/sched/executor.py``); :meth:`PerfModel.observe_tiers` —
+  the tiered ``hier:<n_local>:<k>`` walk's local and cross windows and
+  the standalone two-tier allreduce (``ops/hierarchical.py``).
 
 The two-tier model's tiers on H100s: ``local`` is NVLink inside a node,
 ``cross`` the inter-node fabric (InfiniBand or RoCE).  The one link

@@ -123,6 +123,51 @@ def allreduce_(buf: torch.Tensor, op: ReduceOp, group, n: int, *,
     _scale_(buf, postscale)
 
 
+def _detect_local_size(state) -> Optional[int]:
+    """The fast tier's group size from the job's layout, not from a knob
+    (reference ``_detect_local_size``): the launcher's per-host local
+    size (``HVDTPU_LOCAL_SIZE``), else the ranks this rank's host holds.
+    The reference looks at TPU slice boundaries first; a card has
+    none."""
+    cfg = state.config
+    if cfg.local_size_env:
+        return int(cfg.local_size_env)
+    return getattr(state, "local_size", None)
+
+
+def _hier_split(process_set) -> Optional[tuple[int, int]]:
+    """``(n_cross, n_local)`` when the two-tier allreduce is enabled and
+    valid († HOROVOD_HIERARCHICAL_ALLREDUCE gate in nccl_operations.cc):
+    ``hierarchical_local_size``, else :func:`_detect_local_size`.  Invalid
+    splits (an indivisible world, a one-rank or whole-world tier) and
+    process sets (their topology is unknown) take the flat path — the
+    same on every rank, since the inputs are synchronized config and the
+    job's layout."""
+    from .. import context
+    if process_set is not None:
+        return None
+    state = context.global_state()
+    cfg = state.config
+    if not cfg.hierarchical_allreduce:
+        return None
+    n = state.size
+    n_local = cfg.hierarchical_local_size or _detect_local_size(state)
+    if not n_local or n_local <= 1 or n_local >= n or n % n_local:
+        return None
+    return (n // n_local, n_local)
+
+
+def hier_route(op: ReduceOp, dtype: torch.dtype,
+               process_set) -> Optional[tuple[int, int]]:
+    """The split a monolithic fp32 allreduce rides the two tiers on: SUM,
+    or AVERAGE of a float payload (an integer AVERAGE keeps the flat
+    path's floor division), under a valid :func:`_hier_split`."""
+    if not (op is ReduceOp.SUM
+            or (op is ReduceOp.AVERAGE and dtype.is_floating_point)):
+        return None
+    return _hier_split(process_set)
+
+
 def _gather_rows(t: torch.Tensor, group, n: int) -> list[int]:
     """Every rank's dim-0 length, in rank order."""
     import torch.distributed as dist

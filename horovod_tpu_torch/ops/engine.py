@@ -65,8 +65,10 @@ keys on both.  A group at a cast or quantized mode packs into the fusion
 buffer and goes through :func:`.reduction.allreduce`; a group with a
 schedule through :func:`.sched.executor.execute_allreduce`; an Adasum
 entry, never fused, through :func:`.adasum.adasum_allreduce`
-(:func:`.collectives.allreduce_`).  All of it runs on the engine's
-stream.
+(:func:`.collectives.allreduce_`).  Under a valid hierarchical split
+(:func:`.collectives.hier_route`) an fp32 SUM or float AVERAGE group goes
+through the two tiers (:func:`.hierarchical.hierarchical_allreduce_`).
+All of it runs on the engine's stream.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ import torch
 
 from . import collectives as C
 from . import reduction as R
-from .sched.lower import parse_compiled_descriptor, parse_descriptor
+from .sched.lower import known_descriptor
 from .. import chaos
 from ..context import HorovodInternalError
 from ..obs import REGISTRY as _obs
@@ -217,8 +219,7 @@ def _parse_joinable_meta(meta: str) -> Optional[dict]:
             return None
         if m.get("wp", "") not in ("",) + R.MODES:
             return None     # a wire mode this build cannot run: skip
-        if m.get("sc", "") and parse_descriptor(m["sc"]) is None \
-                and parse_compiled_descriptor(m["sc"]) is None:
+        if m.get("sc", "") and not known_descriptor(m["sc"]):
             return None     # a schedule this build cannot walk: skip
     except (ValueError, TypeError, KeyError):
         return None
@@ -1029,6 +1030,20 @@ class CollectiveEngine:
                     out.split([e.payload.numel() for e in group]), group)],
                 group)
         kw = dict(prescale=e0.prescale, postscale=e0.postscale)
+        split = C.hier_route(e0.op, e0.payload.dtype, e0.process_set)
+        if split is not None:
+            # The two tiers (reference _build_hier_allreduce), fused or
+            # not: pack, reduce, unpack.
+            from .hierarchical import hierarchical_allreduce_
+            if len(group) == 1:
+                return self._in_place(e0, lambda buf: hierarchical_allreduce_(
+                    buf, e0.op, *split, **kw))
+            flat = torch.cat([e.payload.reshape(-1) for e in group])
+            hierarchical_allreduce_(flat, e0.op, *split, **kw)
+            return self._take(
+                [p.view(e.payload.shape) for p, e in zip(
+                    flat.split([e.payload.numel() for e in group]), group)],
+                group)
         if len(group) == 1:
             return self._in_place(
                 e0, lambda buf: C.allreduce_(buf, e0.op, pg, n, **kw))

@@ -1,9 +1,11 @@
 """Engine-side schedule executor: the chunked reduce-scatter -> combine ->
 allgather walk of one (possibly fused) allreduce.
 
-The port of ``horovod_tpu/ops/sched/executor.py``, the flat ``rs_ag:<k>``
-family.  Per chunk there are three dispatch units: a *reduce-scatter*
-unit (the quantized wire's encode folded in), a *combine* unit (the fp32
+The port of ``horovod_tpu/ops/sched/executor.py``: the flat ``rs_ag:<k>``
+family and the chunked two-tier ``hier:<n_local>:<k>`` family
+(:func:`_execute_hier_allreduce`).  Per chunk of ``rs_ag`` there are three
+dispatch units: a *reduce-scatter* unit (the quantized wire's encode
+folded in), a *combine* unit (the fp32
 dequantize / average / requantize arithmetic; the AVERAGE's division for
 an fp32 wire, none for an fp32 SUM) and an *allgather* unit (decode folded
 in).  The walk follows :meth:`~.ir.Schedule.interleaved_order`: every
@@ -98,7 +100,7 @@ def ag_fp32(shard: torch.Tensor, group, n: int,
 # ---------------------------------------------------------------------------
 
 _UNIT_ACTIVITY = {"rs": "SCHED_RS", "combine": "SCHED_COMBINE",
-                  "ag": "SCHED_AG"}
+                  "ag": "SCHED_AG", "cross": "SCHED_CROSS"}
 
 
 def _overlap_fraction(comm: list, compute: list) -> float:
@@ -209,8 +211,11 @@ def execute_allreduce(xs: Sequence[torch.Tensor], op, *, descriptor: str,
     chunks = parse_descriptor(descriptor)
     if chunks is None:
         if parse_hier_descriptor(descriptor) is not None:
-            from . import _refuse
-            raise _refuse(f"schedule {descriptor!r}")
+            return _execute_hier_allreduce(
+                xs, op, descriptor=descriptor, group=group, n=n,
+                precision=precision, prescale=prescale,
+                postscale=postscale, block=block, name=name,
+                timeline=timeline)
         raise ValueError(f"unknown schedule descriptor {descriptor!r}")
     mode = check_wire(precision, "decomposed")
     average = op is ReduceOp.AVERAGE
@@ -272,4 +277,268 @@ def execute_allreduce(xs: Sequence[torch.Tensor], op, *, descriptor: str,
         payload_bytes=total * xs[0].element_size(), n=n, chunks=k,
         comm_windows=windows["comm"], compute_windows=windows["compute"],
         block=block, itemsize=xs[0].element_size())
+    return results
+
+
+
+# ---------------------------------------------------------------------------
+# Tiered units (hier:<n_local>:<k> — chunked and two-tier).  Three units a
+# chunk over the (cross, local) tier groups of ops/hierarchical.py:
+#
+#   rs     — reduce-scatter of the chunk over the local tier (n_local);
+#   cross  — allreduce of the 1/n_local shard over the cross tier
+#            (n_cross), at its own wire mode, the combine (average,
+#            dequantize and requantize) folded in;
+#   ag     — allgather over the local tier back to the whole chunk.
+#
+# A quantized base mode stays bitwise equal to the flat quantized walk:
+# the shared scale is a MAX over every rank (the flat MAX, max being
+# associative), the codes sum exactly in the container under either
+# grouping, and the per-block requantization sees the same blocks.  fp32
+# changes the n-way sum's association (local, then cross): the reference's
+# 2-ulp contract, as flat rs_ag at np >= 4.
+# ---------------------------------------------------------------------------
+
+def hier_rs_quant(chunk: torch.Tensor, mode: str, local, n_local: int,
+                  block: int, prescale: float, async_op: bool = False):
+    """Quantized base mode, the local half: the shared scale from the
+    world's MAX of the raw absmax, the codes against it, a reduce-scatter
+    of the container over the local tier.  ``(acc, my_scale, work)``."""
+    import torch.distributed as dist
+    alg = R.algebra_for(mode)
+    x = chunk.float()
+    if prescale != 1.0:
+        x = x * prescale
+    blocks = x.view(-1, block)
+    amax = alg.block_absmax(blocks)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX)          # both tiers
+    shared = alg.scale_from_absmax(amax)
+    q, _ = alg.wire_encode(blocks, shared_scale=shared)
+    cont = q.view(-1).to(R.container_dtype(mode, dist.get_world_size()))
+    acc = cont.new_empty(cont.numel() // n_local)
+    work = R.reduce_scatter_flat(acc, cont, local, async_op=async_op)
+    sbl = blocks.shape[0] // n_local
+    me = dist.get_rank(local)
+    return acc, shared[me * sbl:(me + 1) * sbl], work
+
+
+def hier_cross_quant_acc(acc: torch.Tensor, scale: torch.Tensor, mode: str,
+                         cross, n_cross: int, block: int, average: bool,
+                         n_total: int):
+    """Quantized base mode, the cross hop: finish the exact sum over the
+    cross tier (reduce-scatter of the container), dequantize, average and
+    requantize with local per-block scales, and gather the wire and the
+    scales back across the tier: ``(wire, scales)`` of the local shard."""
+    import torch.distributed as dist
+    alg = R.algebra_for(mode)
+    sbc = scale.numel() // n_cross
+    acc2 = acc.new_empty(acc.numel() // n_cross)
+    R.reduce_scatter_flat(acc2, acc.contiguous(), cross)
+    me = dist.get_rank(cross)
+    accf = alg.wire_decode(acc2.view(-1, block),
+                           scale[me * sbc:(me + 1) * sbc])
+    if average:
+        accf = accf * R.f32_recip(n_total)
+    w2, s2 = alg.wire_encode(accf)
+    gw = w2.new_empty(w2.numel() * n_cross)
+    gs = s2.new_empty(s2.numel() * n_cross)
+    R.all_gather_flat(gw, w2.view(-1), cross)
+    R.all_gather_flat(gs, s2, cross)
+    return gw, gs
+
+
+def hier_cross_fp32(shard: torch.Tensor, cross, average: bool,
+                    n_total: int) -> torch.Tensor:
+    """fp32 cross hop: allreduce of the local shard over the cross tier,
+    the AVERAGE's division by the whole world on it."""
+    from ..collectives import average as _average
+    import torch.distributed as dist
+    shard = shard.contiguous()
+    dist.all_reduce(shard, group=cross)
+    return _average(shard, n_total) if average else shard
+
+
+def hier_cross_quant(shard: torch.Tensor, cross_mode: str, cross,
+                     n_cross: int, block: int, average: bool,
+                     n_total: int) -> torch.Tensor:
+    """The cross hop at a quantized wire under an fp32 local tier (the
+    EQuARX placement: the starved hop is where quantization pays): shared
+    scales over the cross tier, an exact container reduce-scatter, the
+    combine, a requantized allgather, decoded back to fp32."""
+    import torch.distributed as dist
+    alg = R.algebra_for(cross_mode)
+    blocks = shard.float().view(-1, block)
+    amax = alg.block_absmax(blocks)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=cross)
+    shared = alg.scale_from_absmax(amax)
+    q, _ = alg.wire_encode(blocks, shared_scale=shared)
+    cont = q.view(-1).to(R.container_dtype(cross_mode, n_cross))
+    gw, gs = hier_cross_quant_acc(cont, shared, cross_mode, cross, n_cross,
+                                  block, average, n_total)
+    return alg.wire_decode(gw.view(-1, block), gs).view(-1)
+
+
+def resolve_cross_mode(mode: str, cfg) -> str:
+    """Wire mode of the cross-tier hop, from synchronized config: a
+    quantized base mode keeps its algebra end to end (its exact container
+    must survive both tiers); an fp32 base mode takes
+    ``hierarchical_cross_precision`` on the cross hop only."""
+    if mode in R.QUANT_MODES:
+        return mode
+    cross = getattr(cfg, "hierarchical_cross_precision", "") or ""
+    if cross in R.QUANT_MODES:
+        return cross
+    return "fp32"
+
+
+def _union_seconds(windows: list) -> float:
+    """Total covered time of a set of (t0, t1) host windows (their
+    union: concurrently open spans count once)."""
+    merged: list = []
+    for t0, t1 in sorted(windows):
+        if merged and t0 <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t1)
+        else:
+            merged.append([t0, t1])
+    return sum(t1 - t0 for t0, t1 in merged)
+
+
+def hier_unit_order(k: int) -> list:
+    """Every chunk's local scatter first, then (cross, ag) per chunk:
+    chunk c's cross hop in flight under chunk c+1's scatter."""
+    order = [(u, c) for c in range(k) for u in ("rs", "cross", "ag")]
+    order.sort(key=lambda uc: (0 if uc[0] == "rs" else 1, uc[1],
+                               0 if uc[0] == "cross" else 1))
+    return order
+
+
+def _execute_hier_allreduce(xs: Sequence[torch.Tensor], op, *,
+                            descriptor: str, group, n: int,
+                            precision: str = "fp32", prescale: float = 1.0,
+                            postscale: float = 1.0, block: int = 512,
+                            name: str = "allreduce", timeline=None) -> list:
+    """Run a fused allreduce group through the chunked two-tier
+    ``hier:<n_local>:<k>`` schedule: per chunk a reduce-scatter over the
+    local tier, an allreduce of the 1/n_local shard over the cross tier
+    (at its own wire mode, :func:`resolve_cross_mode`) and an allgather
+    back.  The local scatters are issued first (async), so chunk c's
+    cross hop runs while chunk c+1's scatter is in flight; the overlap
+    gauge reads the cross windows covered by local ones."""
+    from ... import context
+    from ..collectives import ReduceOp
+    from ..hierarchical import created_tier_groups
+    from .lower import parse_hier_descriptor
+    n_local, chunks = parse_hier_descriptor(descriptor)
+    mode = check_wire(precision, "tiered")
+    if group is not None:
+        raise ValueError("tiered schedule requires the global process set "
+                         "(subgroup topology unknown)")
+    if n % n_local or not (1 < n_local < n):
+        raise ValueError(
+            f"descriptor {descriptor!r} does not divide world size {n}")
+    n_cross = n // n_local
+    groups = created_tier_groups(n_cross, n_local)
+    local, cross = groups["hvd_local"][0], groups["hvd_cross"][0]
+    cfg = context.global_state().config
+    cross_mode = resolve_cross_mode(mode, cfg)
+    quant = mode in R.QUANT_MODES
+    average = op is ReduceOp.AVERAGE
+    dtype = xs[0].dtype
+    itemsize = xs[0].element_size()
+    numels = [x.numel() for x in xs]
+    total = sum(numels)
+    # Chunks cut at the world's unit, quantized when either tier is, so
+    # the local shard is a whole number of n_cross * block units and the
+    # cross hop scatters on the flat walk's block boundaries.
+    mode_eff = mode if quant else cross_mode
+    layout = chunk_layout(total, n, chunks, mode_eff, block)
+    k = len(layout)
+    if quant:
+        R.account_wire(mode, total * itemsize, n_local, block,
+                       itemsize=itemsize)
+    if cross_mode in R.QUANT_MODES:
+        R.account_wire(cross_mode, total * itemsize // n_local, n_cross,
+                       block, itemsize=itemsize)
+    _m_sched_child(descriptor).inc()
+
+    tl_on = timeline is not None and timeline.enabled
+    flat = (xs[0].reshape(-1) if len(xs) == 1
+            else torch.cat([x.reshape(-1) for x in xs]))
+    chunk_bufs = R._pad(flat, sum(layout)).split(layout)
+    opened: dict = {}                 # (unit, c) -> (lane, t_open)
+    windows: dict = {"local": [], "cross": []}
+    flows: dict = {}
+
+    def _open(unit: str, c: int) -> None:
+        lane = f"{name}/{'local_' if unit != 'cross' else ''}{unit}.c{c}"
+        opened[(unit, c)] = (lane, time.monotonic())
+        if tl_on:
+            timeline.start_activity(lane, _UNIT_ACTIVITY[unit])
+            if unit == "rs":
+                flows[c] = timeline.new_flow()
+                timeline.flow_start(lane, flows[c])
+            elif c in flows:
+                timeline.flow_end(lane, flows[c])
+                if unit != "ag":
+                    flows[c] = timeline.new_flow()
+                    timeline.flow_start(lane, flows[c])
+
+    def _close(unit: str, c: int) -> None:
+        ent = opened.pop((unit, c), None)
+        if ent is None:
+            return
+        lane, t0 = ent
+        windows["cross" if unit == "cross" else "local"].append(
+            (t0, time.monotonic()))
+        if tl_on:
+            timeline.end_activity(lane)
+
+    vals: list = [None] * k
+    outs: list = [None] * k
+    for unit, c in hier_unit_order(k):
+        if unit == "rs":
+            _open("rs", c)
+            if quant:
+                vals[c] = hier_rs_quant(chunk_bufs[c], mode, local, n_local,
+                                        block, prescale, async_op=True)
+            else:
+                vals[c] = rs_fp32(chunk_bufs[c], local, n_local, prescale,
+                                  async_op=True)
+        elif unit == "cross":
+            _close("rs", c)
+            _open("cross", c)
+            *v, work = vals[c]
+            work.wait()
+            if quant:
+                vals[c] = hier_cross_quant_acc(*v, mode, cross, n_cross,
+                                               block, average, n)
+            elif cross_mode in R.QUANT_MODES:
+                vals[c] = (hier_cross_quant(v[0], cross_mode, cross,
+                                            n_cross, block, average, n),)
+            else:
+                vals[c] = (hier_cross_fp32(v[0], cross, average, n),)
+        else:  # ag
+            _close("cross", c)
+            _open("ag", c)
+            v = vals[c]
+            if quant:
+                outs[c] = R.quant_all_gather(*v, mode, local, n_local,
+                                             block, postscale)
+            else:
+                outs[c] = ag_fp32(v[0], local, n_local, postscale)
+    out = (outs[0] if k == 1 else torch.cat(outs))[:total]
+    results = [piece.view(x.shape).to(dtype)
+               for piece, x in zip(out.split(numels), xs)]
+    for c in range(k):
+        _close("ag", c)
+    # Overlap here: the share of the cross tier's in-flight time hidden
+    # under local-tier work.
+    _m_overlap.set(_overlap_fraction(windows["cross"], windows["local"]))
+    _perf.MODEL.observe_tiers(
+        total * itemsize, n_local, n_cross,
+        _union_seconds(windows["local"] + windows["cross"]),
+        tier_seconds={"local": _union_seconds(windows["local"]),
+                      "cross": _union_seconds(windows["cross"])},
+        mode=mode, cross_mode=cross_mode, chunks=k, schedule=descriptor,
+        block=block, itemsize=itemsize)
     return results

@@ -5,9 +5,10 @@ The port of ``horovod_tpu/ops/sched/in_context.py``'s
 writes them inside a mapped region and leaves the overlap to XLA's
 scheduler; here they run eagerly, one ``torch.distributed`` call per
 step, on the current stream.  The units are the executor's, so a chunk
-reduces to the same bits on both paths.  ``matmul_reducescatter`` and
-``run_in_context`` wait for ROADMAP section A 'Parallel strategies, and
-what needs them' and 'Hierarchy'.
+reduces to the same bits on both paths.  :func:`run_in_context`
+interprets a whole-buffer schedule (the two-tier family) over a group
+an axis.  ``matmul_reducescatter`` waits for ROADMAP section A 'Parallel
+strategies, and what needs them'.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.distributed as dist
 from .. import collectives as C
 from .. import reduction as R
 from .executor import ag_fp32, rs_fp32
+from .ir import Schedule
 from .lower import chunk_layout
 
 
@@ -86,3 +88,37 @@ def overlap_reducescatter(flat: torch.Tensor, group=None, *, layout,
             sh, _ = rs_fp32(ch, group, n)
             outs.append(C.average(sh, n) if average else sh)
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def run_in_context(schedule: Schedule, x: torch.Tensor, groups: dict, *,
+                   average: bool = False) -> torch.Tensor:
+    """Interpret a single-chunk schedule on this rank's ``x`` over
+    ``groups`` (axis name -> (process group, size)), the reference's
+    in-graph interpreter as eager calls: a reduce-scatter step pads the
+    flat buffer to its tier's size and scatters over it, ``all_reduce``
+    reduces the shard, ``combine`` divides by every tier reduced so far
+    for an AVERAGE, ``all_gather`` gathers over its tier.  The two-tier
+    allreduce (``ops/hierarchical.py``) rides it.  A new tensor of
+    ``x``'s shape and dtype."""
+    flat = x.reshape(-1)
+    numel = flat.numel()
+    denom = 1
+    for s in schedule.interleaved_order():
+        if s.kind == "reduce_scatter":
+            group, n = groups[s.axis]
+            denom *= n
+            flat, _ = rs_fp32(R._pad(flat, -(-flat.numel() // n) * n),
+                              group, n)
+        elif s.kind == "all_reduce":
+            group, n = groups[s.axis]
+            denom *= n
+            flat = flat.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(flat, group=group)
+        elif s.kind == "combine":
+            if average and denom > 1:
+                flat = C.average(flat, denom)
+        elif s.kind == "all_gather":
+            group, n = groups[s.axis]
+            flat = ag_fp32(flat, group, n)
+        # chunk/concat/barrier/encode/decode: no-ops for this family.
+    return flat[:numel].view(x.shape)

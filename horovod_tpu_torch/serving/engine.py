@@ -163,7 +163,7 @@ class ServingEngine:
         #: traces JSON/flight-recorder-only.
         self.timeline = timeline
         if cfg.use_moe:
-            raise NotImplementedError(f"serving MoE configs {_WAITS}")
+            raise NotImplementedError("serving does not support MoE configs")
         if mesh is not None:
             raise NotImplementedError(f"sharded serving (mesh=) {_WAITS}")
         if engine_cfg.use_flash not in ("auto", "never"):

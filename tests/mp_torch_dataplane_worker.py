@@ -6,9 +6,12 @@ each, through the port's launcher on the CPU over Gloo (the machinery of
 Every rank runs the battery of ``mode`` (``reduction``, ``sched``,
 ``zero``, ``compiled`` or ``average``) and writes what it got to
 ``outdir/<mode>.rank<r>.npz`` and ``.json``; ``tests/test_torch_reduction.py``,
-``_sched.py``, ``_zero.py``, ``_compiled.py`` and ``_average.py`` compare
-it with the JAX package run in-process on the same rows, which the
-functions below make with numpy from fixed seeds.
+``_sched.py``, ``_zero.py``, ``_compiled.py``, ``_average.py``,
+``_hierarchical.py`` (mode ``hier``, np=4 as 2 x 2 tiers),
+``_parallel.py`` (mode ``parallel``: the mesh and MoE) and ``_chaos.py``
+(mode ``chaos_moe``) compare it with the JAX package run in-process on
+the same rows, which the functions below make with numpy from fixed
+seeds.
 """
 
 from __future__ import annotations
@@ -26,9 +29,10 @@ import mp_torch_port_worker as W
 ENV = {"HVDTPU_QUANT_MIN_BYTES": "0", "OMP_NUM_THREADS": "1"}
 
 
-def launch(mode: str, outdir: str, np_: int, timeout: float = 150) -> list:
-    return W.launch(mode, outdir, np_=np_, timeout=timeout, extra_env=ENV,
-                    script=__file__)
+def launch(mode: str, outdir: str, np_: int, timeout: float = 150,
+           env: dict | None = None) -> list:
+    return W.launch(mode, outdir, np_=np_, timeout=timeout,
+                    extra_env={**ENV, **(env or {})}, script=__file__)
 
 
 def check_ranks(results: list) -> None:
@@ -115,6 +119,54 @@ def avg_rows(dtype: str, rank: int, n: int) -> np.ndarray:
     k = np.random.RandomState(100 + rank).randint(-kmax, kmax + 1,
                                                   AVG_NUMEL)
     return (k * np.exp2(exp.astype(np.float64))).astype(np.float32)
+
+
+# np=4 as 2 x 2: the tiers are made at init from these knobs.
+HIER_ENV = {"HVDTPU_HIERARCHICAL_ALLREDUCE": "1",
+            "HVDTPU_HIERARCHICAL_LOCAL_SIZE": "2"}
+# (tag, wire mode, op, numel, hierarchical_cross_precision)
+HIER_CASES = (("fp32.average", "fp32", "average", 5000, ""),
+              ("fp32.sum", "fp32", "sum", 4097, ""),
+              ("int8.average", "int8", "average", 100000, ""),
+              ("fp8.average", "fp8", "average", 100000, ""),
+              ("cross_int8", "fp32", "average", 100000, "int8"),
+              ("cross_fp8", "fp32", "average", 100000, "fp8"))
+HIER_CHUNKS = 2
+HIER_FUSED = (3, 97)            # entries of one fused cycle, elements
+HIER_NUMEL = 4097
+
+# MoE: the cases of tests/test_parallel.py.
+MOE_EP = dict(T=32, D=8, E=4, seed=11)          # moe_layer vs the oracle
+MOE_DROP = dict(T=64, D=4, E=8, seed=6, cf=0.25)
+MOE_HVD = dict(D=8, E=16, T=10, seed=7, cf=1.25)
+CHAOS_STEPS = 3
+
+
+def moe_ep_inputs():
+    c = MOE_EP
+    rng = np.random.RandomState(c["seed"])
+    tokens = rng.randn(c["T"], c["D"]).astype(np.float32)
+    router = rng.randn(c["D"], c["E"]).astype(np.float32)
+    we = (rng.randn(c["E"], c["D"], c["D"]) * 0.5).astype(np.float32)
+    return tokens, router, we
+
+
+def moe_drop_inputs():
+    c = MOE_DROP
+    tokens = np.random.RandomState(c["seed"]).randn(
+        c["T"], c["D"]).astype(np.float32)
+    router = np.zeros((c["D"], c["E"]), np.float32)  # all to expert 0
+    we = np.stack([np.eye(c["D"], dtype=np.float32)] * c["E"])
+    return tokens, router, we
+
+
+def moe_hvd_inputs(n: int):
+    c = MOE_HVD
+    rng = np.random.RandomState(c["seed"])
+    router = rng.randn(c["D"], c["E"]).astype(np.float32)
+    w = (rng.randn(c["E"], c["D"], c["D"]) * 0.5).astype(np.float32)
+    toks = [rng.randn(c["T"], c["D"]).astype(np.float32) for _ in range(n)]
+    return router, w, toks
 
 
 ZERO_SHAPES = ((33, 20), (20,), (513,), (8, 64), (7,))
@@ -474,9 +526,193 @@ def run_average(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
     cfg.sched_mode = "monolithic"
 
 
+def run_hier(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
+    """The two tiers at np=4 as 2 x 2 (the knobs of :data:`HIER_ENV`):
+    each case flat (monolithic and ``rs_ag``) and through ``hier:2:2``;
+    the monolithic route, single, fused and grouped; the flat fallbacks;
+    the compiled request; the gauges; the standalone entries."""
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import hierarchical as H
+    from horovod_tpu_torch.ops.sched import compiled as CP
+    from horovod_tpu_torch.ops.sched import executor as SE
+    from horovod_tpu_torch.parallel import MeshConfig, build_mesh
+    cfg = hvd.global_state().config
+    info["split"] = C._hier_split(None)
+    groups = hvd.global_state().tier_groups[(2, 2)]
+    info["local_ranks"] = dist.get_process_group_ranks(groups["hvd_local"][0])
+    info["cross_ranks"] = dist.get_process_group_ranks(groups["hvd_cross"][0])
+    routes = {"n": 0}
+    real = H.hierarchical_allreduce_
+
+    def counting(*a, **kw):
+        routes["n"] += 1
+        return real(*a, **kw)
+
+    H.hierarchical_allreduce_ = counting
+    hier = SE._m_sched.labels(schedule="hier:2:2")
+    cfg.sched_chunks = HIER_CHUNKS
+    for tag, mode, op, numel, cross in HIER_CASES:
+        x = _t(rows(tag, me, numel))
+        cfg.hierarchical_cross_precision = cross
+        cfg.hierarchical_allreduce = False
+        for sm, key in (("monolithic", "flat"), ("decomposed", "rs_ag")):
+            cfg.sched_mode = sm
+            arrays[f"{tag}.{key}"] = _np(hvd.allreduce(
+                x, _op(hvd, op), compression=mode, name=f"{tag}.{key}"))
+        cfg.hierarchical_allreduce = True
+        before = hier.value
+        arrays[f"{tag}.hier"] = _np(hvd.allreduce(
+            x, _op(hvd, op), compression=mode, name=f"{tag}.hier"))
+        info[f"{tag}.hier_dispatches"] = hier.value - before
+    cfg.hierarchical_cross_precision = ""
+    x = _t(rows("scaled", me, HIER_NUMEL))
+    arrays["scaled.hier"] = _np(hvd.allreduce(
+        x, hvd.Sum, prescale_factor=0.5, postscale_factor=2.0,
+        name="scaled.hier"))
+    cfg.hierarchical_allreduce = False
+    cfg.sched_mode = "monolithic"
+    arrays["scaled.flat"] = _np(hvd.allreduce(
+        x, hvd.Sum, prescale_factor=0.5, postscale_factor=2.0,
+        name="scaled.flat"))
+
+    # the monolithic two-tier route: single, fused in one cycle, grouped
+    eng = hvd.global_state().engine
+    x = _t(rows("mono", me, HIER_NUMEL))
+    for flag in (False, True):
+        cfg.hierarchical_allreduce = flag
+        key = "tiers" if flag else "flat"
+        r0 = routes["n"]
+        for op in ("average", "sum"):
+            arrays[f"mono.{op}.{key}"] = _np(hvd.allreduce(
+                x, _op(hvd, op), name=f"mono.{op}.{key}"))
+        eng.pause()
+        hs = [hvd.allreduce_async(_t(rows(f"fused.{i}", me, HIER_FUSED[1])),
+                                  hvd.Average, name=f"fused.{key}.{i}")
+              for i in range(HIER_FUSED[0])]
+        eng.resume()
+        for i, h in enumerate(hs):
+            arrays[f"fused.{key}.{i}"] = _np(hvd.synchronize(h))
+        outs = hvd.grouped_allreduce([x, 2 * x], hvd.Sum,
+                                     name=f"grouped.{key}")
+        for i, o in enumerate(outs):
+            arrays[f"grouped.{key}.{i}"] = _np(o)
+        info[f"mono_routes.{key}"] = routes["n"] - r0
+    # an integer AVERAGE keeps the flat path (floor division)
+    r0 = routes["n"]
+    arrays["int.average"] = _np(hvd.allreduce(
+        torch.full((3,), me, dtype=torch.int32), hvd.Average, name="int"))
+    info["int_routes"] = routes["n"] - r0
+    # invalid splits fall back to flat
+    for ls in (3, 1, 4):
+        cfg.hierarchical_local_size = ls
+        r0 = routes["n"]
+        info[f"invalid{ls}.split"] = C._hier_split(None)
+        arrays[f"invalid{ls}"] = _np(hvd.allreduce(x, hvd.Average,
+                                                   name=f"invalid{ls}"))
+        info[f"invalid{ls}.routes"] = routes["n"] - r0
+    cfg.hierarchical_local_size = 2
+    ps = hvd.add_process_set([0, 2])
+    r0 = routes["n"]
+    if me in (0, 2):
+        arrays["ps"] = _np(hvd.allreduce(x, hvd.Average, name="ps",
+                                         process_set=ps))
+    info["ps_routes"] = routes["n"] - r0
+    # a compiled request under the split runs the dispatched hier: walk
+    cfg.sched_mode = "compiled"
+    before = (hier.value, CP._m_compiled.total())
+    arrays["compiled"] = _np(hvd.allreduce(
+        _t(rows("compiled", me, 5000)), hvd.Average, name="compiled"))
+    info["compiled.hier_dispatches"] = hier.value - before[0]
+    info["compiled.compiled_dispatches"] = \
+        CP._m_compiled.total() - before[1]
+    cfg.sched_mode = "monolithic"
+    info["prometheus"] = hvd.metrics("prometheus")
+    H.hierarchical_allreduce_ = real
+
+    # the standalone entries over a 2-D mesh of the reference's axes
+    mesh = build_mesh(MeshConfig(dp=2, tp=2))
+    y = _t(rows("standalone", me, 1001))
+    arrays["standalone.sum"] = _np(H.hierarchical_allreduce(
+        y, mesh, local_axis="tp", cross_axis="dp"))
+    arrays["standalone.average"] = _np(H.hierarchical_allreduce(
+        y, mesh, local_axis="tp", cross_axis="dp", average=True))
+    g = {a: (mesh.get_group(a), 2) for a in ("tp", "dp")}
+    arrays["allgather"] = _np(H.hierarchical_allgather_local(
+        _t(rows("allgather", me, 6)).reshape(2, 3), g, local_axis="tp",
+        cross_axis="dp"))
+
+
+def run_parallel(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
+    """The mesh and the MoE layers at world size n: ``moe_layer`` at
+    ep = n on the oracle's case and on the capacity-drop case,
+    ``moe_layer_hvd`` on the capacity oracle's case."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.parallel import MeshConfig, build_mesh, moe
+    mesh = build_mesh(MeshConfig(ep=n))
+    info["ep_ranks"] = dist.get_process_group_ranks(mesh.get_group("ep"))
+    info["mesh_shape"] = list(mesh.mesh.shape)
+    info["mesh_names"] = list(mesh.mesh_dim_names)
+    auto = build_mesh(MeshConfig.auto(n))
+    info["auto_tp_ranks"] = dist.get_process_group_ranks(
+        auto.get_group("tp"))
+    try:
+        build_mesh(MeshConfig(dp=3))
+    except ValueError as e:
+        info["wrong_count"] = str(e)
+
+    def expert(w, x):
+        return x @ w
+
+    for tag, (tokens, router, we), cf in (
+            ("ep", moe_ep_inputs(), float(MOE_EP["E"])),
+            ("drop", moe_drop_inputs(), MOE_DROP["cf"])):
+        t_loc, e_loc = tokens.shape[0] // n, we.shape[0] // n
+        fam = moe._m_dropped.labels(layer=f"t_{tag}")
+        before = fam.value
+        out, aux = moe.moe_layer(
+            _t(tokens[me * t_loc:(me + 1) * t_loc]), _t(router), expert,
+            _t(we[me * e_loc:(me + 1) * e_loc]), mesh, capacity_factor=cf,
+            layer=f"t_{tag}")
+        arrays[f"moe.{tag}"] = _np(out)
+        info[f"moe.{tag}.aux"] = float(aux)
+        info[f"moe.{tag}.drops"] = fam.value - before
+
+    router, w, toks = moe_hvd_inputs(n)
+    e_loc = MOE_HVD["E"] // n
+    fam = moe._m_dropped.labels(layer="t_hvd")
+    before = fam.value
+    out, aux, dropped = moe.moe_layer_hvd(
+        _t(toks[me]), _t(router), expert,
+        _t(w[me * e_loc:(me + 1) * e_loc]), capacity_factor=MOE_HVD["cf"],
+        layer="t_hvd")
+    arrays["hvd"] = _np(out)
+    info.update({"hvd.aux": aux, "hvd.dropped": dropped,
+                 "hvd.counted": fam.value - before})
+
+
+def run_chaos_moe(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
+    """The chaos harness's expert-parallel layer, step by step, on the
+    inputs its worker draws."""
+    from horovod_tpu_torch.chaos import run as chaos_run
+    from horovod_tpu_torch.parallel import moe
+    fam = moe._m_dropped.labels(layer="chaos")
+    for step in range(CHAOS_STEPS):
+        before = fam.value
+        out, aux, dropped = chaos_run.moe_layer(
+            *chaos_run.moe_inputs(me, n, step))
+        arrays[f"step{step}"] = _np(out)
+        info[f"step{step}"] = {"aux": aux, "dropped": dropped,
+                               "counted": fam.value - before}
+
+
 BATTERIES = {"reduction": run_reduction, "sched": run_sched,
              "zero": run_zero, "compiled": run_compiled,
-             "average": run_average}
+             "average": run_average, "hier": run_hier,
+             "parallel": run_parallel, "chaos_moe": run_chaos_moe}
 
 
 def main(mode: str, outdir: str) -> int:
@@ -488,7 +724,7 @@ def main(mode: str, outdir: str) -> int:
     arrays: dict = {}
     info: dict = {"jax_loaded": any(
         m == "jax" or m.startswith(("jax.", "jaxlib"))
-        or m.split(".")[0] == "horovod_tpu" for m in sys.modules)}
+        or m.split(".")[0] == "horovod_tpu" for m in list(sys.modules))}
     BATTERIES[mode](hvd, me, n, arrays, info)
     np.savez(os.path.join(outdir, f"{mode}.rank{me}.npz"), **arrays)
     with open(os.path.join(outdir, f"{mode}.rank{me}.json"), "w") as f:

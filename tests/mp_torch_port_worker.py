@@ -636,7 +636,7 @@ def main(mode: str, outdir: str) -> int:
     arrays: dict = {}
     info: dict = {"jax_loaded": any(
         m == "jax" or m.startswith(("jax.", "jaxlib"))
-        or m.split(".")[0] == "horovod_tpu" for m in sys.modules)}
+        or m.split(".")[0] == "horovod_tpu" for m in list(sys.modules))}
     fn = BATTERIES[mode]
     if mode in ("optimizer", "obs", "plane"):
         fn(hvd, me, arrays, info, outdir)

@@ -125,3 +125,48 @@ def test_serving_rejoins_after_an_injected_collective_failure(monkeypatch):
     finally:
         chaos.disarm()
         hvd.shutdown()
+
+
+def test_moe_worker_layer_equals_the_references_at_np2(tmp_path):
+    """The expert-parallel worker's layer (the ported ``moe_layer_hvd``,
+    ``tanh(x @ w)`` experts, capacity factor 1.25, drops counted under
+    ``layer="chaos"``) at np=2, step by step on the worker's inputs,
+    against the JAX package's ``moe_layer_hvd`` driving the same two
+    ranks' tokens in this process (its runtime re-initialized over two
+    CPU devices): outputs within 1e-5, dropped rows exactly 0 in both,
+    the aux within 1e-5 and the drops equal."""
+    import jax
+    import jax.numpy as jnp
+
+    import horovod_tpu as jhvd
+    import mp_torch_dataplane_worker as DW
+    from horovod_tpu.parallel.moe import moe_layer_hvd
+
+    DW.check_ranks(DW.launch("chaos_moe", str(tmp_path), 2))
+    ranks = DW.load("chaos_moe", tmp_path, 2)
+    jhvd.shutdown()
+    jhvd.init(devices=jax.devices()[:2])
+    try:
+        for step in range(DW.CHAOS_STEPS):
+            ins = [chaos_run.moe_inputs(r, 2, step) for r in range(2)]
+            outs, aux, dropped = moe_layer_hvd(
+                [t.numpy() for t, _, _ in ins], ins[0][1].numpy(),
+                lambda w, x: jnp.tanh(x @ w),
+                [jnp.asarray(e.numpy()) for _, _, e in ins],
+                capacity_factor=1.25, layer="chaos")
+            got_drops = 0
+            for r, (arrays, info) in enumerate(ranks):
+                got, want = arrays[f"step{step}"], np.asarray(outs[r])
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+                np.testing.assert_array_equal((got == 0).all(axis=1),
+                                              (want == 0).all(axis=1))
+                got_drops += info[f"step{step}"]["dropped"]
+                assert info[f"step{step}"]["counted"] == \
+                    info[f"step{step}"]["dropped"]
+            assert got_drops == dropped
+            np.testing.assert_allclose(
+                np.mean([info[f"step{step}"]["aux"] for _, info in ranks]),
+                aux, rtol=1e-5)
+    finally:
+        jhvd.shutdown()
+        jhvd.init()

@@ -20,7 +20,7 @@ under the port's launcher (``tests/mp_torch_dataplane_worker.py``, mode
 - ``hvd_sched_compiled_dispatches_total`` counts each dispatch.
 
 In this process: ``resolve_schedule``'s grammar and gates against the
-reference's, the meta, and the hierarchical family still refused.
+reference's and the meta (the hierarchical family: ``test_torch_hierarchical.py``).
 """
 
 from __future__ import annotations

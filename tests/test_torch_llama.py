@@ -69,9 +69,15 @@ def test_configs_match_jax():
         assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
 
 
-@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_params_from_jax_round_trips_every_leaf(dtype):
-    jcfg = jllama.LlamaConfig.tiny(dtype=dtype)
+@pytest.mark.parametrize("dtype,moe", [(jnp.float32, False),
+                                       (jnp.bfloat16, False),
+                                       (jnp.float32, True),
+                                       (jnp.bfloat16, True)])
+def test_params_from_jax_round_trips_every_leaf(dtype, moe):
+    """Every leaf moves across with its shape, dtype and values; the MoE
+    tree (fp32 router, ``[L, E, ...]`` expert stacks) needs nothing
+    more."""
+    jcfg = jllama.LlamaConfig.tiny(dtype=dtype, use_moe=moe, n_experts=4)
     jp = jllama.init_params(jcfg, jax.random.PRNGKey(0))
     tp = tllama.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     jleaves = jax.tree_util.tree_leaves_with_path(jp)
@@ -85,13 +91,16 @@ def test_params_from_jax_round_trips_every_leaf(dtype):
             err_msg=str(path))
 
 
-def test_init_params_layout_matches_jax():
-    tcfg = tllama.LlamaConfig.tiny(dtype=torch.bfloat16)
+@pytest.mark.parametrize("moe", [False, True])
+def test_init_params_layout_matches_jax(moe):
+    tcfg = tllama.LlamaConfig.tiny(dtype=torch.bfloat16, use_moe=moe,
+                                   n_experts=4)
     g = torch.Generator()
     g.manual_seed(0)
     tp = tllama.init_params(tcfg, g, device="cpu")
     jp = jax.eval_shape(lambda: jllama.init_params(
-        jllama.LlamaConfig.tiny(dtype=jnp.bfloat16), jax.random.PRNGKey(0)))
+        jllama.LlamaConfig.tiny(dtype=jnp.bfloat16, use_moe=moe,
+                                n_experts=4), jax.random.PRNGKey(0)))
     jleaves = jax.tree_util.tree_leaves_with_path(jp)
     tleaves = jax.tree_util.tree_leaves_with_path(tp)
     assert [k for k, _ in jleaves] == [k for k, _ in tleaves]
@@ -100,6 +109,9 @@ def test_init_params_layout_matches_jax():
         assert str(t.dtype).split(".")[-1] == j.dtype.name, path
     w = tp["layers"]["w_down"].float()
     assert abs(w.std().item() * np.sqrt(tcfg.d_ff) - 1) < 0.1
+    if moe:         # the router: a bf16-rounded draw kept in fp32
+        r = tp["layers"]["router"]
+        assert torch.equal(r, r.to(torch.bfloat16).float())
 
 
 def test_rope_and_rmsnorm_match_jax():
@@ -311,10 +323,106 @@ def test_engine_rejects_interpret_mode(models):
 
 
 def test_moe_and_mesh_wait_for_later_slices(models):
+    """The name is kept from when MoE configs were refused everywhere:
+    they train now, and the serving steps refuse them with the JAX
+    package's serving message; ``mesh=`` still waits."""
     _, _, tcfg, tparams = models
     g = torch.Generator()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tllama.init_params(tllama.LlamaConfig.tiny(use_moe=True), g, "cpu")
+    mcfg = tllama.LlamaConfig.tiny(use_moe=True, n_experts=4)
+    mparams = tllama.init_params(mcfg, g, "cpu")
+    assert mparams["layers"]["router"].dtype == torch.float32
+    tok = torch.zeros(1, 3, dtype=torch.int32)
+    with pytest.raises(NotImplementedError,
+                       match="serving does not support MoE configs"):
+        tllama.prefill_step(mparams, tok, mcfg)
     with pytest.raises(NotImplementedError, match="mesh"):
         tllama.prefill_step(tparams, torch.zeros(1, 3, dtype=torch.int32),
                             tcfg, mesh=object())
+
+
+# ---------------------------------------------------------------------------
+# the MoE Llama (one expert group)
+# ---------------------------------------------------------------------------
+
+MOE = dict(use_moe=True, n_experts=4)
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    jcfg = jllama.LlamaConfig.tiny(**MOE)
+    tcfg = tllama.LlamaConfig.tiny(**MOE)
+    p = jax.tree.map(np.asarray, jllama.init_params(jcfg,
+                                                    jax.random.PRNGKey(3)))
+    return jcfg, jax.tree.map(jnp.asarray, p), tcfg, \
+        tllama.params_from_jax(p, device="cpu")
+
+
+def _normwise(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1e-30, np.abs(want).max()))
+
+
+def test_moe_config_defaults_match_jax():
+    j, t = jllama.LlamaConfig(), tllama.LlamaConfig()
+    assert (t.capacity_factor, t.moe_aux_weight, t.n_experts) == \
+        (j.capacity_factor, j.moe_aux_weight, j.n_experts)
+
+
+def test_moe_forward_logits_and_aux_match_jax(moe_models):
+    """fp32 logits within 1e-5 of the largest (normwise) and the aux loss
+    (summed over layers) within 1e-5 relative."""
+    jcfg, jparams, tcfg, tparams = moe_models
+    tokens = np.random.RandomState(4).randint(0, 256, (2, 40)).astype(
+        np.int32)
+    jl, ja = jllama.forward(jparams, jnp.asarray(tokens), jcfg)
+    with torch.no_grad():
+        tl, ta = tllama.forward(tparams, torch.from_numpy(tokens), tcfg)
+    assert _normwise(tl.numpy(), jl) <= 1e-5
+    np.testing.assert_allclose(ta.item(), float(ja), rtol=1e-5)
+    assert ta.item() > 0
+
+
+def test_moe_mlp_matches_jax_and_drops(moe_models):
+    """One layer's ``_moe_mlp`` on the same normed tokens: outputs within
+    1e-5 normwise, aux within 1e-5, and a capacity factor small enough to
+    drop tokens zeroes exactly the JAX package's dropped rows."""
+    import dataclasses
+    jcfg, jparams, tcfg, tparams = moe_models
+    x = np.random.RandomState(5).randn(2, 24, 64).astype(np.float32)
+    for cf in (1.25, 0.5):
+        jc = dataclasses.replace(jcfg, capacity_factor=cf)
+        tc = dataclasses.replace(tcfg, capacity_factor=cf)
+        jlp = jax.tree.map(lambda a: a[0], jparams["layers"])
+        jo, ja = jllama._moe_mlp(jnp.asarray(x), jlp, jc, None)
+        with torch.no_grad():
+            to, ta = tllama._moe_mlp(torch.from_numpy(x),
+                                     tllama._layer(tparams["layers"], 0), tc)
+        assert _normwise(to.numpy(), jo) <= 1e-5
+        np.testing.assert_allclose(ta.item(), float(ja), rtol=1e-5)
+        jz = np.all(np.asarray(jo) == 0, axis=-1)
+        np.testing.assert_array_equal(np.all(to.numpy() == 0, axis=-1), jz)
+        if cf < 1:
+            assert jz.sum() > 0
+
+
+def test_moe_refusals_keep_the_reference_messages(moe_models):
+    from horovod_tpu_torch.serving import ServingEngine
+    _, _, tcfg, tparams = moe_models
+    tok = torch.zeros(2, dtype=torch.int32)
+    pool = torch.zeros(2, 4, 4, 2, 16)
+    tables = torch.zeros(2, 2, dtype=torch.int32)
+    msg = "serving does not support MoE configs"
+    with pytest.raises(NotImplementedError,
+                       match="generate does not support MoE configs"):
+        tllama.generate(tparams, tok[:, None], tcfg, max_new_tokens=2)
+    with pytest.raises(NotImplementedError, match=msg):
+        tllama.decode_step_paged(tparams, tok, tok, pool, pool.clone(),
+                                 tables, tcfg)
+    with pytest.raises(NotImplementedError, match=msg):
+        tllama.extend_step_paged(tparams, tok[:, None], tok[:, None],
+                                 tok[:, None] == 0, pool, pool.clone(),
+                                 tables, tcfg)
+    with pytest.raises(NotImplementedError, match=msg):
+        ServingEngine(tparams, tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tllama.forward(tparams, tok[:, None], tcfg, mesh=object())

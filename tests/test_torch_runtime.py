@@ -113,6 +113,8 @@ def test_config_yaml_unknown_key(tmp_path):
             mod.from_yaml(str(p))
 
 
+# Knobs refused until the hierarchical allreduce was ported; accepted at
+# init now, and inert at one rank (no tier has two ranks).
 _NOT_PORTED = {
     "hierarchical_allreduce": True, "hierarchical_allgather": True,
     "hierarchical_local_size": 4, "hierarchical_cross_precision": "int8"}
@@ -133,8 +135,13 @@ _OBS_KNOBS = {"autotune": (True, "engine"),
 
 
 def test_not_ported_table_is_complete():
-    assert set(_NOT_PORTED) == set(port_config._NOT_PORTED)
-    assert not set(_OBS_KNOBS) & set(port_config._NOT_PORTED)
+    """Every knob of the JAX package is ported: the refusal table is
+    empty, and check_ported accepts each knob of the last slice."""
+    assert port_config._NOT_PORTED == {}
+    for knob, value in {**_NOT_PORTED, **_OBS_KNOBS}.items():
+        if isinstance(value, tuple):
+            value = value[0]
+        port_config.check_ported(port_config.Config(**{knob: value}))
 
 
 @pytest.mark.parametrize("knob", sorted(_OBS_KNOBS))
@@ -187,29 +194,25 @@ def test_dataplane_knob_is_accepted_at_init(monkeypatch, knob):
 
 @pytest.mark.parametrize("knob", sorted({**_NOT_PORTED, **_LATER_PORTED}))
 def test_unported_knob_raises_at_init(monkeypatch, knob):
-    """The hierarchical knobs still raise, naming 'Hierarchy'; the knobs
-    of the features ported since are accepted (inert at one rank: an
-    allreduce comes back whole and no compiled schedule runs)."""
+    """The name is kept from when these knobs raised: each is accepted
+    now, and inert at one rank (an allreduce comes back whole, no compiled
+    or tiered schedule runs, no tier group is made)."""
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch.ops.sched import compiled
+    from horovod_tpu_torch.ops.sched import compiled, executor
     for k in list(os.environ):
         if k.startswith(("HVDTPU_", "HOROVOD_")):
             monkeypatch.delenv(k)
     value = {**_NOT_PORTED, **_LATER_PORTED}[knob]
     cfg = port_config.Config(platform="cpu", **{knob: value})
-    if knob in _NOT_PORTED:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP section A 'Hierarchy'"):
-            hvd.init(config=cfg)
-        assert not hvd.is_initialized()
-        return
     hvd.init(config=cfg)
     try:
         assert getattr(hvd.global_state().config, knob) == value
-        before = compiled._m_compiled.total()
+        before = (compiled._m_compiled.total(), executor._m_sched.total())
         x = torch.arange(70000, dtype=torch.float32)
         assert torch.equal(hvd.allreduce(x, name="k"), x)
-        assert compiled._m_compiled.total() == before
+        assert (compiled._m_compiled.total(),
+                executor._m_sched.total()) == before
+        assert hvd.global_state().tier_groups == {}
     finally:
         hvd.shutdown()
 
@@ -220,7 +223,10 @@ def test_not_ported_items_name_roadmap_titles():
     import re
     with open(os.path.join(REPO, "ROADMAP.md")) as fh:
         titles = set(re.findall(r"^\d+\. \*\*(.+?)\*\*", fh.read(), re.M))
-    for field, item in port_config._NOT_PORTED.items():
+    from horovod_tpu_torch.runner import launch
+    items = dict(port_config._NOT_PORTED,
+                 tpu_pod=launch._TPU_POD_ITEM.split("section A ")[1])
+    for field, item in items.items():
         assert item.startswith("'") and item.endswith("'"), (field, item)
         assert item[1:-1] in titles, (field, item, sorted(titles))
 

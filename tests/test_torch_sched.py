@@ -21,7 +21,7 @@ the reference test's bound.
 In this process: the copied IR and lowering against the reference's
 (signatures, chunk layouts, the executor's unit order against
 ``interleaved_order``), ``resolve_schedule``'s decisions on a grid, the
-refusal of the hierarchical family, the negotiation meta
+resolution of the compiled and hierarchical families, the negotiation meta
 (``wp``, ``sc``), fusion keys, meta adoption and a joined rank's zero
 entry.
 """
@@ -268,9 +268,12 @@ def test_resolve_schedule_decides_as_the_reference():
 
 @pytest.mark.parametrize("req", ["compiled", "compiled:rs_ag:2", "hier:2:2"])
 def test_compiled_and_hierarchical_schedules_are_refused(req):
-    """The compiled family resolves and runs now
-    (``tests/test_torch_compiled.py``); the hierarchical family is still
-    refused, naming its ROADMAP item."""
+    """The name is kept from when these families were refused: both
+    resolve now (``tests/test_torch_compiled.py``,
+    ``tests/test_torch_hierarchical.py``).  ``hier:2:2`` passes through at
+    4 ranks, degrades to the flat descriptor where 2 is not a valid tier
+    size, as the reference's; the executor refuses a tiered walk over a
+    process set; a cast wire is refused by every family."""
     cfg = port_config.Config()
     if req.startswith("compiled"):
         assert tsched.resolve_schedule(
@@ -278,15 +281,20 @@ def test_compiled_and_hierarchical_schedules_are_refused(req):
             4, "fp32") == "compiled:rs_ag:" + (req.split(":")[-1]
                                                if ":" in req else "4")
     else:
-        with pytest.raises(NotImplementedError, match="'Hierarchy'"):
-            tsched.resolve_schedule(req, "allreduce", TC.ReduceOp.SUM,
-                                    torch.float32, 1 << 20, cfg, 4, "fp32")
-        with pytest.raises(NotImplementedError, match="Hierarchy"):
+        for n, want in ((4, "hier:2:2"), (2, "rs_ag:2"), (3, "rs_ag:2")):
+            got = tsched.resolve_schedule(req, "allreduce", TC.ReduceOp.SUM,
+                                          torch.float32, 1 << 20, cfg, n,
+                                          "fp32")
+            assert got == want == jsched.resolve_schedule(
+                req, "allreduce", JC.ReduceOp.SUM, jnp.float32, 1 << 20,
+                ref_config.Config(), n, "fp32"), (n, got)
+        with pytest.raises(ValueError, match="global process set"):
             TSE.execute_allreduce([torch.zeros(8)], TC.ReduceOp.SUM,
-                                  descriptor=req, group=None, n=2)
+                                  descriptor=req, group=object(), n=4)
     with pytest.raises(ValueError, match="cast wire"):
         TSE.execute_allreduce([torch.zeros(8)], TC.ReduceOp.SUM,
-                              descriptor="rs_ag:2", group=None, n=2,
+                              descriptor=req if req != "compiled"
+                              else "rs_ag:2", group=None, n=2,
                               precision="bf16")
 
 

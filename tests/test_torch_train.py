@@ -214,9 +214,11 @@ def test_attention_hook_is_off_and_routes_through_flash(setup, monkeypatch):
 
 @pytest.mark.parametrize("edit,kw", [
     ({}, {"mesh": object()}),
-    ({"use_moe": True}, {}),
+    ({"use_moe": True}, {"mesh": object()}),
 ])
 def test_unported_training_options_raise(setup, edit, kw):
+    """``mesh=`` is refused, for dense and MoE configs alike (MoE itself
+    trains now: the tests below)."""
     _, tcfg, _, np_params, tokens = setup
     cfg = dataclasses.replace(tcfg, **edit)
     params = _torch_params(np_params)
@@ -321,3 +323,101 @@ def test_dots_on_a_torch_without_selective_checkpointing(setup, monkeypatch):
     with pytest.raises(ValueError, match="remat"):
         tllama.make_train_step(dataclasses.replace(tcfg, remat="all"),
                                torch.optim.Adam(tllama.trainable(params)))
+
+
+# ---------------------------------------------------------------------------
+# the MoE Llama: loss (weighted aux), one Adam step, recompute variants
+# ---------------------------------------------------------------------------
+
+MOE = dict(use_moe=True, n_experts=4, moe_aux_weight=0.5)
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    jcfg = jllama.LlamaConfig.tiny(**MOE)
+    tcfg = tllama.LlamaConfig.tiny(**MOE)
+    mesh = build_mesh(MeshConfig(dp=1), devices=jax.devices()[:1])
+    np_params = jax.tree.map(np.asarray,
+                             jllama.init_params(jcfg, jax.random.PRNGKey(1)))
+    tokens = np.random.RandomState(1).randint(
+        0, 256, size=(2, 49)).astype(np.int32)
+    return jcfg, tcfg, mesh, np_params, tokens
+
+
+@pytest.mark.parametrize("blockwise", [False, True])
+def test_moe_loss_and_grads_match_jax(moe_setup, blockwise):
+    """The loss with its aux term weighted by ``moe_aux_weight=0.5`` within
+    1e-5 relative of the JAX package's (an unweighted or a missing aux
+    term moves it by far more), dense and blockwise; every gradient leaf,
+    the router's included, within the dense test's tolerance."""
+    jcfg, tcfg, mesh, np_params, tokens = moe_setup
+    jcfg = dataclasses.replace(jcfg, blockwise_ce=blockwise)
+    tcfg = dataclasses.replace(tcfg, blockwise_ce=blockwise)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jllama.loss_fn(p, {"tokens": jnp.asarray(tokens)}, jcfg,
+                                 mesh=mesh)))(
+            jax.tree.map(jnp.asarray, np_params))
+    _, jaux = jllama.forward(jax.tree.map(jnp.asarray, np_params),
+                             jnp.asarray(tokens[:, :-1]), jcfg)
+    tloss, tgrads = _torch_loss_and_grads(tcfg, np_params, tokens)
+    np.testing.assert_allclose(tloss, float(jloss), rtol=1e-5)
+    assert abs(0.5 * float(jaux)) > 1e3 * 1e-5 * abs(float(jloss))
+    jf, tf = _flat(jax.device_get(jgrads)), _flat(tgrads)
+    assert jf.keys() == tf.keys()
+    assert "['layers']['router']" in jf
+    for key in jf:
+        np.testing.assert_allclose(tf[key], jf[key], rtol=2e-3, atol=2e-4,
+                                   err_msg=key)
+
+
+def test_moe_adam_step_matches_optax(moe_setup):
+    """One ``make_train_step`` step with ``torch.optim.Adam`` against the
+    JAX step with ``optax.adam``: the loss within 1e-5 relative and every
+    parameter within 1e-5 of its own largest magnitude, apart from
+    weights whose gradient is within rounding of 0 (Adam's first step
+    moves a weight by about lr * sign(g)): at most 1e-4 of them, each
+    within 2 * lr."""
+    jcfg, tcfg, mesh, np_params, tokens = moe_setup
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    tx = optax.adam(LR)
+    jparams, _, jloss = jllama.make_train_step(jcfg, mesh, tx)(
+        jparams, tx.init(jparams), {"tokens": jnp.asarray(tokens)})
+    params = _torch_params(np_params)
+    opt = torch.optim.Adam(tllama.trainable(params), lr=LR, eps=1e-8)
+    tloss = tllama.make_train_step(tcfg, opt)(
+        params, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-5)
+    jf = _flat(jax.device_get(jparams))
+    tf = _flat(jax.tree.map(lambda t: t.detach().numpy(), params))
+    assert jf.keys() == tf.keys()
+    n_far = 0
+    for key in jf:
+        diff = np.abs(tf[key] - jf[key])
+        assert diff.max() <= 2 * LR, (key, diff.max())
+        n_far += int((diff > 1e-5 * np.abs(jf[key]).max()).sum())
+    assert n_far <= 1e-4 * sum(v.size for v in jf.values()), n_far
+
+
+def test_moe_recompute_variants_give_the_same_loss(moe_setup):
+    """remat True, False and "dots" compute the same loss and gradients:
+    the layer's (h, aux) pair goes through torch.utils.checkpoint."""
+    _, tcfg, _, np_params, tokens = moe_setup
+    off = _torch_loss_and_grads(dataclasses.replace(tcfg, remat=False),
+                                np_params, tokens)
+    for remat in (True, "dots"):
+        on = _torch_loss_and_grads(dataclasses.replace(tcfg, remat=remat),
+                                   np_params, tokens)
+        assert on[0] == off[0], remat
+        for key, a in _flat(off[1]).items():
+            np.testing.assert_array_equal(_flat(on[1])[key], a,
+                                          err_msg=f"{remat} {key}")
+
+
+def test_moe_trainable_takes_router_and_experts(moe_setup):
+    _, tcfg, _, np_params, _ = moe_setup
+    params = _torch_params(np_params)
+    named = tllama.named_trainable(params)
+    assert len(named) == 10 * tcfg.n_layers + 3
+    names = dict(named)
+    assert names["layers.router.1"].shape == (64, 4)
+    assert names["layers.w_gate.0"].shape == (4, 64, 128)
