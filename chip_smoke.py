@@ -216,7 +216,19 @@ by phase, printing one JSON line per phase:
    16 MB allreduce and the 7B gradient set (291 tensors, fused as the DP
    step fuses them) come back bitwise whole and no tiered dispatch or
    two-tier route runs; ``build_mesh`` gives a ``DeviceMesh`` on the card
-   with every axis of size 1.
+   with every axis of size 1;
+18. ``train_mesh``  train's model, seed and batch through the mesh path
+   at one rank: ``hvd.init()`` (NCCL on cuda:0), ``build_mesh(MeshConfig())``
+   (every axis of size 1, on ``cuda``), ``init_params(..., mesh=)``
+   (bitwise equal to the unsharded ``init_params`` at train's seed, leaf
+   by leaf), fused Adam at train's lr and ``make_train_step(mesh=)``: one
+   warm-up and three timed steps with every ``torch.distributed``
+   collective and point-to-point call wrapped and counted (none may run),
+   every kernel counter zeroed just before and read just after (train's
+   64/32/32 flash launches a step, ``paged_decode`` never), the first
+   loss bitwise equal to train's and the later ones within
+   ``DP_LOSS_REL`` (whether they are bitwise too is printed); step ms,
+   tokens/s, MFU and peak memory beside train's.
 
 Then a ``total`` line (the script's wall seconds), a ``kernels`` line,
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -225,10 +237,10 @@ CUDA device, or without the port's package beside the script, it exits
 2.  ``--phases`` runs a subset
 (``device,build,kernel,serve,frontdoor,replicas,train,train_variants,
 train_dp,train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity,
-train_moe,hier``; ``frontdoor``, ``replicas``, ``elastic`` and
+train_moe,hier,train_mesh``; ``frontdoor``, ``replicas``, ``elastic`` and
 ``train_moe`` need ``build``;
 ``train_variants``,
-``train_dp`` and ``hvdrun_obs`` need
+``train_dp``, ``hvdrun_obs`` and ``train_mesh`` need
 ``train``, ``hvdrun`` and ``train_zero`` need ``train`` and
 ``train_dp``); ``--root DIR`` drives
 the package of another checkout (an unpacked parent commit, say) with
@@ -251,7 +263,7 @@ BF16_FLOPS = 989e12
 PHASES = ("device", "build", "kernel", "serve", "frontdoor", "replicas",
           "train", "train_variants", "train_dp", "train_zero", "dataplane",
           "hvdrun", "hvdrun_obs", "elastic", "train_parity", "train_moe",
-          "hier")
+          "hier", "train_mesh")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -3918,6 +3930,126 @@ def phase_hier(torch, smi: str) -> None:
         _free_cuda(torch)
 
 
+# Every collective and point-to-point call of torch.distributed: the
+# train_mesh phase counts them while its steps run (none may).
+DIST_CALLS = ("all_reduce", "all_gather", "all_gather_into_tensor",
+              "reduce_scatter", "reduce_scatter_tensor", "all_to_all",
+              "all_to_all_single", "broadcast", "reduce", "gather",
+              "scatter", "barrier", "batch_isend_irecv", "isend", "irecv",
+              "send", "recv", "all_gather_object", "broadcast_object_list")
+
+
+def phase_train_mesh(torch, smi: str, trained: dict, steps: int = 3) -> dict:
+    """train's step through the mesh path at one rank: the same weights
+    (``init_params(mesh=)`` against the unsharded draw), the same losses,
+    no collective, the same kernels."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import AXES, MeshConfig, build_mesh
+
+    _free_cuda(torch)
+    hvd.init()
+    real = {n: getattr(dist, n) for n in DIST_CALLS if hasattr(dist, n)}
+    try:
+        mesh = build_mesh(MeshConfig())
+        cfg = llama.LlamaConfig.llama2_7b()            # bf16, remat=True
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        params = llama.init_params(cfg, gen, "cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen.manual_seed(0)
+        plain = llama.init_params(cfg, gen, "cuda")
+        unequal = [k for k in plain["layers"] if not torch.equal(
+            plain["layers"][k], params["layers"][k])]
+        unequal += [k for k in ("embed", "final_norm", "lm_head")
+                    if not torch.equal(plain[k], params[k])]
+        del plain
+        _free_cuda(torch)
+        opt = torch.optim.Adam(llama.trainable(params), lr=TRAIN_LR,
+                               fused=True)
+        step = llama.make_train_step(cfg, opt, mesh=mesh)
+        tokens = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(1, TRAIN_S + 1))
+        batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+        calls: dict = {}
+
+        def counting(name):
+            def call(*a, **kw):
+                calls[name] = calls.get(name, 0) + 1
+                return real[name](*a, **kw)
+            return call
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for name in real:
+            setattr(dist, name, counting(name))
+        zero_launches()                        # every counter of the path
+        losses, step_s = [step(params, batch).item()], []  # warm-up step
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(params, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        counts = read_launches()
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_steps = steps + 1
+        want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+                "flash_bwd_dkv": cfg.n_layers, "paged_decode": 0}
+        med = sorted(step_s)[len(step_s) // 2]
+        tok_s = TRAIN_S / med
+        res = {"phase": "train_mesh", "model": "llama2_7b",
+               "mesh_axes": list(mesh.mesh_dim_names),
+               "mesh_shape": list(mesh.mesh.shape),
+               "mesh_device_type": mesh.device_type,
+               "init_s": init_s, "weights_unequal": unequal,
+               "collectives": calls, "losses": losses,
+               "train_losses": trained["losses"],
+               "losses_bitwise_train": losses == trained["losses"],
+               "loss_rel_vs_train": _loss_rel(losses, trained["losses"]),
+               "loss_rel_tol": DP_LOSS_REL, "step_s": step_s,
+               "step_ms_median": med * 1e3,
+               "train_step_ms_median": trained["step_ms_median"],
+               "step_vs_train": med * 1e3 / trained["step_ms_median"],
+               "tokens_per_s": tok_s,
+               "train_tokens_per_s": trained["tokens_per_s"],
+               "mfu": tok_s * trained["flops_per_token"] / BF16_FLOPS,
+               "train_mfu": trained["mfu"], "peak_mem_gb": peak_gb,
+               "train_peak_mem_gb": trained["peak_mem_gb"],
+               "launches": counts, "launches_per_step": want, "card": smi}
+        emit(res)
+        faults = _loss_faults(losses, trained["losses"])
+        if unequal:
+            faults.append(f"weights unequal to the unsharded draw: {unequal}")
+        if calls:
+            faults.append(f"collectives at one rank: {calls}")
+        if counts != {k: n_steps * v for k, v in want.items()}:
+            faults.append(f"launches over {n_steps} steps: {counts}; want "
+                          f"per step {want}")
+        if (res["mesh_axes"] != list(AXES)
+                or res["mesh_shape"] != [1] * len(AXES)
+                or mesh.device_type != "cuda"):
+            faults.append(f"mesh {res['mesh_axes']} {res['mesh_shape']} on "
+                          f"{mesh.device_type}")
+        if faults:
+            raise AssertionError("train_mesh: " + "; ".join(faults))
+        del params, opt, step, batch
+        return res
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+        hvd.shutdown()
+        _free_cuda(torch)
+
+
 PARITY_LOSS_REL = 1e-2
 PARITY_GRAD_REL_L2 = 5e-2
 
@@ -4014,6 +4146,9 @@ def main(argv=None) -> int:
     if "train_zero" in phases and "train_dp" not in phases:
         ap.error("train_zero is held against train's and train_dp's losses "
                  "and step time: run train, train_dp and train_zero")
+    if "train_mesh" in phases and "train" not in phases:
+        ap.error("train_mesh is held against train's weights and losses: "
+                 "run train and train_mesh")
     if "train_variants" in phases and "train" not in phases:
         ap.error("train_variants is held against train's losses: run train "
                  "and train_variants")
@@ -4097,6 +4232,8 @@ def main(argv=None) -> int:
         else None
     if "hier" in phases:
         phase_hier(torch, smi)
+    meshed = phase_train_mesh(torch, smi, trained) \
+        if "train_mesh" in phases else None
     if res is not None and served is not None and trained is not None:
         # launches: paged_decode on the serving path, the flash kernels on
         # the training paths (each counted in its own run), summed.
@@ -4105,6 +4242,8 @@ def main(argv=None) -> int:
                  "train": trained["launches"]}
         if moe_trained is not None:
             paths["train_moe"] = moe_trained["launches"]
+        if meshed is not None:
+            paths["train_mesh"] = meshed["launches"]
         keys = ("max_abs_err", "worst_row_rel_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
         emit({"kernels": [

@@ -73,9 +73,17 @@ rank mesh (``parallel.build_mesh``) and Switch-MoE (``parallel.moe``, and
 ``LlamaConfig(use_moe=True)`` in training; ``generate`` and serving
 refuse MoE, as the JAX package's do).
 
+Sharded training (``parallel.sharding``, ``parallel.comm``,
+``parallel.ring_attention``): ``models.llama.make_train_step(cfg, opt,
+mesh=parallel.build_mesh(MeshConfig(...)))`` trains the dense and the MoE
+Llama on any mesh with ``pp = 1`` (dp, fsdp, tp, sp with ring or Ulysses
+attention, ep).  The root's per-rank helpers (``mesh``, ``per_rank``,
+``per_rank_from_fn``, ``from_local``, ``replicate_local``, ``to_local``,
+``to_numpy``) give a process its rank's row.
+
 Not yet ported, and raising ``NotImplementedError`` where a caller could
-reach them: sharded models (``mesh=``) for serving, training and
-``generate``.
+reach them: pipeline parallelism (``pp > 1``) and sharded serving and
+generation (``mesh=`` in ``serve`` and ``generate``).
 """
 
 from __future__ import annotations
@@ -100,6 +108,7 @@ from .context import (  # noqa: F401
     is_initialized,
     local_rank,
     local_size,
+    mesh,
     rank,
     set_component_health,
     shutdown,
@@ -113,6 +122,14 @@ from .ops.collectives import (  # noqa: F401
     Product,
     ReduceOp,
     Sum,
+)
+from .ops.per_rank import (  # noqa: F401
+    from_local,
+    per_rank,
+    per_rank_from_fn,
+    replicate_local,
+    to_local,
+    to_numpy,
 )
 from . import obs
 from .ops.compression import Compression, routes_engine_side

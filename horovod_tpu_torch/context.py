@@ -108,6 +108,7 @@ class _GlobalState:
         # (n_cross, n_local) -> this rank's tier groups
         # (ops.hierarchical.tier_groups), created at init or by the caller.
         self.tier_groups: dict = {}
+        self.flat_mesh = None               # mesh(), made at its first call
         # Rendezvous stores, kept for the process's life (see
         # _start_process_group), and the count of inits that used them.
         self.stores: dict = {}
@@ -385,6 +386,7 @@ def _stop_runtime() -> None:
         _state.engine = None
     _state.process_set_table = None
     _state.tier_groups = {}
+    _state.flat_mesh = None
     # Captured schedules call into the process group destroyed below.
     from .ops.sched import compiled
     compiled.clear()
@@ -446,6 +448,22 @@ def cross_rank() -> int:
 def cross_size() -> int:
     """Number of hosts in the job († ``horovod_cross_size``)."""
     return _require_init().cross_size
+
+
+def mesh():
+    """The runtime's flat mesh: a one-axis ``DeviceMesh`` over every rank
+    of the job on the runtime's device type, its axis named by the
+    config's ``dp_axis_name`` (``"hvd"``), the reference's persistent
+    data-parallel mesh.  It rides the default process group: no group is
+    made, so a rank may call it alone."""
+    state = _require_init()
+    if state.flat_mesh is None:
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        state.flat_mesh = DeviceMesh.from_group(
+            dist.group.WORLD, state.device.type,
+            mesh_dim_names=(state.config.dp_axis_name,))
+    return state.flat_mesh
 
 
 def device(device=None) -> torch.device:

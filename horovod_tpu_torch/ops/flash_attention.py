@@ -379,11 +379,13 @@ def flash_flops(q_shape: tuple, causal: bool, products: int) -> int:
     return 2 * products * B * H * pairs * D
 
 
-def gqa_expand(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def gqa_expand(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               heads: Optional[int] = None):
     """Repeat grouped K/V ``[B, S, KV, D]`` up to q's head count ``H``
-    (for attention paths without native GQA indexing; the kernels index kv
-    heads directly and never pay this expansion)."""
-    H, KV = q.shape[2], k.shape[2]
+    (``heads`` when given: the model's, where q holds one tensor-parallel
+    rank's heads) for attention paths without native GQA indexing; the
+    kernels index kv heads directly and never pay this expansion."""
+    H, KV = heads or q.shape[2], k.shape[2]
     if KV != H:
         if H % KV:
             raise ValueError(f"kv heads {KV} must divide q heads {H}")

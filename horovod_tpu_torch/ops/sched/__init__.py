@@ -10,8 +10,9 @@ The port of ``horovod_tpu/ops/sched``:
   local gather);
 - :mod:`.compiled` — the same walk as one CUDA graph per schedule
   signature (``compiled:rs_ag:<k>``; eager on the CPU);
-- :mod:`.in_context` — ``overlap_allreduce``, ``overlap_reducescatter``
-  and ``run_in_context`` (the two-tier allreduce's interpreter) as eager
+- :mod:`.in_context` — ``overlap_allreduce``, ``overlap_reducescatter``,
+  ``matmul_reducescatter`` (the fused row-parallel projection) and
+  ``run_in_context`` (the two-tier allreduce's interpreter) as eager
   functions over process groups;
 - :mod:`.buckets` — size-targeted gradient buckets.
 
@@ -43,6 +44,7 @@ from .lower import (  # noqa: F401
     parse_hier_descriptor,
 )
 from .in_context import (  # noqa: F401
+    matmul_reducescatter,
     overlap_allreduce,
     overlap_reducescatter,
     run_in_context,

@@ -1,14 +1,13 @@
 """The chunked schedule as eager functions over a process group.
 
-The port of ``horovod_tpu/ops/sched/in_context.py``'s
-``overlap_allreduce`` and ``overlap_reducescatter``.  The reference
-writes them inside a mapped region and leaves the overlap to XLA's
-scheduler; here they run eagerly, one ``torch.distributed`` call per
-step, on the current stream.  The units are the executor's, so a chunk
-reduces to the same bits on both paths.  :func:`run_in_context`
-interprets a whole-buffer schedule (the two-tier family) over a group
-an axis.  ``matmul_reducescatter`` waits for ROADMAP section A 'Parallel
-strategies, and what needs them'.
+The port of ``horovod_tpu/ops/sched/in_context.py``:
+``overlap_allreduce``, ``overlap_reducescatter`` and
+``matmul_reducescatter``.  The reference writes them inside a mapped
+region and leaves the overlap to XLA's scheduler; here they run eagerly,
+one ``torch.distributed`` call per step, on the current stream.  The
+units are the executor's, so a chunk reduces to the same bits on both
+paths.  :func:`run_in_context` interprets a whole-buffer schedule (the
+two-tier family) over a group an axis.
 """
 
 from __future__ import annotations
@@ -88,6 +87,38 @@ def overlap_reducescatter(flat: torch.Tensor, group=None, *, layout,
             sh, _ = rs_fp32(ch, group, n)
             outs.append(C.average(sh, n) if average else sh)
     return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def matmul_reducescatter(x: torch.Tensor, w: torch.Tensor, group=None, *,
+                         chunks: int = 2) -> torch.Tensor:
+    """The row-parallel projection ``all_reduce(x @ w)`` over ``group``
+    (the tp group) as chunked partial products, each reduce-scattered
+    over its columns and all-gathered back, so a chunk's reduce-scatter
+    can run under the next chunk's product.
+
+    ``x`` ``[..., K_local]`` (the contraction dim sharded over the
+    group), ``w`` ``[K_local, D]``.  The output's D columns split into
+    ``chunks`` slices; the sums are the all-reduce's, elementwise.  When
+    D does not split into ``n * chunks`` (or at one rank, or one chunk)
+    it is the plain all-reduce.  Eager, on the current stream."""
+    n = dist.get_world_size(group) if dist.is_initialized() else 1
+    d = w.shape[-1]
+    if n <= 1 or chunks <= 1 or d % (n * chunks):
+        y = torch.matmul(x, w)
+        if n > 1:
+            dist.all_reduce(y, group=group)
+        return y
+    csz = d // chunks
+    outs = []
+    for c in range(chunks):
+        pc = torch.matmul(x, w[..., c * csz:(c + 1) * csz])  # [..., csz]
+        cols = pc.movedim(-1, 0).contiguous()
+        sh = cols.new_empty((csz // n,) + tuple(cols.shape[1:]))
+        R.reduce_scatter_flat(sh, cols, group)
+        full = torch.empty_like(cols)
+        R.all_gather_flat(full, sh, group)
+        outs.append(full.movedim(0, -1))
+    return torch.cat(outs, dim=-1)
 
 
 def run_in_context(schedule: Schedule, x: torch.Tensor, groups: dict, *,

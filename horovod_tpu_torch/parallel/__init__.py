@@ -1,17 +1,31 @@
-"""Parallelism beyond data parallel: the rank mesh and expert parallelism.
+"""Parallelism beyond data parallel: the rank mesh, logical sharding,
+tensor, sequence and expert parallelism.
 
-The port of ``horovod_tpu/parallel``, the pieces this slice needs:
+The port of ``horovod_tpu/parallel``:
 
 - :mod:`.mesh` — the multi-axis rank mesh (``pp, dp, fsdp, ep, sp, tp``)
   as a ``torch.distributed.device_mesh.DeviceMesh`` over the runtime's
-  ranks, one process group an axis slice;
+  ranks, one process group an axis slice, and one a slice of every set
+  of several axes;
+- :mod:`.sharding` — the logical-axis rules as data (``DEFAULT_RULES``,
+  ``spec_for``, ``fitted_rules``, ``spec_axes``) and a rank's block of a
+  tensor (``shard``, ``unshard``, ``constrain``);
+- :mod:`.comm` — collectives over mesh axes with Megatron's gradients
+  (copy-to and reduce-from a region, all-gather, scatter, all-to-all);
+- :mod:`.ring_attention` — ring and Ulysses attention over an ``sp``
+  group;
 - :mod:`.moe` — Switch-style top-1 MoE: the routing masks, the expert
   layer over an ``ep`` group's ``all_to_all`` and the job-scale layer
   over the engine's ``alltoall`` verb.
 
-Logical sharding rules (``sharding.py``), tensor, sequence and pipeline
-parallelism wait for ROADMAP section A 'Parallel strategies, and what
-needs them'.
+Pipeline parallelism (``parallel/pipeline.py``) is not ported yet
+(ROADMAP section A 'Parallel strategies, and what needs them').
 """
 
-from .mesh import AXES, MeshConfig, build_mesh, data_axes  # noqa: F401
+from .mesh import (  # noqa: F401
+    AXES,
+    ROADMAP_ITEM,
+    MeshConfig,
+    build_mesh,
+    data_axes,
+)

@@ -17,7 +17,10 @@ reference's, innermost (fastest-varying over the ranks) last::
 Where the reference reshapes devices into a ``jax.sharding.Mesh``, here
 :func:`build_mesh` lays the runtime's ranks out row-major in that order
 as a ``torch.distributed.device_mesh.DeviceMesh``, which creates one
-process group for every slice of every axis.  Creating groups is
+process group for every slice of every axis; :func:`build_mesh` adds one
+for every slice of every set of two or more axes of size > 1 (the batch
+axes ``("dp", "fsdp")``, the gradient reductions over several data
+axes), kept as the mesh's ``hvd_axis_groups``.  Creating groups is
 collective: every rank calls :func:`build_mesh` with the same config, in
 the same order relative to its other group creations.
 """
@@ -28,6 +31,9 @@ import dataclasses
 from typing import Optional
 
 AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
+# The ROADMAP section A item that pipeline parallelism and sharded
+# serving and generation wait for; refusals name it.
+ROADMAP_ITEM = "'Parallel strategies, and what needs them'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +112,40 @@ def build_mesh(config: MeshConfig, device_type: Optional[str] = None):
             f"mesh sizes {config.axis_sizes()} multiply to {config.total} "
             f"but {n} ranks are available")
     shape = tuple(config.axis_sizes()[a] for a in AXES)
-    return init_device_mesh(device_type or _device_type(), shape,
+    mesh = init_device_mesh(device_type or _device_type(), shape,
                             mesh_dim_names=AXES)
+    mesh.hvd_axis_groups = _axis_groups(config)
+    return mesh
+
+
+def _axis_groups(config: MeshConfig) -> dict:
+    """A process group over every set of two or more axes of size > 1
+    (keyed by the axes in :data:`AXES` order), this rank's.  Each set's
+    groups are made in rank order, the sets in a fixed order, on every
+    rank; a group's ranks run row-major over its axes, so its rank order
+    is the order of the blocks that its axes split (``("dp", "fsdp")``:
+    ``dp`` major).  :mod:`.comm` finds them here; a step never makes one."""
+    import itertools
+
+    import torch.distributed as dist
+
+    sizes = config.axis_sizes()
+    live = [a for a in AXES if sizes[a] > 1]
+    me = dist.get_rank()
+    coords = list(itertools.product(*(range(sizes[a]) for a in AXES)))
+    out = {}
+    for k in range(2, len(live) + 1):
+        for axes in itertools.combinations(live, k):
+            others = [i for i, a in enumerate(AXES) if a not in axes]
+            members: dict = {}
+            for rank, c in enumerate(coords):
+                members.setdefault(tuple(c[i] for i in others), []).append(
+                    rank)
+            for ranks in members.values():
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    out[axes] = group
+    return out
 
 
 def data_axes() -> tuple[str, ...]:

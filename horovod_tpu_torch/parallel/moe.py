@@ -103,7 +103,7 @@ def moe_layer_local(tokens: torch.Tensor, router_kernel: torch.Tensor,
                     expert_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                     expert_params: Any, *, group=None,
                     capacity_factor: float = 1.25,
-                    return_drops: bool = False):
+                    return_drops: bool = False, batched: bool = False):
     """The MoE layer on this rank's tokens over the ``ep`` group
     ``group``.
 
@@ -111,8 +111,13 @@ def moe_layer_local(tokens: torch.Tensor, router_kernel: torch.Tensor,
     rank; expert_params this rank's experts, a dict of tensors with
     leading dim ``E_local`` (rank ``r`` of the group owns experts
     ``r*E_local .. (r+1)*E_local-1``); ``expert_fn(params, x)`` runs one
-    expert.  Returns (output ``[T, D]``, aux loss); with
-    ``return_drops``, also the dropped-token count (a 0-d tensor)."""
+    expert, or, with ``batched``, every local expert at once on
+    ``[E_local, n*C, D]`` (the model's tensor-parallel experts, whose
+    collectives cannot run under ``vmap``).  The router logits and the
+    expert buffers take the dtype jnp would promote the tokens and the
+    router to (fp32 for bf16 tokens and an fp32 router).  Returns
+    (output ``[T, D]``, aux loss); with ``return_drops``, also the
+    dropped-token count (a 0-d tensor)."""
     n = _group_size(group)
     T, D = tokens.shape
     E_total = router_kernel.shape[1]
@@ -121,7 +126,8 @@ def moe_layer_local(tokens: torch.Tensor, router_kernel: torch.Tensor,
     E_local = E_total // n
     capacity = capacity_of(T, E_total, capacity_factor)
 
-    logits = tokens @ router_kernel                           # [T, E]
+    lt = torch.promote_types(tokens.dtype, router_kernel.dtype)
+    logits = tokens.to(lt) @ router_kernel.to(lt)             # [T, E]
     dispatch, combine, aux, dropped = switch_route(logits, capacity)
     # Gather tokens into expert buffers [E, C, D]; send each expert's
     # buffer to its owner: block i of [n, E_local, C, D] goes to rank i.
@@ -132,7 +138,8 @@ def moe_layer_local(tokens: torch.Tensor, router_kernel: torch.Tensor,
     received = _all_to_all(shaped, group) if n > 1 else shaped
     # received [n(source), E_local, C, D]: every rank's tokens for mine.
     per_expert = received.transpose(0, 1).reshape(E_local, n * capacity, D)
-    expert_out = torch.func.vmap(expert_fn)(expert_params, per_expert)
+    expert_out = expert_fn(expert_params, per_expert) if batched \
+        else torch.func.vmap(expert_fn)(expert_params, per_expert)
     back = expert_out.reshape(E_local, n, capacity, D).transpose(0, 1)
     returned = _all_to_all(back, group) if n > 1 else back
     # returned [n(expert owner), E_local, C, D]: my tokens' results.

@@ -376,7 +376,8 @@ def serve(params: Any, cfg, *, mesh=None,
     the same device) turns on speculative decoding: k draft tokens a
     round, verified in one target forward; ``spec_k`` without a draft
     raises ``ValueError``.  Both emit the tokens of plain greedy decoding.
-    ``mesh=`` waits for a later slice of the port and raises
+    ``mesh=`` waits for a later slice of the port (ROADMAP section A
+    'Parallel strategies, and what needs them') and raises
     ``NotImplementedError``.
     """
     base = engine_cfg or EngineConfig()

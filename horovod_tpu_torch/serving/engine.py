@@ -47,6 +47,7 @@ from ..models import llama
 from ..obs import REGISTRY as _obs
 from ..obs import trace as _trace
 from ..ops import flash_attention as FA
+from ..parallel.mesh import ROADMAP_ITEM
 from ..utils import logging as hvd_logging
 from .kv_pager import KVPager, OutOfBlocks, PagedKVCache
 from .scheduler import Request, RequestState, Scheduler
@@ -72,7 +73,8 @@ _m_prefill_skipped = _obs.counter(
     "hvd_serving_prefill_skipped_tokens_total",
     "prompt tokens NOT prefilled because a cached prefix covered them")
 
-_WAITS = "waits for a later slice of the port"
+_WAITS = ("waits for a later slice of the port: sharded serving and "
+          "generation, ROADMAP section A " + ROADMAP_ITEM)
 
 
 def _bucket_pow2(n: int, floor: int = 1) -> int:

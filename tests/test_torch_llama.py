@@ -424,5 +424,6 @@ def test_moe_refusals_keep_the_reference_messages(moe_models):
                                  tables, tcfg)
     with pytest.raises(NotImplementedError, match=msg):
         ServingEngine(tparams, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tllama.forward(tparams, tok[:, None], tcfg, mesh=object())
+    from mp_torch_mesh_worker import PipelineMesh
+    with pytest.raises(NotImplementedError, match="pp = 2 in mesh="):
+        tllama.forward(tparams, tok[:, None], tcfg, mesh=PipelineMesh())

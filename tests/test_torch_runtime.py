@@ -231,6 +231,51 @@ def test_not_ported_items_name_roadmap_titles():
         assert item[1:-1] in titles, (field, item, sorted(titles))
 
 
+def test_mesh_refusals_name_roadmap_titles():
+    """Pipeline parallelism (``pp > 1``) in training, and ``mesh=`` in
+    ``generate``, the serving steps, ``ServingEngine`` and ``serve``, are
+    refused naming ROADMAP section A's item by a title that is there."""
+    import re
+
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import ROADMAP_ITEM
+    from mp_torch_mesh_worker import PipelineMesh
+    with open(os.path.join(REPO, "ROADMAP.md")) as fh:
+        titles = set(re.findall(r"^\d+\. \*\*(.+?)\*\*", fh.read(), re.M))
+    assert ROADMAP_ITEM[1:-1] in titles
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, torch.Generator(), "cpu")
+    tok = torch.zeros(2, dtype=torch.int32)
+    pool = torch.zeros(2, 4, 4, 2, 16)
+    tables = torch.zeros(2, 2, dtype=torch.int32)
+    mesh = object()
+    calls = {
+        "pp": lambda: llama.make_train_step(
+            cfg, torch.optim.Adam(llama.trainable(params)),
+            mesh=PipelineMesh()),
+        "pp.init": lambda: llama.init_params(cfg, torch.Generator(), "cpu",
+                                             mesh=PipelineMesh()),
+        "generate": lambda: llama.generate(params, tok[:, None], cfg,
+                                           max_new_tokens=2, mesh=mesh),
+        "prefill_step": lambda: llama.prefill_step(params, tok[:, None], cfg,
+                                                   mesh=mesh),
+        "decode_step_paged": lambda: llama.decode_step_paged(
+            params, tok, tok, pool, pool.clone(), tables, cfg, mesh=mesh),
+        "extend_step_paged": lambda: llama.extend_step_paged(
+            params, tok[:, None], tok[:, None], tok[:, None] == 0, pool,
+            pool.clone(), tables, cfg, mesh=mesh),
+        "ServingEngine": lambda: serving.ServingEngine(params, cfg,
+                                                       device="cpu",
+                                                       mesh=mesh),
+        "serve": lambda: serving.serve(params, cfg, device="cpu", mesh=mesh),
+    }
+    for what, call in calls.items():
+        with pytest.raises(NotImplementedError) as e:
+            call()
+        assert f"ROADMAP section A {ROADMAP_ITEM}" in str(e.value), what
+
+
 # ---------------------------------------------------------------------------
 # runtime at one rank, in this process
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from horovod_tpu.models import llama as jllama
 from horovod_tpu.parallel import MeshConfig, build_mesh
 from horovod_tpu_torch.models import llama as tllama
+from mp_torch_mesh_worker import PipelineMesh
 
 DIMS = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=256,
             vocab_size=128)
@@ -213,19 +214,21 @@ def test_attention_hook_is_off_and_routes_through_flash(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("edit,kw", [
-    ({}, {"mesh": object()}),
-    ({"use_moe": True}, {"mesh": object()}),
+    ({}, {"mesh": PipelineMesh()}),
+    ({"use_moe": True}, {"mesh": PipelineMesh()}),
 ])
 def test_unported_training_options_raise(setup, edit, kw):
-    """``mesh=`` is refused, for dense and MoE configs alike (MoE itself
-    trains now: the tests below)."""
+    """A pipelined mesh (``pp > 1``) is refused, for dense and MoE
+    configs alike, naming its ROADMAP item (the other meshes train:
+    ``tests/test_torch_llama_mesh.py``)."""
     _, tcfg, _, np_params, tokens = setup
     cfg = dataclasses.replace(tcfg, **edit)
     params = _torch_params(np_params)
-    with pytest.raises(NotImplementedError):
+    match = "Parallel strategies, and what needs them"
+    with pytest.raises(NotImplementedError, match=match):
         tllama.loss_fn(params, {"tokens": torch.from_numpy(tokens[:, :9])},
                        cfg, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=match):
         tllama.make_train_step(cfg, torch.optim.Adam(
             tllama.trainable(params)), **kw)
 
