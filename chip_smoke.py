@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100::
 It drives the port's main paths on the card, serving (with the front
 door's prefix cache and speculative decoding, and batch ``generate``),
 multi-replica serving (the router, disaggregated prefill/decode),
-training (with its recompute and loss variants, and as a Switch-MoE) and
+training (with its recompute and loss variants, as a Switch-MoE, on a
+mesh, as two pipeline stages), sharded serving at one rank and
 data-parallel training through Horovod's runtime, and checks them, phase
 by phase, printing one JSON line per phase:
 
@@ -228,7 +229,29 @@ by phase, printing one JSON line per phase:
    64/32/32 flash launches a step, ``paged_decode`` never), the first
    loss bitwise equal to train's and the later ones within
    ``DP_LOSS_REL`` (whether they are bitwise too is printed); step ms,
-   tokens/s, MFU and peak memory beside train's.
+   tokens/s, MFU and peak memory beside train's;
+19. ``train_pp``  Llama-2-7B at full width as two pipeline stages (layers
+   0-15 and 16-31, every other axis 1) trained by the one-process 1F1B
+   driver (``llama.make_pipeline_step_local``: every stage in this
+   process, the handoffs in memory) over 4 microbatches of one row of
+   4096, beside the pp=1 mesh step on the same 4 rows, each from train's
+   draw: one warm-up and three timed steps, then a profiled one each
+   (``train_breakdown``); every ``torch.distributed`` call wrapped and
+   counted (none may run); the launches a step as ``pp_launches``
+   reckons them (and 64/32/32 at pp=1); the first loss within
+   ``DP_LOSS_REL`` of pp=1's, the later ones too; the first gradients
+   within ``PARITY_GRAD_REL_L2`` (relative L2, leaf by leaf); the peak
+   under ``TRAIN_PP_PEAK_GB``; step ms, tokens/s, MFU and peak beside
+   pp=1's (one card runs the stages in turn: the schedule's work, not a
+   pipelining speed-up);
+20. ``serve_mesh``  ``serve(mesh=)`` on a one-rank mesh with serve's
+   weights, pool and 8 requests (tokens bitwise serve's, ``paged_decode``
+   32 times a decode tick, the flash kernels never, TTFT, ITL and
+   tokens/s beside serve's and beside the plain ``serve()`` session's
+   under the same ``hvd.init()``, timed in turn: plain, mesh, mesh,
+   plain) and ``generate(mesh=)`` on 2 prompts of 128 tokens, 16 new
+   (bitwise the plain ``generate``'s); every ``torch.distributed`` call
+   wrapped and counted (none may run).
 
 Then a ``total`` line (the script's wall seconds), a ``kernels`` line,
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -237,12 +260,11 @@ CUDA device, or without the port's package beside the script, it exits
 2.  ``--phases`` runs a subset
 (``device,build,kernel,serve,frontdoor,replicas,train,train_variants,
 train_dp,train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity,
-train_moe,hier,train_mesh``; ``frontdoor``, ``replicas``, ``elastic`` and
-``train_moe`` need ``build``;
-``train_variants``,
-``train_dp``, ``hvdrun_obs`` and ``train_mesh`` need
+train_moe,hier,train_mesh,train_pp,serve_mesh``; ``frontdoor``,
+``replicas``, ``elastic`` and ``train_moe`` need ``build``;
+``train_variants``, ``train_dp``, ``hvdrun_obs`` and ``train_mesh`` need
 ``train``, ``hvdrun`` and ``train_zero`` need ``train`` and
-``train_dp``); ``--root DIR`` drives
+``train_dp``, ``serve_mesh`` needs ``serve``); ``--root DIR`` drives
 the package of another checkout (an unpacked parent commit, say) with
 this script's shapes, checks and timers.
 """
@@ -263,7 +285,7 @@ BF16_FLOPS = 989e12
 PHASES = ("device", "build", "kernel", "serve", "frontdoor", "replicas",
           "train", "train_variants", "train_dp", "train_zero", "dataplane",
           "hvdrun", "hvdrun_obs", "elastic", "train_parity", "train_moe",
-          "hier", "train_mesh")
+          "hier", "train_mesh", "train_pp", "serve_mesh")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -706,24 +728,8 @@ def phase_serve(torch, smi: str) -> dict:
 
     lens = [64, 128, 192, 256, 320, 384, 448, 512]
     prompts = [rng.randint(0, cfg.vocab_size, size=(n,)) for n in lens]
-    emit_t: dict[int, list[float]] = {}
-
-    def on_token(req_id, tok):
-        emit_t.setdefault(req_id, []).append(time.perf_counter())
-
-    zero_launches()                            # every counter of the path
-    ticks0 = eng.decode_ticks
-    torch.cuda.synchronize()
-    t_run = time.perf_counter()
-    futs = [sess.submit(p, 32, stream_cb=on_token) for p in prompts]
-    sess.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_run
-    counts = read_launches()
+    results, counts, ticks, timing = _serve_timed(torch, sess, prompts, 32)
     launches = counts["paged_decode"]
-    ticks = eng.decode_ticks - ticks0
-
-    results = [f.result() for f in futs]
     for r in results:
         if len(r.tokens) != 32 or not all(0 <= t < cfg.vocab_size
                                           for t in r.tokens):
@@ -734,22 +740,11 @@ def phase_serve(torch, smi: str) -> dict:
             f"ticks; want {cfg.n_layers} per tick")
     if any(counts[n] for n in counts if n != "paged_decode"):
         raise AssertionError(f"serving launched a training kernel: {counts}")
-
-    ttft = sorted(r.metrics["ttft_s"] for r in results)
-    itl = sorted(b - a for ts in emit_t.values()
-                 for a, b in zip(ts, ts[1:]))
-    decode_tokens = sum(len(r.tokens) - 1 for r in results)
-    first = min(min(ts) for ts in emit_t.values())
-    last = max(max(ts) for ts in emit_t.values())
     res = {
         "phase": "serve", "model": "llama2_7b", "dtype": "bfloat16",
         "requests": len(results), "prompt_lens": lens, "max_tokens": 32,
         "decode_ticks": ticks, "paged_decode_launches": launches,
-        "init_s": init_s, "wall_s": wall,
-        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
-        "itl_p50_s": itl[len(itl) // 2],
-        "itl_p99_s": itl[min(len(itl) - 1, int(0.99 * len(itl)))],
-        "decode_tokens_per_s": decode_tokens / (last - first),
+        "init_s": init_s, **timing,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "card": smi,
     }
@@ -757,7 +752,43 @@ def phase_serve(torch, smi: str) -> dict:
     logits_parity(torch, params, cfg, eng)
     decode_breakdown(torch, eng, smi)
     sess.close()
-    return {"counts": counts, "metrics": res}
+    return {"counts": counts, "metrics": res, "prompts": prompts,
+            "tokens": [list(r.tokens) for r in results]}
+
+
+def _serve_timed(torch, sess, prompts, max_tokens: int) -> tuple:
+    """Submit ``prompts`` to ``sess`` and drain it, every launch counter
+    zeroed just before and read just after: (results, launch counts,
+    decode ticks, wall and latency numbers)."""
+    eng = sess.engine
+    emit_t: dict[int, list[float]] = {}
+
+    def on_token(req_id, tok):
+        emit_t.setdefault(req_id, []).append(time.perf_counter())
+
+    zero_launches()                            # every counter of the path
+    ticks0 = eng.decode_ticks
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    futs = [sess.submit(p, max_tokens, stream_cb=on_token) for p in prompts]
+    sess.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts = read_launches()
+    ticks = eng.decode_ticks - ticks0
+    results = [f.result() for f in futs]
+    ttft = sorted(r.metrics["ttft_s"] for r in results)
+    itl = sorted(b - a for ts in emit_t.values()
+                 for a, b in zip(ts, ts[1:]))
+    decode_tokens = sum(len(r.tokens) - 1 for r in results)
+    first = min(min(ts) for ts in emit_t.values())
+    last = max(max(ts) for ts in emit_t.values())
+    return results, counts, ticks, {
+        "wall_s": wall,
+        "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+        "itl_p50_s": itl[len(itl) // 2],
+        "itl_p99_s": itl[min(len(itl) - 1, int(0.99 * len(itl)))],
+        "decode_tokens_per_s": decode_tokens / (last - first)}
 
 
 def device_kernels(prof) -> list:
@@ -3939,6 +3970,22 @@ DIST_CALLS = ("all_reduce", "all_gather", "all_gather_into_tensor",
               "send", "recv", "all_gather_object", "broadcast_object_list")
 
 
+def _count_dist_calls(dist, calls: dict) -> dict:
+    """Wrap every ``torch.distributed`` call of :data:`DIST_CALLS`,
+    counting into ``calls``; returns the real functions."""
+    real = {n: getattr(dist, n) for n in DIST_CALLS if hasattr(dist, n)}
+
+    def counting(name):
+        def call(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return real[name](*a, **kw)
+        return call
+
+    for name in real:
+        setattr(dist, name, counting(name))
+    return real
+
+
 def phase_train_mesh(torch, smi: str, trained: dict, steps: int = 3) -> dict:
     """train's step through the mesh path at one rank: the same weights
     (``init_params(mesh=)`` against the unsharded draw), the same losses,
@@ -3952,7 +3999,7 @@ def phase_train_mesh(torch, smi: str, trained: dict, steps: int = 3) -> dict:
 
     _free_cuda(torch)
     hvd.init()
-    real = {n: getattr(dist, n) for n in DIST_CALLS if hasattr(dist, n)}
+    real: dict = {}
     try:
         mesh = build_mesh(MeshConfig())
         cfg = llama.LlamaConfig.llama2_7b()            # bf16, remat=True
@@ -3977,17 +4024,9 @@ def phase_train_mesh(torch, smi: str, trained: dict, steps: int = 3) -> dict:
             0, cfg.vocab_size, size=(1, TRAIN_S + 1))
         batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
         calls: dict = {}
-
-        def counting(name):
-            def call(*a, **kw):
-                calls[name] = calls.get(name, 0) + 1
-                return real[name](*a, **kw)
-            return call
-
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for name in real:
-            setattr(dist, name, counting(name))
+        real = _count_dist_calls(dist, calls)
         zero_launches()                        # every counter of the path
         losses, step_s = [step(params, batch).item()], []  # warm-up step
         for _ in range(steps):
@@ -4110,6 +4149,315 @@ def phase_train_parity(torch, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the pipeline on one card, and sharded serving at one rank
+# ---------------------------------------------------------------------------
+
+TRAIN_PP_STAGES = 2     # layers 0-15 and 16-31
+TRAIN_PP_B = 4          # rows a step
+TRAIN_PP_M = 4          # microbatches of one row
+TRAIN_PP_S = 4096       # 2048 where the peak would pass TRAIN_PP_PEAK_GB
+TRAIN_PP_PEAK_GB = 75.0
+
+
+class _FirstGrads:
+    """The optimizer of a run: at its first ``step()`` the gradients are
+    copied to the host (``against`` None) or held against ``against``'s,
+    leaf by leaf on the card (relative L2), then it steps."""
+
+    def __init__(self, opt, leaves, against=None):
+        self.opt, self.leaves, self.against = opt, leaves, against
+        self.grads = self.rel = None
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        if self.grads is None and self.rel is None:
+            if self.against is None:
+                self.grads = [p.grad.to("cpu", copy=True)
+                              for p in self.leaves]
+            else:
+                self.rel = []
+                for p, b in zip(self.leaves, self.against):
+                    a, b = p.grad.float(), b.to(p.device).float()
+                    self.rel.append(((a - b).norm()
+                                     / b.norm().clamp_min(1e-30)).item())
+        self.opt.step()
+
+
+def _train_pp_run(torch, llama, cfg, batch, make_step, steps: int,
+                  smi: str, path: str, against=None) -> dict:
+    """train's weights (seed 0) stepped ``steps + 1`` times by
+    ``make_step(optimizer)``'s step, the first untimed, then one more
+    under the profiler (:func:`train_breakdown`, tagged ``path``)."""
+    _free_cuda(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, "cuda")
+    leaves = llama.trainable(params)
+    opt = _FirstGrads(torch.optim.Adam(leaves, lr=TRAIN_LR, fused=True),
+                      leaves, against)
+    step = make_step(opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()                            # every counter of the path
+    losses, step_s = [step(params, batch).item()], []   # warm-up step
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    out = {"losses": losses, "step_s": step_s,
+           "step_ms_median": sorted(step_s)[len(step_s) // 2] * 1e3,
+           "launches": read_launches(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "grads": opt.grads, "grad_rel": opt.rel}
+    train_breakdown(torch, step, params, batch, out["step_ms_median"], smi,
+                    path=path)
+    del params, leaves, opt, step
+    _free_cuda(torch)
+    return out
+
+
+def pp_launches(cfg, M: int, pp: int) -> dict:
+    """Flash launches of one 1F1B step of the one-process driver: a stage
+    but the last runs each microbatch's forward without autograd, then
+    its recompute under autograd and the per-layer recompute of the
+    backward (3 forwards a layer); the last stage runs the forward under
+    autograd once, then the backward's recompute (2 forwards a layer);
+    one dq and one dkv a layer and microbatch."""
+    lp = cfg.n_layers // pp
+    return {"flash_fwd": M * (3 * lp * (pp - 1) + 2 * lp),
+            "flash_bwd_dq": M * cfg.n_layers,
+            "flash_bwd_dkv": M * cfg.n_layers, "paged_decode": 0}
+
+
+def phase_train_pp(torch, smi: str, steps: int = 3) -> dict:
+    """Llama-2-7B at full width as two pipeline stages on one card: the
+    one-process driver (``llama.make_pipeline_step_local``, every stage
+    in this process, the handoffs in memory) on the 1F1B schedule, beside
+    the pp=1 mesh step on the same batch and weights.  On one card the
+    stages run one after the other: this measures the schedule's
+    recompute and bookkeeping, never a pipelining speed-up."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import MeshConfig, build_mesh
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(),
+                              pp_microbatches=TRAIN_PP_M)
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(TRAIN_PP_B, TRAIN_PP_S + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    _free_cuda(torch)
+    hvd.init()
+    calls: dict = {}
+    real: dict = {}
+    try:
+        mesh = build_mesh(MeshConfig())
+        real = _count_dist_calls(dist, calls)
+        base = _train_pp_run(torch, llama, cfg, batch,
+                             lambda opt: llama.make_train_step(
+                                 cfg, opt, mesh=mesh), steps, smi,
+                             "train_pp.pp1")
+        piped = _train_pp_run(torch, llama, cfg, batch,
+                              lambda opt: llama.make_pipeline_step_local(
+                                  cfg, opt, TRAIN_PP_STAGES),
+                              steps, smi, "train_pp.1f1b",
+                              against=base.pop("grads"))
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+        hvd.shutdown()
+    n_steps = steps + 1
+    want_base = {"flash_fwd": 2 * cfg.n_layers,
+                 "flash_bwd_dq": cfg.n_layers,
+                 "flash_bwd_dkv": cfg.n_layers, "paged_decode": 0}
+    want = pp_launches(cfg, TRAIN_PP_M, TRAIN_PP_STAGES)
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    hd = (cfg.n_heads + cfg.n_kv_heads) * cfg.head_dim
+    n_params = 2 * cfg.vocab_size * D + D + L * (2 * D + 2 * D * hd
+                                                 + 3 * D * F)
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.d_model \
+        * TRAIN_PP_S
+    tok = TRAIN_PP_B * TRAIN_PP_S
+
+    def rate(ms):
+        return tok / (ms / 1e3)
+
+    rel = piped.pop("grad_rel")
+    piped.pop("grads")
+    base.pop("grad_rel")
+    res = {"phase": "train_pp", "model": "llama2_7b", "dtype": "bfloat16",
+           "remat": cfg.remat, "stages": TRAIN_PP_STAGES,
+           "layers_per_stage": cfg.n_layers // TRAIN_PP_STAGES,
+           "schedule": "1f1b", "driver": "one process, handoffs in memory",
+           "batch": TRAIN_PP_B, "microbatches": TRAIN_PP_M,
+           "seq": TRAIN_PP_S, "collectives": calls,
+           "losses": piped["losses"], "pp1_losses": base["losses"],
+           "loss_rel_vs_pp1": _loss_rel(piped["losses"], base["losses"]),
+           "first_loss_rel_vs_pp1": abs(piped["losses"][0]
+                                        - base["losses"][0])
+           / abs(base["losses"][0]),
+           "loss_rel_tol": DP_LOSS_REL,
+           "grad_rel_l2_max": max(rel),
+           "grad_rel_l2_median": sorted(rel)[len(rel) // 2],
+           "grad_rel_l2_tol": PARITY_GRAD_REL_L2,
+           "step_s": piped["step_s"], "pp1_step_s": base["step_s"],
+           "step_ms_median": piped["step_ms_median"],
+           "pp1_step_ms_median": base["step_ms_median"],
+           "step_vs_pp1": piped["step_ms_median"] / base["step_ms_median"],
+           "tokens_per_s": rate(piped["step_ms_median"]),
+           "pp1_tokens_per_s": rate(base["step_ms_median"]),
+           "mfu": rate(piped["step_ms_median"]) * flops_per_token
+           / BF16_FLOPS,
+           "pp1_mfu": rate(base["step_ms_median"]) * flops_per_token
+           / BF16_FLOPS,
+           "flops_per_token": flops_per_token,
+           "peak_mem_gb": piped["peak_mem_gb"],
+           "pp1_peak_mem_gb": base["peak_mem_gb"],
+           "launches": piped["launches"], "launches_per_step": want,
+           "pp1_launches": base["launches"],
+           "pp1_launches_per_step": want_base, "card": smi}
+    emit(res)
+    faults = []
+    if calls:
+        faults.append(f"torch.distributed calls: {calls}")
+    for name, run, per in (("pp", piped, want), ("pp=1", base, want_base)):
+        if run["launches"] != {k: n_steps * v for k, v in per.items()}:
+            faults.append(f"{name} launches over {n_steps} steps: "
+                          f"{run['launches']}; want per step {per}")
+    losses = piped["losses"]
+    if not (all(math.isfinite(x) for x in losses + rel)
+            and res["first_loss_rel_vs_pp1"] <= DP_LOSS_REL
+            and max(res["loss_rel_vs_pp1"]) <= DP_LOSS_REL
+            and losses[-1] < losses[0]):
+        faults.append(f"losses {losses} against pp=1's {base['losses']}")
+    if max(rel) > PARITY_GRAD_REL_L2:
+        faults.append(f"first gradients: worst rel L2 {max(rel)}")
+    if piped["peak_mem_gb"] > TRAIN_PP_PEAK_GB:
+        faults.append(f"peak {piped['peak_mem_gb']} GB at S={TRAIN_PP_S}")
+    if faults:
+        raise AssertionError("train_pp: " + "; ".join(faults))
+    return res
+
+
+SERVE_MESH_GEN = dict(B=2, P=128, new=16)
+
+
+def phase_serve_mesh(torch, smi: str, served: dict) -> dict:
+    """``serve(mesh=)`` and ``generate(mesh=)`` on a one-rank mesh at
+    Llama-2-7B width (serve's weights and requests): bitwise serve's and
+    the plain ``generate``'s tokens, ``paged_decode`` 32 times a decode
+    tick, no ``torch.distributed`` call.  Its latency is held against
+    the plain ``serve()`` session's under the same ``hvd.init()``, the
+    two timed in turn (plain, mesh, mesh, plain): the serve phase runs
+    with no runtime, so its numbers alone would not isolate ``mesh=``."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import MeshConfig, build_mesh
+
+    _free_cuda(torch)
+    cfg = llama.LlamaConfig.llama2_7b()
+    hvd.init()
+    calls: dict = {}
+    real = {}
+    runs: dict = {"plain": [], "mesh": []}
+    try:
+        mesh = build_mesh(MeshConfig())
+        real = _count_dist_calls(dist, calls)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = llama.init_params(cfg, gen, "cuda", mesh=mesh)
+        sessions = {kind: serving.serve(params, cfg, num_blocks=512,
+                                        max_active=8, block_size=16, **kw)
+                    for kind, kw in (("plain", {}),
+                                     ("mesh", {"mesh": mesh}))}
+        rng = np.random.RandomState(0)
+        for sess in sessions.values():
+            warm = sess.submit(rng.randint(0, cfg.vocab_size, size=(16,)), 2)
+            sess.drain()
+            assert len(warm.result().tokens) == 2
+        for kind in ("plain", "mesh", "mesh", "plain"):
+            runs[kind].append(_serve_timed(torch, sessions[kind],
+                                           served["prompts"], 32))
+        for sess in sessions.values():
+            sess.close()
+        g = SERVE_MESH_GEN
+        prompt = torch.from_numpy(np.random.RandomState(2).randint(
+            0, cfg.vocab_size, size=(g["B"], g["P"]))).to("cuda")
+        t0 = time.perf_counter()
+        meshed = llama.generate(params, prompt, cfg,
+                                max_new_tokens=g["new"], mesh=mesh)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        plain = llama.generate(params, prompt, cfg, max_new_tokens=g["new"])
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+        hvd.shutdown()
+    results, counts, ticks, timing = runs["mesh"][0]
+    tokens = {kind: [[list(r.tokens) for r in run[0]] for run in rs]
+              for kind, rs in runs.items()}
+    m = served["metrics"]
+    keys = ("wall_s", "ttft_p50_s", "ttft_max_s", "itl_p50_s", "itl_p99_s",
+            "decode_tokens_per_s")
+
+    def mean(kind, k):
+        return sum(run[3][k] for run in runs[kind]) / len(runs[kind])
+
+    res = {"phase": "serve_mesh", "model": "llama2_7b",
+           "mesh_shape": list(mesh.mesh.shape), "requests": len(results),
+           "max_tokens": 32, "decode_ticks": ticks,
+           "paged_decode_launches": counts["paged_decode"],
+           "tokens_bitwise_serve": all(t == served["tokens"]
+                                       for ts in tokens.values()
+                                       for t in ts),
+           **timing,
+           "order": ["plain", "mesh", "mesh", "plain"],
+           "mesh_runs": [run[3] for run in runs["mesh"]],
+           "plain_under_init_runs": [run[3] for run in runs["plain"]],
+           **{f"{k}_vs_plain_under_init": mean("mesh", k) / mean("plain", k)
+              for k in ("ttft_p50_s", "itl_p50_s", "decode_tokens_per_s")},
+           **{f"serve_{k}": m[k] for k in keys},
+           "generate": {**g, "s": gen_s,
+                        "bitwise_plain": bool(torch.equal(meshed, plain))},
+           "collectives": calls, "card": smi}
+    emit(res)
+    faults = []
+    if not res["tokens_bitwise_serve"]:
+        faults.append("tokens differ from serve's")
+    for kind, rs in runs.items():
+        for _, c, n_ticks, _ in rs:
+            if c["paged_decode"] != n_ticks * cfg.n_layers or n_ticks == 0:
+                faults.append(f"{kind}: paged_decode {c['paged_decode']} "
+                              f"over {n_ticks} ticks; want {cfg.n_layers} "
+                              f"a tick")
+            if any(c[n] for n in c if n != "paged_decode"):
+                faults.append(f"{kind}: serving launched a training "
+                              f"kernel: {c}")
+    if not res["generate"]["bitwise_plain"]:
+        faults.append("generate(mesh=) differs from generate")
+    if calls:
+        faults.append(f"torch.distributed calls: {calls}")
+    del params, sessions
+    _free_cuda(torch)
+    if faults:
+        raise AssertionError("serve_mesh: " + "; ".join(faults))
+    return {"counts": counts, "metrics": res}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4149,6 +4497,9 @@ def main(argv=None) -> int:
     if "train_mesh" in phases and "train" not in phases:
         ap.error("train_mesh is held against train's weights and losses: "
                  "run train and train_mesh")
+    if "serve_mesh" in phases and "serve" not in phases:
+        ap.error("serve_mesh is held against serve's tokens and latency: "
+                 "run serve and serve_mesh")
     if "train_variants" in phases and "train" not in phases:
         ap.error("train_variants is held against train's losses: run train "
                  "and train_variants")
@@ -4234,6 +4585,9 @@ def main(argv=None) -> int:
         phase_hier(torch, smi)
     meshed = phase_train_mesh(torch, smi, trained) \
         if "train_mesh" in phases else None
+    piped = phase_train_pp(torch, smi) if "train_pp" in phases else None
+    served_mesh = phase_serve_mesh(torch, smi, served) \
+        if "serve_mesh" in phases else None
     if res is not None and served is not None and trained is not None:
         # launches: paged_decode on the serving path, the flash kernels on
         # the training paths (each counted in its own run), summed.
@@ -4244,6 +4598,11 @@ def main(argv=None) -> int:
             paths["train_moe"] = moe_trained["launches"]
         if meshed is not None:
             paths["train_mesh"] = meshed["launches"]
+        if piped is not None:
+            paths["train_pp"] = piped["launches"]
+        if served_mesh is not None:
+            paths["serve_mesh"] = {"paged_decode":
+                                   served_mesh["counts"]["paged_decode"]}
         keys = ("max_abs_err", "worst_row_rel_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
         emit({"kernels": [

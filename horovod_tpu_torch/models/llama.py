@@ -26,8 +26,8 @@ across with :func:`params_from_jax` and the tests compare like with like:
   times ``moe_aux_weight``.
 
 Training on a rank mesh (``mesh=`` a :func:`~..parallel.build_mesh`
-``DeviceMesh`` with ``pp = 1``): every rank holds its block of each
-parameter under the JAX package's logical rules (:func:`param_shardings`,
+``DeviceMesh``): every rank holds its block of each parameter under the
+JAX package's logical rules (:func:`param_shardings`,
 :mod:`..parallel.sharding`), the optimizer's state too, and the layers
 run Megatron and ZeRO style over explicit collectives
 (:mod:`..parallel.comm`) where GSPMD inserts them in the reference:
@@ -43,6 +43,11 @@ run Megatron and ZeRO style over explicit collectives
   lm_head's columns over ``tp`` with a vocab-parallel cross-entropy;
 - ``ep`` shards the experts: the MoE layer exchanges tokens over the
   ``ep`` group (:func:`~..parallel.moe.moe_layer_local`);
+- ``pp`` holds the layers stage-resident (rank ``s`` of ``pp`` keeps
+  layers ``s L/pp .. (s+1) L/pp - 1``), the other axes inside a stage as
+  above; the step runs the 1F1B schedule (default) or GPipe under
+  autograd (:mod:`..parallel.pipeline`), over ``cfg.pp_microbatches``
+  microbatches (:func:`_pick_microbatches`);
 - each rank's loss is its share of the global mean, and each gradient is
   summed over the data axes its parameter is replicated along
   (:func:`reduce_gradients`).
@@ -50,9 +55,19 @@ run Megatron and ZeRO style over explicit collectives
 With every axis of size 1 the mesh path is the plain path: the same ops
 in the same order, no collective.
 
-Still raising ``NotImplementedError``: pipeline parallelism (``pp > 1``),
-``mesh=`` in ``generate`` and the serving steps, and MoE configs in
-``generate`` and the serving steps, as in the JAX package.
+Generation and the serving steps take ``mesh=`` too (dp, fsdp and tp;
+``generate`` also pp): the batch rows over dp·fsdp, the heads over tp
+with row-parallel ``wo`` and ``w_down`` (optionally as the fused chunked
+matmul and reduce-scatter, ``cfg.decode_tp_overlap``), the KV cache a
+rank's rows and kv heads, the vocab-parallel logits gathered before the
+token is picked, so every rank picks the same token; on pp the layers
+stay stage-resident and the hidden state goes stage to stage, the last
+stage's to every rank.
+
+Still raising ``NotImplementedError``, with the JAX package's messages:
+MoE configs in ``generate`` and the serving steps, ``sp`` and ``ep`` in
+``generate`` and serving, ``pp`` in serving, and the blockwise loss in the
+1F1B step.
 """
 
 from __future__ import annotations
@@ -71,7 +86,7 @@ from .. import context
 from ..ops import flash_attention as FA
 from ..parallel import comm
 from ..parallel import sharding as shd
-from ..parallel.mesh import AXES, ROADMAP_ITEM
+from ..parallel.mesh import AXES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +118,15 @@ class LlamaConfig:
     # rotated over the sp group, any head count) or "ulysses" (all-to-all
     # heads <-> sequence; the local heads must divide by sp).
     sp_attention: str = "ring"
+    # Microbatches of the pipeline on pp > 1 meshes (None: the most
+    # M <= 2 pp that divides the local batch, _pick_microbatches).  The
+    # bubble is (pp - 1) / (M + pp - 1) for both schedules.
+    pp_microbatches: Optional[int] = None
+    # The tp row-parallel projections of generation (wo, w_down) as the
+    # fused chunked matmul + reduce-scatter (ops.sched
+    # matmul_reducescatter).  None follows the runtime's sched_mode knob
+    # (on when "decomposed").  Bitwise the plain all-reduce at tp = 2.
+    decode_tp_overlap: Optional[bool] = None
 
     @property
     def head_dim(self) -> int:
@@ -131,13 +155,15 @@ def _no_moe(cfg: LlamaConfig) -> None:
         raise NotImplementedError("serving does not support MoE configs")
 
 
-def _no_mesh(mesh, what: str) -> None:
-    """Sharded generation and serving wait for a later slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} on a mesh (mesh=) waits for a later slice of the port: "
-            f"sharded serving and generation, ROADMAP section A "
-            f"{ROADMAP_ITEM}")
+def _serving_mesh(mesh) -> None:
+    """The serving steps and the engine run on dp/fsdp/tp meshes, with
+    the JAX package's serving engine's refusal of the other axes."""
+    sizes = shd.axis_sizes(mesh)
+    for a in ("sp", "ep", "pp"):
+        if sizes.get(a, 1) > 1:
+            raise NotImplementedError(
+                "serving supports dp/fsdp/tp meshes; "
+                f"{a} is a training-path axis here")
 
 
 def _check_train_cfg(cfg: LlamaConfig) -> None:
@@ -255,17 +281,21 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
 
     def rnd(spec, shape, fan_in, stacked=True):
         # One layer at a time, so the fp32 draw never holds the whole
-        # stack (7B: 1.4 GB per layer of w_gate at most).
+        # stack (7B: 1.4 GB per layer of w_gate at most).  On pp every
+        # layer is drawn, the other stages' thrown away.
         out = torch.empty(plan.local_shape(shape, spec), dtype=cfg.dtype,
                           device=dev)
         s = 1.0 / math.sqrt(fan_in)
+        lo = (shd.block_slices(shape, spec, plan.size, plan.coord)[0].start
+              if stacked and not plan.trivial else 0)
         for i in range(shape[0] if stacked else 1):
-            part = out[i] if stacked else out
             full = shape[1:] if stacked else shape
-            part.copy_(plan.block(
-                torch.randn(full, generator=generator, device=dev,
-                            dtype=torch.float32) * s,
-                spec[1:] if stacked else spec))
+            draw = torch.randn(full, generator=generator, device=dev,
+                               dtype=torch.float32)
+            if stacked and not 0 <= i - lo < out.shape[0]:
+                continue
+            part = out[i - lo] if stacked else out
+            part.copy_(plan.block(draw * s, spec[1:] if stacked else spec))
         return out
 
     def norm(spec, shape):
@@ -467,9 +497,79 @@ def _layer(layers: dict, li: int) -> dict:
                 else v[li]) for k, v in layers.items()}
 
 
-def _logits(params, h_last: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(_rmsnorm_impl(h_last, params["final_norm"]),
-                        params["lm_head"]).float()
+def _decode_tp_overlap_chunks(cfg: LlamaConfig, tp: int) -> int:
+    """Chunks of the fused matmul + reduce-scatter row-parallel
+    projections of generation (0: the plain all-reduce).
+    ``cfg.decode_tp_overlap`` wins when set; None follows the runtime's
+    ``sched_mode`` (on when "decomposed", ``sched_chunks`` chunks, at
+    least 2)."""
+    if tp <= 1:
+        return 0
+    state = context.global_state()
+    gcfg = state.config if state.initialized else None
+    enabled = cfg.decode_tp_overlap
+    if enabled is None:
+        enabled = gcfg is not None and gcfg.sched_mode == "decomposed"
+    if not enabled:
+        return 0
+    return max(2, gcfg.sched_chunks if gcfg is not None else 2)
+
+
+def _row_parallel(cfg: LlamaConfig, plan: "_Plan") -> Callable:
+    """``proj(x, w, sharded)``: ``x @ w``, summed over tp when ``w``'s
+    rows are this rank's tp block (``wo`` with the heads over tp,
+    ``w_down``): an all-reduce, or the fused chunked matmul +
+    reduce-scatter (:func:`_decode_tp_overlap_chunks`)."""
+    chunks = _decode_tp_overlap_chunks(cfg, plan.size["tp"])
+    if chunks:
+        from ..ops.sched import matmul_reducescatter
+        group = comm.group_of(plan.mesh, ("tp",))[0]
+
+    def proj(x, w, sharded: bool):
+        if sharded and chunks:
+            return matmul_reducescatter(x, w, group, chunks=chunks)
+        y = torch.matmul(x, w)
+        return plan.reduce_tp(y) if sharded else y
+
+    return proj
+
+
+def _gen_layer(h, lp, rope, plan: "_Plan", attend: Callable,
+               proj: Callable) -> torch.Tensor:
+    """One layer of generation and the serving steps on this rank's rows
+    and heads: ``attend(q, k, v)`` writes the cache and attends (the q
+    heads of the rank, the kv heads they read); the row-parallel
+    ``wo`` and ``w_down`` through ``proj`` (:func:`_row_parallel`).  On a
+    trivial plan, the plain path's ops."""
+    lp = plan.gather_layer(lp)
+    x = _rmsnorm_impl(h, lp["attn_norm"])
+    q = _rope(_heads(x, lp["wq"]), rope)
+    k, v = _layer_kv(x, plan.kv_weights(lp), rope)
+    attn = attend(q, k, v)
+    wo = lp["wo"]
+    h = h + proj(attn.reshape(*attn.shape[:-2], -1),
+                 wo.reshape(-1, wo.shape[-1]), plan.heads_tp)
+    x2 = _rmsnorm_impl(h, lp["mlp_norm"])
+    return h + proj(_swiglu_hidden(x2, lp), lp["w_down"],
+                    plan.size["tp"] > 1)
+
+
+def _gen_logits(params, h_last: torch.Tensor, plan: "_Plan",
+                n_rows: int) -> torch.Tensor:
+    """fp32 logits ``[n_rows, V]`` (or ``[n_rows, S, V]``) on every rank:
+    this rank's vocab columns and rows gathered over tp and dp·fsdp."""
+    lm_head = plan.gather_fsdp(params["lm_head"],
+                               plan.stack_specs["lm_head"])
+    logits = torch.matmul(_rmsnorm_impl(h_last, params["final_norm"]),
+                          lm_head).float()
+    logits = comm.gather_tensor(logits, plan.mesh, ("tp",), logits.dim() - 1)
+    return plan.gather_rows(logits, n_rows)
+
+
+def _local_layers(cfg: LlamaConfig, plan: "_Plan") -> int:
+    """The layers this rank runs: the config's, its stage's share on
+    pp (the first of the stack, which may hold more)."""
+    return cfg.n_layers // plan.n_stages
 
 
 @torch.no_grad()
@@ -482,32 +582,42 @@ def prefill_step(params, tokens: torch.Tensor, cfg: LlamaConfig, *,
     per-layer K ``[L, B, P, KV, Dh]``, per-layer V).  ``last_pos`` ``[B]``
     selects the logits position per row (bucketed prompts are
     right-padded); None means ``P - 1``.  Causality makes a padded tail
-    inert for every real position."""
+    inert for every real position.
+
+    With ``mesh=`` (dp, fsdp, tp): ``params`` are this rank's blocks; the
+    rows split over dp·fsdp when they divide (else every rank runs every
+    row), K/V come back for every row and this rank's kv heads, the
+    logits whole on every rank."""
     _no_moe(cfg)
-    _no_mesh(mesh, "prefill_step")
+    _serving_mesh(mesh)
+    plan = _Plan(cfg, mesh)
     B, P = tokens.shape
     dev = tokens.device
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    h = _embed_lookup(params["embed"], tokens, cfg.dtype)
-    positions = torch.arange(P, device=dev).expand(B, P)
+    rows = plan.rows(tokens)
+    Bl = rows.shape[0]
+    h = _embed(params, rows, cfg, plan)
+    positions = torch.arange(P, device=dev).expand(Bl, P)
     rope = _rope_tables(positions, cfg.rope_theta, cfg.head_dim)
     mask = torch.ones(P, P, dtype=torch.bool, device=dev).tril()
+    proj = _row_parallel(cfg, plan)
     ks, vs = [], []
-    for li in range(cfg.n_layers):
-        lp = _layer(params["layers"], li)
-        x = _rmsnorm_impl(h, lp["attn_norm"])
-        q = _rope(_heads(x, lp["wq"]), rope)
-        k, v = _layer_kv(x, lp, rope)
-        attn = _cached_attend(q, k, v, mask, scale)
-        h = h + _out_proj(attn, lp["wo"])
-        h = h + _dense_mlp(_rmsnorm_impl(h, lp["mlp_norm"]), lp)
+
+    def attend(q, k, v):
         ks.append(k)
         vs.append(v)
+        return _cached_attend(q, k, v, mask, scale)
+
+    for li in range(_local_layers(cfg, plan)):
+        h = _gen_layer(h, _layer(params["layers"], li), rope, plan, attend,
+                       proj)
     if last_pos is None:
         h_last = h[:, -1]
     else:
-        h_last = h[torch.arange(B, device=dev), last_pos.long()]
-    return _logits(params, h_last), torch.stack(ks), torch.stack(vs)
+        h_last = h[torch.arange(Bl, device=dev), plan.rows(last_pos).long()]
+    return (_gen_logits(params, h_last, plan, B),
+            plan.gather_rows(torch.stack(ks), B, 1),
+            plan.gather_rows(torch.stack(vs), B, 1))
 
 
 @torch.no_grad()
@@ -532,40 +642,48 @@ def decode_step_paged(params, tok: torch.Tensor, positions: torch.Tensor,
     donates the pools and scatters functionally); they are also returned.
     Inactive slots all write to (block 0, offset 0) — duplicate indices,
     so which one lands is unspecified; block 0 is scratch and never read
-    unmasked.  Returns (logits ``[B, V]`` fp32, k_pool, v_pool)."""
+    unmasked.  Returns (logits ``[B, V]`` fp32, k_pool, v_pool).
+
+    With ``mesh=`` (dp, fsdp, tp): the pools hold this rank's kv heads
+    and every block; the rows split over dp·fsdp when they divide, each
+    layer's fresh K/V gathered over dp·fsdp before the write, so the
+    pools stay identical across dp·fsdp; the attention runs on the rank's
+    rows and heads (the kernel too); the logits come back whole."""
     from ..serving.kv_pager import gather_blocks
 
     _no_moe(cfg)
-    _no_mesh(mesh, "decode_step_paged")
+    _serving_mesh(mesh)
+    plan = _Plan(cfg, mesh)
     B = tok.shape[0]
     _, _, BS, _, _ = k_pool.shape
     dev = tok.device
     scale = 1.0 / math.sqrt(cfg.head_dim)
     T = tables.shape[1] * BS
-    h = _embed_lookup(params["embed"], tok[:, None], cfg.dtype)
-    rope = _rope_tables(positions[:, None], cfg.rope_theta, cfg.head_dim)
+    tok_l, pos_l, tables_l = (plan.rows(x) for x in (tok, positions, tables))
+    h = _embed(params, tok_l[:, None], cfg, plan)
+    rope = _rope_tables(pos_l[:, None], cfg.rope_theta, cfg.head_dim)
     pos = positions.long()
-    mask = (torch.arange(T, device=dev)[None, :] <= pos[:, None])[:, None, :]
     blk = tables[torch.arange(B, device=dev), pos // BS].long()
     off = pos % BS
-    lengths = (positions + 1).to(torch.int32)
-    for li in range(cfg.n_layers):
-        lp = _layer(params["layers"], li)
-        x = _rmsnorm_impl(h, lp["attn_norm"])
-        q = _rope(_heads(x, lp["wq"]), rope)
-        k1, v1 = _layer_kv(x, lp, rope)                    # [B, 1, KV, Dh]
-        k_pool[li, blk, off] = k1[:, 0]
-        v_pool[li, blk, off] = v1[:, 0]
-        if use_flash:
-            attn = FA.paged_attention(q[:, 0], k_pool[li], v_pool[li],
-                                      tables, lengths, scale=scale)[:, None]
-        else:
-            keys = gather_blocks(k_pool[li], tables)       # [B, T, KV, Dh]
-            vals = gather_blocks(v_pool[li], tables)
-            attn = _cached_attend(q, keys, vals, mask, scale)
-        h = h + _out_proj(attn, lp["wo"])
-        h = h + _dense_mlp(_rmsnorm_impl(h, lp["mlp_norm"]), lp)
-    return _logits(params, h[:, 0]), k_pool, v_pool
+    mask = (torch.arange(T, device=dev)[None, :]
+            <= pos_l.long()[:, None])[:, None, :]
+    lengths = (pos_l + 1).to(torch.int32)
+    proj = _row_parallel(cfg, plan)
+    for li in range(_local_layers(cfg, plan)):
+        def attend(q, k1, v1, li=li):                      # [b, 1, KV, Dh]
+            k_pool[li, blk, off] = plan.gather_rows(k1, B)[:, 0]
+            v_pool[li, blk, off] = plan.gather_rows(v1, B)[:, 0]
+            if use_flash:
+                return FA.paged_attention(q[:, 0], k_pool[li], v_pool[li],
+                                          tables_l, lengths,
+                                          scale=scale)[:, None]
+            keys = gather_blocks(k_pool[li], tables_l)     # [b, T, KV, Dh]
+            vals = gather_blocks(v_pool[li], tables_l)
+            return _cached_attend(q, keys, vals, mask, scale)
+
+        h = _gen_layer(h, _layer(params["layers"], li), rope, plan, attend,
+                       proj)
+    return _gen_logits(params, h[:, 0], plan, B), k_pool, v_pool
 
 
 @torch.no_grad()
@@ -596,36 +714,38 @@ def extend_step_paged(params, tok: torch.Tensor, positions: torch.Tensor,
     it.  The pool is read through :func:`gather_blocks` and
     :func:`_cached_attend`, as in the JAX package (the paged kernel takes
     one query a row).  Returns (logits ``[B, S, V]`` fp32, k_pool,
-    v_pool)."""
+    v_pool).  ``mesh=`` as in :func:`decode_step_paged`."""
     from ..serving.kv_pager import gather_blocks
 
     _no_moe(cfg)
-    _no_mesh(mesh, "extend_step_paged")
+    _serving_mesh(mesh)
+    plan = _Plan(cfg, mesh)
     B, S = tok.shape
     BS = k_pool.shape[2]
     dev = tok.device
     scale = 1.0 / math.sqrt(cfg.head_dim)
     T = tables.shape[1] * BS
-    h = _embed_lookup(params["embed"], tok, cfg.dtype)
-    rope = _rope_tables(positions, cfg.rope_theta, cfg.head_dim)
+    tok_l, pos_l, tables_l = (plan.rows(x) for x in (tok, positions, tables))
+    h = _embed(params, tok_l, cfg, plan)
+    rope = _rope_tables(pos_l, cfg.rope_theta, cfg.head_dim)
     pos = positions.long()
-    mask = torch.arange(T, device=dev)[None, None, :] <= pos[:, :, None]
+    mask = (torch.arange(T, device=dev)[None, None, :]
+            <= pos_l.long()[:, :, None])
     col = torch.where(valid, pos // BS, 0)
     blk = torch.where(valid, tables.long().gather(1, col), 0)      # [B, S]
     off = torch.where(valid, pos % BS, 0)
-    for li in range(cfg.n_layers):
-        lp = _layer(params["layers"], li)
-        x = _rmsnorm_impl(h, lp["attn_norm"])
-        q = _rope(_heads(x, lp["wq"]), rope)
-        k1, v1 = _layer_kv(x, lp, rope)                    # [B, S, KV, Dh]
-        k_pool[li, blk, off] = k1
-        v_pool[li, blk, off] = v1
-        keys = gather_blocks(k_pool[li], tables)           # [B, T, KV, Dh]
-        vals = gather_blocks(v_pool[li], tables)
-        attn = _cached_attend(q, keys, vals, mask, scale)
-        h = h + _out_proj(attn, lp["wo"])
-        h = h + _dense_mlp(_rmsnorm_impl(h, lp["mlp_norm"]), lp)
-    return _logits(params, h), k_pool, v_pool
+    proj = _row_parallel(cfg, plan)
+    for li in range(_local_layers(cfg, plan)):
+        def attend(q, k1, v1, li=li):                      # [b, S, KV, Dh]
+            k_pool[li, blk, off] = plan.gather_rows(k1, B)
+            v_pool[li, blk, off] = plan.gather_rows(v1, B)
+            keys = gather_blocks(k_pool[li], tables_l)     # [b, T, KV, Dh]
+            vals = gather_blocks(v_pool[li], tables_l)
+            return _cached_attend(q, keys, vals, mask, scale)
+
+        h = _gen_layer(h, _layer(params["layers"], li), rope, plan, attend,
+                       proj)
+    return _gen_logits(params, h, plan, B), k_pool, v_pool
 
 
 def _pick_token(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -652,62 +772,83 @@ def generate(params: dict, prompt: torch.Tensor, cfg: LlamaConfig, *,
     stack once over the prompt with dense attention over its own keys and
     writes the ``[L, B, T, KV, Dh]`` cache (``T = P + max_new_tokens``);
     each of the ``max_new_tokens - 1`` decode ticks then writes its K/V
-    at its position in place and attends over the cache.  Sharded and
-    pipelined generation (``mesh=``) and MoE configs raise
-    ``NotImplementedError``."""
+    at its position in place and attends over the cache.  MoE configs
+    raise ``NotImplementedError``, as in the JAX package.
+
+    With ``mesh=`` (dp, fsdp, tp, pp; ``params`` this rank's blocks,
+    ``prompt`` the whole batch on every rank): the rows split over
+    dp·fsdp when they divide, the heads over tp (row-parallel ``wo`` and
+    ``w_down``), the cache is this rank's ``[L/pp, B/(dp·fsdp), T,
+    KV/tp, Dh]``; on pp the layers stay stage-resident, the hidden state
+    goes stage to stage and the last stage's to every rank
+    (:meth:`_Plan.pp_chain`); the vocab-parallel logits are gathered
+    before the pick, so every rank picks the same token (``generator`` in
+    the same state on every rank for sampling).  sp and ep raise, as in
+    the JAX package."""
     if cfg.use_moe:
         raise NotImplementedError("generate does not support MoE configs")
-    _no_mesh(mesh, "generate")
+    sizes = shd.axis_sizes(mesh)
+    if any(sizes.get(a, 1) > 1 for a in ("sp", "ep")):
+        raise NotImplementedError(
+            "generate supports dp/fsdp/tp/pp meshes; sp/ep are "
+            "training-path axes")
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature > 0 requires a torch.Generator")
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got "
                          f"{max_new_tokens}")
+    plan = _Plan(cfg, mesh)
     B, P = prompt.shape
     T = P + max_new_tokens
     dev = prompt.device
-    L, KV, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    Dh = cfg.head_dim
+    L = _local_layers(cfg, plan)
     scale = 1.0 / math.sqrt(Dh)
-    cache_k = torch.zeros((L, B, T, KV, Dh), dtype=cfg.dtype, device=dev)
+    rows = plan.rows(prompt)
+    Bl = rows.shape[0]
+    cache_k = torch.zeros((L, Bl, T, plan.kv_local, Dh), dtype=cfg.dtype,
+                          device=dev)
     cache_v = torch.zeros_like(cache_k)
+    proj = _row_parallel(cfg, plan)
+
+    def run(h, rope, attend_at):
+        def stage(h):
+            for li in range(L):
+                h = _gen_layer(h, _layer(params["layers"], li), rope, plan,
+                               functools.partial(attend_at, li), proj)
+            return h
+        return plan.pp_chain(stage, h)
 
     # ---- prefill: attention over the P prompt keys, cache written ------
-    h = _embed_lookup(params["embed"], prompt, cfg.dtype)
-    rope = _rope_tables(torch.arange(P, device=dev).expand(B, P),
-                        cfg.rope_theta, Dh)
     mask = torch.ones(P, P, dtype=torch.bool, device=dev).tril()
-    for li in range(L):
-        lp = _layer(params["layers"], li)
-        x = _rmsnorm_impl(h, lp["attn_norm"])
-        q = _rope(_heads(x, lp["wq"]), rope)
-        k, v = _layer_kv(x, lp, rope)
+
+    def prefill_attend(li, q, k, v):
         cache_k[li, :, :P] = k
         cache_v[li, :, :P] = v
-        h = h + _out_proj(_cached_attend(q, k, v, mask, scale), lp["wo"])
-        h = h + _dense_mlp(_rmsnorm_impl(h, lp["mlp_norm"]), lp)
-    tok = _pick_token(_logits(params, h[:, -1]), generator, temperature,
-                      prompt.dtype)
+        return _cached_attend(q, k, v, mask, scale)
+
+    h = run(_embed(params, rows, cfg, plan),
+            _rope_tables(torch.arange(P, device=dev).expand(Bl, P),
+                         cfg.rope_theta, Dh), prefill_attend)
+    tok = _pick_token(_gen_logits(params, h[:, -1], plan, B), generator,
+                      temperature, prompt.dtype)
     new = [tok]
 
     # ---- decode: one token a tick, appended to the cache ---------------
     steps = torch.arange(T, device=dev)
     for pos in range(P, T - 1):
-        h = _embed_lookup(params["embed"], tok[:, None], cfg.dtype)
-        rope = _rope_tables(torch.full((B, 1), pos, device=dev),
-                            cfg.rope_theta, Dh)
         mask = (steps <= pos)[None, :]                           # [1, T]
-        for li in range(L):
-            lp = _layer(params["layers"], li)
-            x = _rmsnorm_impl(h, lp["attn_norm"])
-            q = _rope(_heads(x, lp["wq"]), rope)
-            k1, v1 = _layer_kv(x, lp, rope)
+
+        def decode_attend(li, q, k1, v1, pos=pos, mask=mask):
             cache_k[li, :, pos] = k1[:, 0]
             cache_v[li, :, pos] = v1[:, 0]
-            attn = _cached_attend(q, cache_k[li], cache_v[li], mask, scale)
-            h = h + _out_proj(attn, lp["wo"])
-            h = h + _dense_mlp(_rmsnorm_impl(h, lp["mlp_norm"]), lp)
-        tok = _pick_token(_logits(params, h[:, 0]), generator, temperature,
-                          prompt.dtype)
+            return _cached_attend(q, cache_k[li], cache_v[li], mask, scale)
+
+        h = run(_embed(params, plan.rows(tok)[:, None], cfg, plan),
+                _rope_tables(torch.full((Bl, 1), pos, device=dev),
+                             cfg.rope_theta, Dh), decode_attend)
+        tok = _pick_token(_gen_logits(params, h[:, 0], plan, B), generator,
+                          temperature, prompt.dtype)
         new.append(tok)
     return torch.cat([prompt, torch.stack(new, dim=1)], dim=1)
 
@@ -730,24 +871,38 @@ class _Plan:
     this rank's coordinate, every parameter's spec, the rank's block of
     the batch and the collectives of each layer.  With ``mesh=None``, or
     every axis of size 1, every method is the identity and no collective
-    is issued, so the mesh path runs the plain path's ops."""
+    is issued, so the mesh path runs the plain path's ops.
 
-    def __init__(self, cfg: LlamaConfig, mesh):
+    ``coord`` stands in for the mesh's coordinate of this rank: with a
+    dict of axis sizes as ``mesh`` (``{"pp": 2}``) it makes the plan of
+    one stage of a pipeline whose every other axis has size 1, which
+    needs no process group (the one-process pipeline driver)."""
+
+    def __init__(self, cfg: LlamaConfig, mesh, coord: Optional[dict] = None):
         sizes = shd.axis_sizes(mesh)
-        if sizes.get("pp", 1) > 1:
-            raise NotImplementedError(
-                f"pipeline parallelism (pp = {sizes['pp']} in mesh=) is not "
-                f"ported yet: ROADMAP section A {ROADMAP_ITEM}")
         self.mesh = mesh
         self.size = {a: sizes.get(a, 1) for a in AXES}
         self.trivial = all(n == 1 for n in self.size.values())
-        self.coord = (shd.coordinate(mesh) if not self.trivial
-                      else {a: 0 for a in AXES})
+        if coord is not None:
+            self.coord = {a: coord.get(a, 0) for a in AXES}
+        else:
+            self.coord = (shd.coordinate(mesh) if not self.trivial
+                          else {a: 0 for a in AXES})
+        pp, tp = self.size["pp"], self.size["tp"]
+        self.stage, self.n_stages = self.coord["pp"], pp
+        if pp > 1:
+            if cfg.n_layers % pp:
+                raise ValueError(
+                    f"pp={pp} must divide n_layers={cfg.n_layers} evenly")
+            if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+                raise ValueError(
+                    f"tp={tp} must divide n_heads={cfg.n_heads} and "
+                    f"n_kv_heads={cfg.n_kv_heads}")
         self.stack_specs = param_shardings(cfg, mesh)
         self.layer_specs = {k: v[1:]
                             for k, v in self.stack_specs["layers"].items()}
         rules = shard_rules(cfg, mesh)
-        tp_of = (lambda dim: self.size["tp"] > 1 and "tp" in
+        tp_of = (lambda dim: tp > 1 and "tp" in
                  shd.entry_axes(shd.spec_for((dim,), rules)[0]))
         self.heads_tp, self.kv_tp = tp_of("heads"), tp_of("kv_heads")
         self.n_batch = math.prod(self.size[a] for a in BATCH_AXES)
@@ -755,6 +910,20 @@ class _Plan:
         self.batch_index = 0
         for a in BATCH_AXES:
             self.batch_index = self.batch_index * self.size[a] + self.coord[a]
+        # Generation: the kv heads of the rank's wk/wv (all of them where
+        # tp divides the heads but not the kv heads) that its q heads
+        # read, a contiguous range.
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+        if self.heads_tp and not self.kv_tp:
+            hl, rep, c = H // tp, H // KV, self.coord["tp"]
+            self.kv_range = (c * hl // rep, ((c + 1) * hl - 1) // rep + 1)
+        else:
+            self.kv_range = (0, KV // tp if self.kv_tp else KV)
+        self.kv_local = self.kv_range[1] - self.kv_range[0]
+        # Generation's rows split over dp·fsdp (ep and sp are refused).
+        self.n_rows = self.size["dp"] * self.size["fsdp"]
+        self.row_index = self.coord["dp"] * self.size["fsdp"] \
+            + self.coord["fsdp"]
 
     # -- blocks ------------------------------------------------------------
 
@@ -827,6 +996,45 @@ class _Plan:
         return comm.reduce_from(loss * (1.0 / self.n_data), self.mesh,
                                 DATA_AXES)
 
+    # -- the pipeline and generation ---------------------------------------
+
+    def pp_group(self):
+        return comm.group_of(self.mesh, ("pp",))[0]
+
+    def pp_chain(self, stage_fn, h: torch.Tensor) -> torch.Tensor:
+        """Generation's stage-resident layers: stage after stage, the last
+        stage's output on every stage (no autograd)."""
+        if self.n_stages == 1:
+            return stage_fn(h)
+        from ..parallel.pipeline import pipeline_chain
+        return pipeline_chain(stage_fn, h, group=self.pp_group())
+
+    def split_rows(self, n: int) -> bool:
+        """Whether generation splits ``n`` rows over dp·fsdp (else every
+        rank computes every row)."""
+        return self.n_rows > 1 and n % self.n_rows == 0
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``x``'s rows over dp·fsdp, or ``x``."""
+        if not self.split_rows(x.shape[0]):
+            return x
+        n = x.shape[0] // self.n_rows
+        return x[self.row_index * n:(self.row_index + 1) * n]
+
+    def gather_rows(self, x: torch.Tensor, n: int,
+                    dim: int = 0) -> torch.Tensor:
+        """Every rank's rows of ``x`` (``n`` in all, along ``dim``) back
+        in row order."""
+        if not self.split_rows(n):
+            return x
+        return comm.gather_tensor(x, self.mesh, ("dp", "fsdp"), dim)
+
+    def kv_weights(self, lp: dict) -> dict:
+        lo, hi = self.kv_range
+        if (lo, hi) == (0, lp["wk"].shape[1]):
+            return lp
+        return {**lp, "wk": lp["wk"][:, lo:hi], "wv": lp["wv"][:, lo:hi]}
+
 
 # ---------------------------------------------------------------------------
 # training
@@ -889,7 +1097,7 @@ def _mlp(x2, lp, plan: _Plan):
 
 
 def _moe_mlp(h2: torch.Tensor, lp: dict, cfg: LlamaConfig,
-             plan: Optional[_Plan] = None
+             plan: Optional[_Plan] = None, local: bool = False
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Switch-MoE MLP: fp32 router logits,
     :func:`~..parallel.moe.switch_route` at ``cfg.capacity_factor``, the
@@ -905,16 +1113,24 @@ def _moe_mlp(h2: torch.Tensor, lp: dict, cfg: LlamaConfig,
     whole global batch (the reference's GSPMD-global ``ep=1`` branch: the
     dispatch einsum into ``[E, C, D]`` buffers, the experts as batched
     products over E, the combine einsum), gathered from every data rank.
-    The output is this rank's block again."""
-    from ..parallel.moe import capacity_of, moe_layer_local, switch_route
+    The output is this rank's block again.  With ``local`` (the
+    pipeline's stage body, the reference's ``_pp_machinery``) the tokens
+    are this rank's alone, its rows and sequence chunk, through
+    :func:`~..parallel.moe.moe_layer_local` over the ``ep`` group (no
+    exchange at ``ep = 1``)."""
+    from ..parallel.moe import (ONE_RANK, capacity_of, moe_layer_local,
+                                switch_route)
     plan = plan or _Plan(cfg, None)
     mesh, ep = plan.mesh, plan.size["ep"]
-    x = comm.all_gather(h2, mesh, ("sp",), 1)              # whole sequences
-    if ep == 1:
-        x = comm.all_gather(x, mesh, BATCH_AXES, 0)         # the global batch
+    if local:
+        x = h2
+    else:
+        x = comm.all_gather(h2, mesh, ("sp",), 1)          # whole sequences
+        if ep == 1:
+            x = comm.all_gather(x, mesh, BATCH_AXES, 0)     # the global batch
     B, S, D = x.shape
     flat = x.reshape(B * S, D)
-    if ep > 1:
+    if ep > 1 or local:
         def experts(w, xe):
             # every local expert at once: [E_local, n*C, D]
             xf = plan.copy_tp(xe)
@@ -924,7 +1140,7 @@ def _moe_mlp(h2: torch.Tensor, lp: dict, cfg: LlamaConfig,
                              * torch.matmul(xf, wu), wd)
             return plan.reduce_tp(y)
 
-        group, _ = comm.group_of(mesh, ("ep",))
+        group = comm.group_of(mesh, ("ep",))[0] if ep > 1 else ONE_RANK
         out, aux = moe_layer_local(
             flat, lp["router"].float(), experts,
             {k: lp[k] for k in ("w_gate", "w_up", "w_down")}, group=group,
@@ -937,6 +1153,8 @@ def _moe_mlp(h2: torch.Tensor, lp: dict, cfg: LlamaConfig,
         eouts = _mlp(einputs, lp, plan)                   # [E, C, D]
         out = torch.einsum("tec,ecd->td", combine.to(flat.dtype), eouts)
     out = out.reshape(B, S, D)
+    if local:
+        return out, aux
     if ep == 1 and plan.n_batch > 1:
         n = h2.shape[0]
         out = out[plan.batch_index * n:(plan.batch_index + 1) * n]
@@ -983,22 +1201,25 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor,
     return lse - plan.reduce_tp(torch.where(inside, pl, 0.0))
 
 
-def _forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
-             plan: _Plan, causal: bool, return_hidden: bool
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`forward` on this rank's block of the batch."""
-    B, S = tokens.shape
-    dev = tokens.device
-    h = _embed(params, tokens, cfg, plan)
+def _positions(S: int, plan: _Plan, dev) -> torch.Tensor:
+    """Positions ``[S]`` of this rank's chunk of the sequence."""
     positions = torch.arange(S, device=dev)
     if plan.size["sp"] > 1:                  # the chunk's global positions
         positions = positions + plan.coord["sp"] * S
-    rope = _rope_tables(positions.expand(B, S), cfg.rope_theta,
-                        cfg.head_dim)
+    return positions
+
+
+def _stack_fn(params: dict, cfg: LlamaConfig, plan: _Plan, rope,
+              causal: bool) -> Callable:
+    """The rank's resident layers (all of them; its stage's on pp) as
+    ``h -> (h, aux)``, each layer under ``cfg.remat``'s recompute; on pp
+    the stage body of the reference's ``_pp_machinery`` (its MoE routes
+    the rank's own tokens)."""
     names = tuple(params["layers"])
     ckpt_kw = {}
     if cfg.remat == "dots":
         ckpt_kw["context_fn"] = _dots_context()
+    local_moe = plan.n_stages > 1
 
     def layer(h, *weights):
         # An MoE layer returns (h, its aux loss); a dense one h alone.
@@ -1006,23 +1227,87 @@ def _forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
         h = _attn_block(h, lp, rope, plan, cfg, causal)
         x2 = _rmsnorm(h, lp["mlp_norm"])
         if cfg.use_moe:
-            mlp_out, moe_aux = _moe_mlp(x2, lp, cfg, plan)
+            mlp_out, moe_aux = _moe_mlp(x2, lp, cfg, plan, local=local_moe)
             return h + mlp_out, moe_aux
         return h + _mlp(x2, lp, plan)
 
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for li in range(cfg.n_layers):
-        weights = _layer(params["layers"], li).values()
-        if cfg.remat:
-            out = checkpoint(layer, h, *weights, use_reentrant=False,
-                             **ckpt_kw)
-        else:
-            out = layer(h, *weights)
-        if cfg.use_moe:
-            h, moe_aux = out
-            aux = aux + moe_aux
-        else:
-            h = out
+    def run(h):
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for li in range(_local_layers(cfg, plan)):
+            weights = _layer(params["layers"], li).values()
+            if cfg.remat:
+                out = checkpoint(layer, h, *weights, use_reentrant=False,
+                                 **ckpt_kw)
+            else:
+                out = layer(h, *weights)
+            if cfg.use_moe:
+                h, moe_aux = out
+                aux = aux + moe_aux
+            else:
+                h = out
+        return h, aux
+
+    return run
+
+
+def _pick_microbatches(batch: int, sizes, requested: Optional[int] = None
+                       ) -> int:
+    """Microbatches of the pipeline: ``requested`` (cfg.pp_microbatches)
+    when set, else the most ``M <= 2 pp`` that divides the local batch
+    ``batch / (dp·fsdp·ep)``, as in the reference."""
+    sizes = shd.axis_sizes(sizes)
+    pp = sizes.get("pp", 1)
+    df = sizes.get("dp", 1) * sizes.get("fsdp", 1) * sizes.get("ep", 1)
+    if batch % df:
+        raise ValueError(
+            f"global batch {batch} must divide over dp*fsdp*ep = {df}")
+    local = batch // df
+    if requested is not None:
+        if requested < 1 or local % requested:
+            raise ValueError(
+                f"pp_microbatches={requested} must divide the local batch "
+                f"{local} (= global {batch} / dp*fsdp*ep {df})")
+        return requested
+    for m in range(min(2 * pp, local), 0, -1):
+        if local % m == 0:
+            return m
+    return 1
+
+
+def _gpipe(h: torch.Tensor, params: dict, cfg: LlamaConfig, plan: _Plan,
+           causal: bool, batch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layer stack on pp: the GPipe schedule over the rank's stage
+    (:func:`~..parallel.pipeline.pipeline_apply_local`), microbatch ``m``
+    the local rows ``m mb .. (m+1) mb - 1``; the last stage's outputs and
+    the aux (summed over the stages, over M) on every rank."""
+    from ..parallel.pipeline import pipeline_apply_local
+    B, S, D = h.shape
+    M = _pick_microbatches(batch, plan.size, cfg.pp_microbatches)
+    mb = B // M
+    rope = _rope_tables(_positions(S, plan, h.device).expand(mb, S),
+                        cfg.rope_theta, cfg.head_dim)
+    out, aux = pipeline_apply_local(
+        _stack_fn(params, cfg, plan, rope, causal), h.reshape(M, mb, S, D),
+        group=plan.pp_group(), with_aux=True)
+    return out.reshape(B, S, D), aux
+
+
+def _forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+             plan: _Plan, causal: bool, return_hidden: bool,
+             batch: Optional[int] = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`forward` on this rank's block of the batch (``batch`` rows
+    in all)."""
+    B, S = tokens.shape
+    h = _embed(params, tokens, cfg, plan)
+    if plan.n_stages > 1:
+        if return_hidden:
+            raise NotImplementedError("blockwise CE requires a pp=1 mesh")
+        h, aux = _gpipe(h, params, cfg, plan, causal, batch or B)
+    else:
+        rope = _rope_tables(_positions(S, plan, tokens.device).expand(B, S),
+                            cfg.rope_theta, cfg.head_dim)
+        h, aux = _stack_fn(params, cfg, plan, rope, causal)(h)
     h = _rmsnorm(h, params["final_norm"])
     if return_hidden:
         return h, aux
@@ -1047,11 +1332,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     With ``mesh=``, ``params`` are this rank's blocks, ``tokens`` the
     global batch (the same on every rank), and what comes back is this
     rank's block: its rows (dp·fsdp·ep), its sequence chunk (sp) and its
-    vocab columns (tp); aux is this rank's routing groups' sum."""
+    vocab columns (tp); aux is this rank's routing groups' sum.  On pp
+    the layers run the GPipe schedule over the rank's stage
+    (:func:`_gpipe`) and every stage gets the last stage's outputs; the
+    backward of a loss computed from them is that of one loss (the
+    embedding's gradient on stage 0, summed over pp by
+    :func:`reduce_gradients`)."""
     _check_train_cfg(cfg)
     plan = _Plan(cfg, mesh)
     return _forward(params, plan.local_batch(tokens), cfg, plan, causal,
-                    return_hidden)
+                    return_hidden, tokens.shape[0])
 
 
 def _use_blockwise_ce(cfg: LlamaConfig, mesh) -> bool:
@@ -1095,7 +1385,8 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, *,
         nll = blockwise_cross_entropy(h.reshape(B * S, D), lm_head,
                                       targets.reshape(-1))
         return plan.data_mean(nll.mean() + cfg.moe_aux_weight * aux)
-    logits, aux = _forward(params, inputs, cfg, plan, True, False)
+    logits, aux = _forward(params, inputs, cfg, plan, True, False,
+                           tokens.shape[0])
     return plan.data_mean(_nll(logits, targets, plan).mean()
                           + cfg.moe_aux_weight * aux)
 
@@ -1153,8 +1444,21 @@ def reduce_gradients(params: dict, cfg: LlamaConfig, mesh) -> None:
     gather, an expert's summed by the token exchange, and a parameter
     over tp gets its whole gradient on every tp rank.)  One all-reduce a
     set of axes and dtype, in :func:`trainable`'s order on every rank.
-    Nothing on a mesh whose data axes all have size 1."""
-    plan = _Plan(cfg, mesh)
+    On pp (after the GPipe forward's backward) the embedding's gradient,
+    which only stage 0's inputs carry, is summed over pp first, so every
+    stage updates the replicated embedding alike.  Nothing on a mesh
+    whose data axes all have size 1 and whose pp is 1."""
+    _reduce_gradients(params, cfg, _Plan(cfg, mesh), pp_embed=True)
+
+
+def _reduce_gradients(params: dict, cfg: LlamaConfig, plan: _Plan, *,
+                      pp_embed: bool) -> None:
+    mesh = plan.mesh
+    if pp_embed and plan.n_stages > 1:
+        e = params["embed"]
+        if e.grad is None:
+            e.grad = torch.zeros_like(e)
+        comm.all_reduce_sum_(e.grad, mesh, ("pp",))
     if plan.n_data == 1:
         return
     buckets: dict = {}
@@ -1174,8 +1478,96 @@ def reduce_gradients(params: dict, cfg: LlamaConfig, mesh) -> None:
             off += g.numel()
 
 
+# ---------------------------------------------------------------------------
+# the 1F1B step
+# ---------------------------------------------------------------------------
+
+def _stage_leaves(params: dict) -> list:
+    """The rank's per-layer optimizer leaves (its stage's on pp), in
+    :func:`trainable`'s order."""
+    trainable(params)
+    return [leaf for stack in params["layers"].values()
+            for leaf in stack._layer_leaves]
+
+
+def _pp_work(params: dict, batch: dict, cfg: LlamaConfig,
+             plan: _Plan, *, embed: bool = True) -> dict:
+    """What the 1F1B schedule needs on this rank: the embedding of its
+    rows (under autograd; its gradient comes from the returned input
+    cotangent), the microbatches, the stage body, its leaves, and the
+    loss head over the final norm and the lm_head (fsdp-gathered once a
+    step) for microbatch ``m``'s targets.  ``embed=False`` leaves the
+    embedding out (``h`` and ``mbs`` None): the one-process driver's
+    stages after the first take their input from stage 0's."""
+    tokens = batch["tokens"]
+    inputs = plan.local_batch(tokens[:, :-1])
+    targets = plan.local_batch(tokens[:, 1:])
+    B, S = inputs.shape
+    M = _pick_microbatches(tokens.shape[0], plan.size, cfg.pp_microbatches)
+    mb = B // M
+    h = _embed(params, inputs, cfg, plan) if embed else None
+    rope = _rope_tables(
+        _positions(S, plan, params["embed"].device).expand(mb, S),
+        cfg.rope_theta, cfg.head_dim)
+    with torch.no_grad():
+        lm = plan.gather_fsdp(params["lm_head"], plan.stack_specs["lm_head"])
+    lm = lm.detach().requires_grad_()
+    norm = params["final_norm"].detach().requires_grad_()
+    tgts = targets.reshape(M, mb, S)
+
+    def loss_head(y, m):
+        logits = torch.matmul(plan.copy_tp(_rmsnorm(y, norm)), lm).float()
+        return _nll(logits, tgts[m], plan).mean()
+
+    return {"h": h,
+            "mbs": None if h is None else h.detach().reshape(
+                M, mb, S, h.shape[-1]),
+            "stage_fn": _stack_fn(params, cfg, plan, rope, True),
+            "params": _stage_leaves(params), "loss_head": loss_head,
+            "head_params": [norm, lm]}
+
+
+def _pp_finish(params: dict, work: dict, result: tuple, cfg: LlamaConfig,
+               plan: _Plan, *, stage: bool = True, shared: bool = True
+               ) -> torch.Tensor:
+    """Put one rank's 1F1B gradients into ``.grad`` and return the loss:
+    the stage's (``stage``) and the replicated leaves' (``shared``: the
+    final norm's, the lm_head's reduce-scattered over fsdp, the
+    embedding's from the input cotangent, the same on every pp rank),
+    then each summed over the data axes its spec does not name.  The loss
+    and the aux are the global means; the loss returned is
+    ``loss + moe_aux_weight * aux``."""
+    loss, aux, dmbs, grads, (dnorm, dlm) = result
+    if stage:
+        for leaf in work["params"]:
+            # one fp32 accumulator at a time, freed as it is cast
+            leaf.grad = grads.pop(0).to(leaf.dtype)
+    if shared:
+        params["final_norm"].grad = dnorm.to(params["final_norm"].dtype)
+        if plan.size["fsdp"] > 1:
+            dlm = comm.reduce_scatter(dlm, plan.mesh, ("fsdp",), 0)
+        params["lm_head"].grad = dlm.to(params["lm_head"].dtype)
+        h = work["h"]
+        h.backward(dmbs.reshape(h.shape).to(h.dtype))
+    _reduce_gradients(params, cfg, plan, pp_embed=False)
+    if plan.n_data > 1:
+        both = torch.stack([loss, aux]) * (1.0 / plan.n_data)
+        loss, aux = comm.all_reduce_sum_(both, plan.mesh, DATA_AXES)
+    return loss + cfg.moe_aux_weight * aux
+
+
+def _check_schedule(cfg: LlamaConfig, plan: _Plan,
+                    pipeline_schedule: str) -> None:
+    if pipeline_schedule not in ("1f1b", "gpipe"):
+        raise ValueError(f"pipeline_schedule must be '1f1b' or 'gpipe', got "
+                         f"{pipeline_schedule!r}")
+    if plan.n_stages > 1 and pipeline_schedule == "1f1b" and cfg.blockwise_ce:
+        raise NotImplementedError("blockwise CE requires a pp=1 mesh")
+
+
 def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer, *,
-                    mesh=None) -> Callable[[dict, dict], torch.Tensor]:
+                    mesh=None, pipeline_schedule: str = "1f1b"
+                    ) -> Callable[[dict, dict], torch.Tensor]:
     """A training step ``step(params, batch) -> loss``: zero the gradients,
     :func:`loss_fn` forward and backward, ``optimizer.step()``.
 
@@ -1185,21 +1577,108 @@ def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer, *,
     donates its parameter buffers.  The loss comes back as a 0-d tensor on
     the parameters' device; the step makes no host sync.
 
-    With ``mesh=`` (a :func:`~..parallel.build_mesh` mesh, ``pp = 1``) the
-    parameters and the optimizer's state are this rank's blocks
-    (:func:`init_params` or :func:`shard_params` with the mesh), ``batch``
-    is the global batch, and :func:`reduce_gradients` runs between the
-    backward and the update; every rank returns the global loss.  The
+    With ``mesh=`` (a :func:`~..parallel.build_mesh` mesh) the parameters
+    and the optimizer's state are this rank's blocks (:func:`init_params`
+    or :func:`shard_params` with the mesh), ``batch`` is the global
+    batch, and :func:`reduce_gradients` runs between the backward and the
+    update; every rank returns the global loss.  On ``pp > 1``
+    ``pipeline_schedule`` picks "1f1b" (the default: explicit gradients,
+    at most ``2(pp - 1)`` microbatch inputs held a stage,
+    :func:`~..parallel.pipeline.pipeline_train_local`) or "gpipe"
+    (autograd through :func:`loss_fn`'s fill-drain forward).  The
     reference's mesh step takes a plain optax ``tx`` too, no
     ``DistributedOptimizer``."""
     _check_train_cfg(cfg)
-    _Plan(cfg, mesh)
+    plan = _Plan(cfg, mesh)
+    _check_schedule(cfg, plan, pipeline_schedule)
+
+    if plan.n_stages > 1 and pipeline_schedule == "1f1b":
+        from ..parallel.pipeline import pipeline_train_local
+
+        def step(params: dict, batch: dict) -> torch.Tensor:
+            optimizer.zero_grad(set_to_none=True)
+            work = _pp_work(params, batch, cfg, plan)
+            res = pipeline_train_local(
+                work["stage_fn"], work["params"], work["mbs"],
+                work["loss_head"], work["head_params"],
+                group=plan.pp_group(), aux_weight=cfg.moe_aux_weight,
+                seed_scale=1.0 / plan.n_data)
+            loss = _pp_finish(params, work, res, cfg, plan)
+            optimizer.step()
+            return loss.detach()
+
+        return step
 
     def step(params: dict, batch: dict) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(params, batch, cfg, mesh=mesh)
         loss.backward()
         reduce_gradients(params, cfg, mesh)
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# every stage of a pipeline in one process
+# ---------------------------------------------------------------------------
+
+def _pipeline_stages(params: dict, cfg: LlamaConfig, n: int) -> list[dict]:
+    """Stage ``s``'s parameters of a ``pp = n`` pipeline, for each s,
+    from the whole model's: layers ``s L/n .. (s+1) L/n - 1`` as views of
+    the stacks (sharing :func:`trainable`'s per-layer leaves), the
+    embedding, final norm and lm_head the whole model's tensors."""
+    if cfg.n_layers % n:
+        raise ValueError(f"pp={n} must divide n_layers={cfg.n_layers} "
+                         f"evenly")
+    trainable(params)
+    lp = cfg.n_layers // n
+    out = []
+    for s in range(n):
+        layers = {}
+        for k, stack in params["layers"].items():
+            view = stack[s * lp:(s + 1) * lp]
+            view._layer_leaves = stack._layer_leaves[s * lp:(s + 1) * lp]
+            layers[k] = view
+        out.append({"layers": layers,
+                    **{k: params[k] for k in ("embed", "final_norm",
+                                              "lm_head")}})
+    return out
+
+
+def make_pipeline_step_local(cfg: LlamaConfig,
+                             optimizer: torch.optim.Optimizer,
+                             n_stages: int
+                             ) -> Callable[[dict, dict], torch.Tensor]:
+    """The 1F1B training step of a ``pp = n_stages`` mesh whose every
+    other axis has size 1, with every stage run in this process and the
+    handoffs passed in memory (:func:`~..parallel.pipeline.
+    pipeline_train_stages`): the same stage bodies, loss head, embedding
+    step and tick tables as :func:`make_train_step` on that mesh, one
+    rank a stage, and bitwise its result at two stages.  ``params`` are
+    the whole model's (:func:`init_params` without a mesh), the
+    optimizer built over :func:`trainable` (params).  It drives a
+    pipeline's schedule on one card; on one card its stages run one
+    after the other, so it measures the schedule's work, never a
+    pipelining speed-up."""
+    _check_train_cfg(cfg)
+    plans = [_Plan(cfg, {"pp": n_stages}, coord={"pp": s})
+             for s in range(n_stages)]
+    _check_schedule(cfg, plans[0], "1f1b")
+    from ..parallel import pipeline as PL
+
+    def step(params: dict, batch: dict) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        stages = _pipeline_stages(params, cfg, n_stages)
+        works = [_pp_work(st, batch, cfg, pl, embed=s == 0)
+                 for s, (st, pl) in enumerate(zip(stages, plans))]
+        results = PL.pipeline_train_stages(
+            [{k: w[k] for k in ("stage_fn", "params", "loss_head",
+                                "head_params")} for w in works],
+            works[0]["mbs"], aux_weight=cfg.moe_aux_weight)
+        for s, (w, pl, r) in enumerate(zip(works, plans, results)):
+            loss = _pp_finish(params, w, r, cfg, pl, shared=s == 0)
         optimizer.step()
         return loss.detach()
 

@@ -1,5 +1,5 @@
 """Parallelism beyond data parallel: the rank mesh, logical sharding,
-tensor, sequence and expert parallelism.
+tensor, sequence, expert and pipeline parallelism.
 
 The port of ``horovod_tpu/parallel``:
 
@@ -16,15 +16,14 @@ The port of ``horovod_tpu/parallel``:
   group;
 - :mod:`.moe` — Switch-style top-1 MoE: the routing masks, the expert
   layer over an ``ep`` group's ``all_to_all`` and the job-scale layer
-  over the engine's ``alltoall`` verb.
-
-Pipeline parallelism (``parallel/pipeline.py``) is not ported yet
-(ROADMAP section A 'Parallel strategies, and what needs them').
+  over the engine's ``alltoall`` verb;
+- :mod:`.pipeline` — GPipe and 1F1B microbatch schedules over the ``pp``
+  group (point-to-point handoffs), with a one-process driver that runs
+  every stage in memory, and generation's stage-to-stage chain.
 """
 
 from .mesh import (  # noqa: F401
     AXES,
-    ROADMAP_ITEM,
     MeshConfig,
     build_mesh,
     data_axes,

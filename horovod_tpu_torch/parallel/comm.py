@@ -14,7 +14,12 @@ backward, Megatron style:
 - :func:`scatter` — this rank's slice forward, all-gather backward (a
   replicated tensor split over the ranks);
 - :func:`all_to_all` — block ``i`` of dim 0 to rank ``i`` forward, the
-  inverse exchange backward.
+  inverse exchange backward;
+- :func:`pipeline_handoff` — a GPipe tick's activation to the next
+  pipeline stage forward, its cotangent to the previous stage backward
+  (:class:`PipelineHandoff`); :func:`from_last_stage` — the last stage's
+  outputs on every stage forward, only the last stage's cotangent kept
+  backward.
 
 Each takes the mesh and a tuple of axes; the group is that of this rank
 over those axes, ranks in row-major order.  On a group of one rank each
@@ -26,7 +31,7 @@ step); a group over one axis is the mesh's own.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -202,8 +207,89 @@ def all_reduce_sum_(x: torch.Tensor, mesh, axes: Sequence[str]
     return x
 
 
+def reduce_scatter(x: torch.Tensor, mesh, axes: Sequence[str],
+                   dim: int) -> torch.Tensor:
+    """The sum over ``axes``, this rank's slice of it along ``dim`` (no
+    gradient)."""
+    group, n = group_of(mesh, axes)
+    return x if n == 1 else _reduce_scatter_dim(x.detach(), group, n, dim)
+
+
 def gather_tensor(x: torch.Tensor, mesh, axes: Sequence[str],
                   dim: int) -> torch.Tensor:
     """:func:`all_gather` with no gradient."""
     group, n = group_of(mesh, axes)
     return x if n == 1 else _all_gather_dim(x.detach(), group, n, dim)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`reduce_from` over a process group (the pipeline's)."""
+    return _ReduceFrom.apply(x, group)
+
+
+class PipelineHandoff(torch.autograd.Function):
+    """One GPipe tick's handoffs on a stage of a
+    :class:`~.pipeline.GroupTransport`: forward, this tick's activation
+    ``y`` to stage ``s + 1`` (when ``y`` is given) and the activation of
+    stage ``s - 1`` received (when ``like``, a tensor of its shape, is
+    given); backward, the received activation's cotangent to ``s - 1``
+    and ``y``'s received from ``s + 1``.  A token ``tok`` goes in and a
+    new one comes out: each tick's handoff takes the previous tick's, so
+    a stage's backward runs every handoff's backward, last tick first,
+    whether or not the activation it received is used (stage 0 receives
+    none)."""
+
+    @staticmethod
+    def forward(ctx, tok, y, transport, like):
+        s = transport.stage
+        ctx.transport = transport
+        ctx.y_like = None if y is None else torch.empty_like(y)
+        ctx.received = like is not None
+        got = transport.exchange(
+            [(s + 1, y)] if y is not None else [],
+            [(s - 1, like)] if like is not None else [])
+        x = got[0] if got else tok.new_zeros(0)
+        return x, tok.clone()
+
+    @staticmethod
+    def backward(ctx, gx, gtok):
+        s = ctx.transport.stage
+        got = ctx.transport.exchange(
+            [(s - 1, gx)] if ctx.received else [],
+            [(s + 1, ctx.y_like)] if ctx.y_like is not None else [])
+        return gtok, (got[0] if got else None), None, None
+
+
+def pipeline_handoff(y: Optional[torch.Tensor], tok: torch.Tensor,
+                     transport, like: Optional[torch.Tensor]) -> tuple:
+    """(received activation or an empty tensor, new token): see
+    :class:`PipelineHandoff`."""
+    return PipelineHandoff.apply(tok, y, transport, like)
+
+
+class _FromLastStage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, outs, tok, transport, shape, dtype):
+        last = transport.n - 1
+        ctx.last = transport.stage == last
+        buf = outs if ctx.last else torch.empty(shape, dtype=dtype,
+                                                device=tok.device)
+        return transport.from_stage(buf, last)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.last else None), torch.zeros((), dtype=torch.float32,
+                                                      device=g.device), \
+            None, None, None
+
+
+def from_last_stage(outs: Optional[torch.Tensor], tok: torch.Tensor,
+                    transport, shape, dtype) -> torch.Tensor:
+    """The last stage's ``outs`` on every stage of ``transport`` (the
+    reference's masked ``psum`` over pp, as a broadcast: the same bits).
+    Backward: the last stage's cotangent goes to its ``outs``, the other
+    stages' cotangents are dropped, so each stage's copy of a loss
+    computed from the result seeds one loss, not ``n``; ``tok`` (the
+    handoffs' token) gets a zero cotangent on every stage, which starts
+    the backward of its handoffs."""
+    return _FromLastStage.apply(outs, tok, transport, shape, dtype)

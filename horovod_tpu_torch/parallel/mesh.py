@@ -31,9 +31,6 @@ import dataclasses
 from typing import Optional
 
 AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
-# The ROADMAP section A item that pipeline parallelism and sharded
-# serving and generation wait for; refusals name it.
-ROADMAP_ITEM = "'Parallel strategies, and what needs them'"
 
 
 @dataclasses.dataclass(frozen=True)

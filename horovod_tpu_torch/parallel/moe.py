@@ -92,8 +92,16 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return dnn.all_to_all_single(torch.empty_like(x), x, group=group)
 
 
+#: ``group=`` of :func:`moe_layer_local` for one expert group of one rank
+#: inside a job of several (the pipeline's stage body at ``ep = 1``):
+#: this rank's tokens to all the experts, no exchange.
+ONE_RANK = "one rank"
+
+
 def _group_size(group) -> int:
     import torch.distributed as dist
+    if group is ONE_RANK:
+        return 1
     if group is None and not dist.is_initialized():
         return 1
     return dist.get_world_size(group)

@@ -376,9 +376,14 @@ def serve(params: Any, cfg, *, mesh=None,
     the same device) turns on speculative decoding: k draft tokens a
     round, verified in one target forward; ``spec_k`` without a draft
     raises ``ValueError``.  Both emit the tokens of plain greedy decoding.
-    ``mesh=`` waits for a later slice of the port (ROADMAP section A
-    'Parallel strategies, and what needs them') and raises
-    ``NotImplementedError``.
+    ``mesh=`` (a dp/fsdp/tp mesh of :func:`~horovod_tpu_torch.parallel.
+    build_mesh`, ``params`` this rank's blocks from
+    :func:`~horovod_tpu_torch.models.llama.shard_params` or
+    ``init_params(mesh=)``) serves sharded: every rank builds the session
+    and submits the same requests in the same order, and every rank's
+    engine emits every request's tokens (see
+    :mod:`horovod_tpu_torch.serving.engine`); sp, ep and pp raise
+    ``NotImplementedError`` with the JAX package's message.
     """
     base = engine_cfg or EngineConfig()
     if engine_kw:

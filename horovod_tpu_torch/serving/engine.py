@@ -28,8 +28,29 @@ speculative decoding (:attr:`EngineConfig.spec_k` with a draft model;
 decode tick).  Disaggregated serving moves a request's KV blocks between
 engines: ``submit(migrate_cb=)`` exports them after the prefill emission
 and :meth:`ServingEngine.import_migrated` resumes decoding them
-(:mod:`horovod_tpu_torch.serving.disagg`).  Sharded serving waits for a
-later slice of the port and raises ``NotImplementedError``.
+(:mod:`horovod_tpu_torch.serving.disagg`).
+
+**Sharded serving** (``mesh=``, a dp/fsdp/tp mesh; sp, ep and pp are
+refused with the JAX package's message).  The JAX package runs one
+controller over the whole mesh; here every rank is a process, and every
+rank runs this engine, the same scheduler over the same requests
+(submitted on every rank in the same order), in lockstep: each step's
+model call is collective over the mesh.
+
+- The model steps take ``mesh=`` (:func:`~horovod_tpu_torch.models.llama.
+  decode_step_paged` and the others): a rank computes its share of the
+  decode rows (``max_active`` divides over dp·fsdp, as the reference
+  checks) and of the heads (tp).
+- A rank learns the tokens it did not compute from the logits: each
+  step gathers them over tp (the vocabulary) and dp·fsdp (the rows)
+  before the argmax, so every rank picks every row's token and the
+  schedulers stay identical.
+- The pool is ``[L, num_blocks, block_size, KV/tp, Dh]`` on every rank
+  (the rank's tp share of the kv heads; the kv heads its q heads read
+  where tp does not divide them), every block on every rank of a
+  dp·fsdp group: each layer's fresh K/V rows are all-gathered over
+  dp·fsdp before the write, so the pools stay identical there.  Bytes a
+  rank: ``2 L num_blocks block_size (KV/tp) Dh`` times the dtype's size.
 """
 
 from __future__ import annotations
@@ -47,7 +68,6 @@ from ..models import llama
 from ..obs import REGISTRY as _obs
 from ..obs import trace as _trace
 from ..ops import flash_attention as FA
-from ..parallel.mesh import ROADMAP_ITEM
 from ..utils import logging as hvd_logging
 from .kv_pager import KVPager, OutOfBlocks, PagedKVCache
 from .scheduler import Request, RequestState, Scheduler
@@ -72,10 +92,6 @@ _m_decode_tokens = _obs.counter(
 _m_prefill_skipped = _obs.counter(
     "hvd_serving_prefill_skipped_tokens_total",
     "prompt tokens NOT prefilled because a cached prefix covered them")
-
-_WAITS = ("waits for a later slice of the port: sharded serving and "
-          "generation, ROADMAP section A " + ROADMAP_ITEM)
-
 
 def _bucket_pow2(n: int, floor: int = 1) -> int:
     b = floor
@@ -166,8 +182,17 @@ class ServingEngine:
         self.timeline = timeline
         if cfg.use_moe:
             raise NotImplementedError("serving does not support MoE configs")
+        plan = llama._Plan(cfg, None)
         if mesh is not None:
-            raise NotImplementedError(f"sharded serving (mesh=) {_WAITS}")
+            from ..parallel import sharding as shd
+            sizes = shd.axis_sizes(mesh)
+            dpf = sizes.get("dp", 1) * sizes.get("fsdp", 1)
+            if engine_cfg.max_active % dpf:
+                raise ValueError(
+                    f"max_active={engine_cfg.max_active} must divide over "
+                    f"dp*fsdp={dpf}")
+            llama._serving_mesh(mesh)
+            plan = llama._Plan(cfg, mesh)
         if engine_cfg.use_flash not in ("auto", "never"):
             raise ValueError(
                 f"use_flash must be 'auto' or 'never', got "
@@ -183,11 +208,11 @@ class ServingEngine:
         self.params = params
         self.cfg = cfg
         self.ecfg = engine_cfg
-        self.mesh = None
+        self.mesh = mesh
 
         self.cache = PagedKVCache(
             n_layers=cfg.n_layers, num_blocks=engine_cfg.num_blocks,
-            block_size=engine_cfg.block_size, kv_heads=cfg.n_kv_heads,
+            block_size=engine_cfg.block_size, kv_heads=plan.kv_local,
             head_dim=cfg.head_dim)
         self.pager = KVPager(self.cache)
         self.prefix_cache = None
@@ -224,7 +249,7 @@ class ServingEngine:
     # -- step bodies -----------------------------------------------------
     def _prefill(self, tokens: torch.Tensor, last_pos: torch.Tensor):
         logits, ks, vs = llama.prefill_step(
-            self.params, tokens, self.cfg, last_pos=last_pos)
+            self.params, tokens, self.cfg, mesh=self.mesh, last_pos=last_pos)
         return torch.argmax(logits, dim=-1), ks, vs
 
     @torch.no_grad()
@@ -246,7 +271,7 @@ class ServingEngine:
     def _decode(self, tok, pos, tables):
         logits, _, _ = llama.decode_step_paged(
             self.params, tok, pos, self.k_pool, self.v_pool, tables,
-            self.cfg, use_flash=self._use_flash)
+            self.cfg, mesh=self.mesh, use_flash=self._use_flash)
         return torch.argmax(logits, dim=-1)
 
     def _extend(self, tok, pos, valid, tables):
@@ -254,7 +279,7 @@ class ServingEngine:
         the prefix-hit tail prefill and the speculative verify step."""
         logits, _, _ = llama.extend_step_paged(
             self.params, tok, pos, valid, self.k_pool, self.v_pool, tables,
-            self.cfg)
+            self.cfg, mesh=self.mesh)
         return torch.argmax(logits, dim=-1)
 
     # -- public surface --------------------------------------------------

@@ -14,7 +14,16 @@ each, through the port's launcher on the CPU over Gloo (the machinery of
 - ``llama`` (``tests/test_torch_llama_mesh.py``): the tiny Llama trained
   on every mesh of :data:`MESHES` for this world size, from the JAX
   package's full parameters (``outdir/params.npz``, written by the test,
-  since a rank never imports jax).
+  since a rank never imports jax);
+- ``pipeline`` (``tests/test_torch_pipeline.py``): the GPipe and 1F1B
+  schedules of ``parallel/pipeline.py`` on a toy stage over the ``pp``
+  group of the whole world;
+- ``llama_pp`` (``tests/test_torch_llama_pp.py``): the tiny Llama trained
+  on every pipelined mesh of :data:`PP_MESHES` for this world size under
+  both schedules, its first gradients and three losses;
+- ``generate`` (``tests/test_torch_generate.py``) and ``serving``
+  (``tests/test_torch_serving.py``): ``generate(mesh=)`` and the serving
+  engine on the meshes of :data:`GEN_MESHES` and :data:`SERVE_MESHES`.
 
 The inputs are made with numpy from fixed seeds by the functions below,
 which the tests import to build the same inputs for the JAX side.
@@ -50,10 +59,14 @@ def load(mode: str, outdir, np_: int) -> list:
 
 
 class PipelineMesh:
-    """A mesh with ``pp = 2`` (every other axis 1), as a ``DeviceMesh``
-    shows its axes: what the refusal tests hand the model."""
+    """Stage 0's view of a mesh with ``pp = 2`` (every other axis 1), as
+    a ``DeviceMesh`` shows its axes and coordinate: what the refusal tests
+    hand the model (each refusal comes before any collective)."""
     mesh_dim_names = ("pp", "dp", "fsdp", "ep", "sp", "tp")
     shape = (2, 1, 1, 1, 1, 1)
+
+    def get_coordinate(self):
+        return [0] * 6
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +100,84 @@ MESHES = {
         "moe_ep2sp2": (dict(ep=2, sp=2), MOE, ()),
     },
 }
+
+
+# name -> (mesh sizes, config edits, what else the rank records); every
+# mesh runs under both schedules
+PP_MESHES = {
+    2: {
+        "pp2": (dict(pp=2), {}, ("shards", "saved", "micro")),
+    },
+    4: {
+        "pp2tp2": (dict(pp=2, tp=2), {}, ("shards",)),
+        "pp2dp2": (dict(pp=2, dp=2), {}, ()),
+        "pp2fsdp2": (dict(pp=2, fsdp=2), {}, ("shards",)),
+        "pp2sp2_ring": (dict(pp=2, sp=2), dict(sp_attention="ring"), ()),
+        "pp2sp2_ulysses": (dict(pp=2, sp=2), dict(sp_attention="ulysses"),
+                           ()),
+        "pp4": (dict(pp=4), dict(n_layers=4), ("saved",)),
+        "moe_pp2ep2": (dict(pp=2, ep=2), MOE, ()),
+    },
+}
+SCHEDULES = ("1f1b", "gpipe")
+PP_MICRO = 8           # the "micro" case's cfg.pp_microbatches (auto: 4)
+
+
+def params_kind(edits: dict) -> str:
+    """The file of full weights a config's mesh runs from."""
+    if edits.get("use_moe"):
+        return "moe"
+    return "dense4" if edits.get("n_layers") == 4 else "dense"
+
+
+PIPE = dict(M=8, mb=2, d=4)
+
+
+def pipe_inputs(n: int) -> tuple:
+    """``tests/test_parallel.py``'s 1F1B oracle inputs for n stages:
+    stage weights ``[n, d, d]``, the head's bias, microbatches and
+    targets ``[M, mb, d]``."""
+    rng = np.random.RandomState(7)
+    M, mb, d = PIPE["M"], PIPE["mb"], PIPE["d"]
+    ws = (rng.randn(n, d, d) * 0.3).astype(np.float32)
+    bias = rng.randn(d).astype(np.float32)
+    mbs = rng.randn(M, mb, d).astype(np.float32)
+    tgts = rng.randn(M, mb, d).astype(np.float32)
+    return ws, bias, mbs, tgts
+
+
+AUX_W = 0.5
+
+
+def toy_stage(torch, w, with_aux: bool):
+    """Stage ``x -> tanh(x @ w)``, its aux ``mean(y ** 2)``."""
+    def fn(x):
+        y = torch.tanh(x @ w)
+        return (y, (y * y).mean()) if with_aux else y
+    return fn
+
+
+GEN_MESHES = {2: {"tp2": dict(tp=2), "dp2": dict(dp=2), "pp2": dict(pp=2)},
+              4: {"pp2tp2": dict(pp=2, tp=2), "pp2dp2": dict(pp=2, dp=2)}}
+GEN = dict(B=4, P=5, new=4, seed=21, temperature=0.7)
+SERVE_MESHES = {"dp2": dict(dp=2), "tp2": dict(tp=2)}
+SERVE = dict(block_size=8, num_blocks=32, max_active=4, new=5)
+
+
+def gen_prompt() -> np.ndarray:
+    return np.random.RandomState(6).randint(
+        0, 256, size=(GEN["B"], GEN["P"])).astype(np.int32)
+
+
+def serve_prompts() -> list:
+    """Six requests; the last three share an 8-token head with the first
+    (one full block: the prefix cache's hits)."""
+    rng = np.random.RandomState(8)
+    out = [rng.randint(0, 256, size=(n,)).astype(np.int32)
+           for n in (9, 5, 12)]
+    out += [np.concatenate([out[0][:8], rng.randint(0, 256, size=(n,))])
+            .astype(np.int32) for n in (3, 6, 1)]
+    return out
 
 
 def tokens() -> np.ndarray:
@@ -362,7 +453,208 @@ def _block(full, spec, mesh):
     return shd.block(full, spec, shd.axis_sizes(mesh), shd.coordinate(mesh))
 
 
-BATTERIES = {"sharding": run_sharding, "llama": run_llama}
+def run_pipeline(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
+    import torch
+
+    from horovod_tpu_torch.parallel import MeshConfig, build_mesh
+    from horovod_tpu_torch.parallel import pipeline as PL
+
+    mesh = build_mesh(MeshConfig(pp=n))
+    group = mesh.get_group("pp")
+    ws, bias, mbs, tgts = (_t(a) for a in pipe_inputs(n))
+    arrays["apply"] = _np(PL.pipeline_apply(
+        lambda w, x: torch.tanh(x @ w), ws, mbs, mesh))
+    seen = []
+    real_tick = PL.OneFOneBStage.tick
+
+    def counting_tick(self, *a):
+        out = real_tick(self, *a)
+        seen.append(self.saved_inputs())
+        return out
+
+    PL.OneFOneBStage.tick = counting_tick
+    for aux in (False, True):
+        tag = "aux" if aux else "plain"
+        w = ws[me].clone().requires_grad_()
+        hp = bias.clone().requires_grad_()
+        seen.clear()
+        res = PL.pipeline_train_local(
+            toy_stage(torch, w, True) if aux else
+            (lambda x, w=w: (torch.tanh(x @ w), torch.zeros(()))), [w], mbs,
+            lambda y, m: ((y + hp - tgts[m]) ** 2).mean(), [hp],
+            group=group, aux_weight=AUX_W if aux else 0.0)
+        loss, a, dmbs, (dw,), (dh,) = res
+        info[f"1f1b.{tag}.loss"] = loss.item()
+        info[f"1f1b.{tag}.aux"] = a.item()
+        info[f"1f1b.{tag}.max_saved"] = max(seen)
+        arrays[f"1f1b.{tag}.dw"] = _np(dw)
+        arrays[f"1f1b.{tag}.dh"] = _np(dh)
+        arrays[f"1f1b.{tag}.dmbs"] = _np(dmbs)
+        # GPipe under autograd: the same loss through the fill-drain
+        # forward and the handoffs' backward
+        w = ws[me].clone().requires_grad_()
+        hp = bias.clone().requires_grad_()
+        xs = mbs.clone().requires_grad_()
+        out = PL.pipeline_apply_local(toy_stage(torch, w, aux), xs,
+                                      group=group, with_aux=aux)
+        out, a = out if aux else (out, torch.zeros(()))
+        M = out.shape[0]
+        loss = sum(((out[m] + hp - tgts[m]) ** 2).mean()
+                   for m in range(M)) / M + AUX_W * a
+        loss.backward()
+        info[f"gpipe.{tag}.loss"] = loss.item()
+        arrays[f"gpipe.{tag}.out"] = _np(out)
+        arrays[f"gpipe.{tag}.dw"] = _np(w.grad)
+        arrays[f"gpipe.{tag}.dh"] = _np(hp.grad)
+        arrays[f"gpipe.{tag}.dmbs"] = (_np(xs.grad) if xs.grad is not None
+                                       else np.zeros(0, np.float32))
+    PL.OneFOneBStage.tick = real_tick
+
+
+class _Recording:
+    """An optimizer that keeps a copy of the first step's gradients
+    (restacked) and then steps the one it wraps."""
+
+    def __init__(self, opt, params):
+        self.opt, self.params, self.grads = opt, params, None
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.opt.zero_grad(set_to_none=set_to_none)
+
+    def step(self) -> None:
+        if self.grads is None:
+            self.grads = _restack(self.params, grads=True)
+        self.opt.step()
+
+
+def _load_full(outdir: str) -> dict:
+    full = {}
+    for kind in ("dense", "dense4", "moe"):
+        path = os.path.join(outdir, f"params.{kind}.npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                full[kind] = nest_params({k: z[k] for k in z.files})
+    return full
+
+
+def run_llama_pp(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import MeshConfig, build_mesh
+    from horovod_tpu_torch.parallel import pipeline as PL
+
+    full = _load_full(os.environ["MESH_OUT"])
+    batch = {"tokens": _t(tokens())}
+    saved = []
+    real_tick = PL.OneFOneBStage.tick
+
+    def counting_tick(self, *a):
+        out = real_tick(self, *a)
+        saved.append(self.saved_inputs())
+        return out
+
+    PL.OneFOneBStage.tick = counting_tick
+    picked = []
+    real_pick = llama._pick_microbatches
+    llama._pick_microbatches = lambda *a: picked.append(real_pick(*a)) \
+        or picked[-1]
+    for name, (sizes, edits, extra) in PP_MESHES[n].items():
+        mesh = build_mesh(MeshConfig(**sizes))
+        cfg = llama.LlamaConfig.tiny(**edits)
+        src = full[params_kind(edits)]
+        if "shards" in extra:
+            for k, a in _restack(llama.shard_params(src, cfg, mesh,
+                                                    "cpu")).items():
+                arrays[f"{name}.shard.{k}"] = a
+        cases = [(s, cfg) for s in SCHEDULES]
+        if "micro" in extra:
+            cases.append(("1f1b.m8", dataclasses.replace(
+                cfg, pp_microbatches=PP_MICRO)))
+        for sched, c in cases:
+            params = llama.shard_params(src, c, mesh, device="cpu")
+            opt = _Recording(torch.optim.Adam(llama.trainable(params),
+                                              lr=LR, eps=1e-8), params)
+            step = llama.make_train_step(
+                c, opt, mesh=mesh, pipeline_schedule=sched.split(".")[0])
+            saved.clear()
+            picked.clear()
+            info[f"{name}.{sched}.losses"] = [step(params, batch).item()
+                                              for _ in range(STEPS)]
+            info[f"{name}.{sched}.microbatches"] = picked[0]
+            info[f"{name}.{sched}.max_saved"] = max(saved, default=0)
+            for k, a in opt.grads.items():
+                arrays[f"{name}.{sched}.grad.{k}"] = a
+        if "micro" in extra:
+            bad = dataclasses.replace(cfg, pp_microbatches=3)
+            params = llama.shard_params(src, bad, mesh, device="cpu")
+            step = llama.make_train_step(
+                bad, torch.optim.Adam(llama.trainable(params)), mesh=mesh)
+            try:
+                step(params, batch)
+            except ValueError as e:
+                info[f"{name}.bad_micro"] = str(e)
+    PL.OneFOneBStage.tick = real_tick
+    llama._pick_microbatches = real_pick
+
+
+def run_generate(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import MeshConfig, build_mesh
+
+    full = _load_full(os.environ["MESH_OUT"])["dense"]
+    prompt = _t(gen_prompt())
+    cfg = llama.LlamaConfig.tiny()
+    for name, sizes in GEN_MESHES[n].items():
+        mesh = build_mesh(MeshConfig(**sizes))
+        params = llama.shard_params(full, cfg, mesh, device="cpu")
+        arrays[f"{name}.greedy"] = _np(llama.generate(
+            params, prompt, cfg, max_new_tokens=GEN["new"], mesh=mesh))
+        for i in range(2):
+            g = torch.Generator().manual_seed(GEN["seed"])
+            arrays[f"{name}.sampled{i}"] = _np(llama.generate(
+                params, prompt, cfg, max_new_tokens=GEN["new"], mesh=mesh,
+                temperature=GEN["temperature"], generator=g))
+        if sizes.get("tp", 1) > 1:
+            arrays[f"{name}.overlap"] = _np(llama.generate(
+                params, prompt, dataclasses.replace(cfg,
+                                                    decode_tp_overlap=True),
+                max_new_tokens=GEN["new"], mesh=mesh))
+
+
+def run_serving(hvd, me: int, n: int, arrays: dict, info: dict) -> None:
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.parallel import MeshConfig, build_mesh
+
+    full = _load_full(os.environ["MESH_OUT"])["dense"]
+    cfg = llama.LlamaConfig.tiny()
+    knobs = {k: SERVE[k] for k in ("block_size", "num_blocks", "max_active")}
+    for name, sizes in SERVE_MESHES.items():
+        mesh = build_mesh(MeshConfig(**sizes))
+        params = llama.shard_params(full, cfg, mesh, device="cpu")
+        for tag, extra in (("plain", {}), ("prefix", {"prefix_cache": True})):
+            sess = serving.serve(params, cfg, mesh=mesh, device="cpu",
+                                 **knobs, **extra)
+            futs = [sess.submit(p, SERVE["new"]) for p in serve_prompts()]
+            sess.drain()
+            for i, f in enumerate(futs):
+                arrays[f"{name}.{tag}.req{i}"] = np.asarray(
+                    f.result().tokens, np.int32)
+            info[f"{name}.{tag}.pool"] = list(sess.engine.k_pool.shape)
+            info[f"{name}.{tag}.ticks"] = sess.engine.decode_ticks
+            sess.close()
+
+
+BATTERIES = {"sharding": run_sharding, "llama": run_llama,
+             "pipeline": run_pipeline, "llama_pp": run_llama_pp,
+             "generate": run_generate, "serving": run_serving}
 
 
 def main(mode: str, outdir: str) -> int:

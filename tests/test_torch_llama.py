@@ -323,9 +323,12 @@ def test_engine_rejects_interpret_mode(models):
 
 
 def test_moe_and_mesh_wait_for_later_slices(models):
-    """The name is kept from when MoE configs were refused everywhere:
-    they train now, and the serving steps refuse them with the JAX
-    package's serving message; ``mesh=`` still waits."""
+    """The name is kept from when MoE configs were refused everywhere and
+    ``mesh=`` waited: MoE configs train now, and the serving steps refuse
+    them with the JAX package's serving message; the serving steps run on
+    dp/fsdp/tp meshes (a mesh of one rank gives the plain step's values
+    bitwise) and refuse sp, ep and pp with the JAX package's engine's
+    message."""
     _, _, tcfg, tparams = models
     g = torch.Generator()
     mcfg = tllama.LlamaConfig.tiny(use_moe=True, n_experts=4)
@@ -335,9 +338,15 @@ def test_moe_and_mesh_wait_for_later_slices(models):
     with pytest.raises(NotImplementedError,
                        match="serving does not support MoE configs"):
         tllama.prefill_step(mparams, tok, mcfg)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tllama.prefill_step(tparams, torch.zeros(1, 3, dtype=torch.int32),
-                            tcfg, mesh=object())
+    tok = torch.arange(6, dtype=torch.int32).reshape(2, 3)
+    for axis in ("sp", "ep", "pp"):
+        with pytest.raises(NotImplementedError,
+                           match=f"serving supports dp/fsdp/tp meshes; "
+                                 f"{axis} is a training-path axis here"):
+            tllama.prefill_step(tparams, tok, tcfg, mesh={axis: 2})
+    one = tllama.prefill_step(tparams, tok, tcfg, mesh={"dp": 1, "tp": 1})
+    for a, b in zip(one, tllama.prefill_step(tparams, tok, tcfg)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -425,5 +434,31 @@ def test_moe_refusals_keep_the_reference_messages(moe_models):
     with pytest.raises(NotImplementedError, match=msg):
         ServingEngine(tparams, tcfg, device="cpu")
     from mp_torch_mesh_worker import PipelineMesh
-    with pytest.raises(NotImplementedError, match="pp = 2 in mesh="):
-        tllama.forward(tparams, tok[:, None], tcfg, mesh=PipelineMesh())
+    with pytest.raises(NotImplementedError,
+                       match="generate does not support MoE configs"):
+        tllama.generate(tparams, tok[:, None], tcfg, max_new_tokens=2,
+                        mesh=PipelineMesh())
+    with pytest.raises(NotImplementedError, match=msg):
+        ServingEngine(tparams, tcfg, device="cpu", mesh={"tp": 2})
+
+
+def test_serving_steps_run_the_configs_layers(models):
+    """The steps run ``cfg.n_layers`` layers of the stacks they are given
+    (a cut config over whole weights: the card's kernel-against-gather
+    parity runs one layer of the 7B weights so), the same values as the
+    stacks cut to those layers."""
+    import dataclasses
+    _, _, tcfg, tparams = models
+    one = dataclasses.replace(tcfg, n_layers=1)
+    cut = dict(tparams, layers={k: v[:1] for k, v in
+                                tparams["layers"].items()})
+    tok = torch.tensor([3, 7], dtype=torch.int32)
+    pos = torch.tensor([2, 5], dtype=torch.int32)
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    pool = torch.randn(2, 6, 4, tcfg.n_kv_heads, tcfg.head_dim,
+                       generator=torch.Generator().manual_seed(1))
+    outs = [tllama.decode_step_paged(p, tok, pos, pool.clone(), pool.clone(),
+                                     tables, one)[0] for p in (tparams, cut)]
+    assert torch.equal(*outs)
+    pre = [tllama.prefill_step(p, tok[None], one)[0] for p in (tparams, cut)]
+    assert torch.equal(*pre)

@@ -166,15 +166,113 @@ def test_device_defaults_to_the_local_rank_card(monkeypatch):
 
 @pytest.mark.parametrize("what", ["mesh", "moe"])
 def test_later_slices_raise_not_implemented(models, what):
-    """Sharded serving waits for a later slice; MoE configs are refused
-    for good, with the JAX package's message (it serves no MoE either)."""
+    """The name is kept from when sharded serving waited for a later
+    slice: what is refused now is what the JAX package refuses, with its
+    messages: sp, ep and pp meshes (training-path axes), a decode batch
+    that does not divide over dp·fsdp, and MoE configs."""
     _, _, tcfg, tparams = models
-    kw = {"mesh": dict(mesh=object()), "moe": {}}[what]
-    cfg = tllama.LlamaConfig.tiny(use_moe=True) if what == "moe" else tcfg
-    match = {"mesh": "later slice",
-             "moe": "serving does not support MoE configs"}[what]
-    with pytest.raises(NotImplementedError, match=match):
-        tserving.serve(tparams, cfg, device="cpu", **kw)
+    if what == "moe":
+        with pytest.raises(NotImplementedError,
+                           match="serving does not support MoE configs"):
+            tserving.serve(tparams, tllama.LlamaConfig.tiny(use_moe=True),
+                           device="cpu")
+        return
+    for axis in ("sp", "ep", "pp"):
+        with pytest.raises(NotImplementedError,
+                           match=f"serving supports dp/fsdp/tp meshes; "
+                                 f"{axis} is a training-path axis here"):
+            tserving.serve(tparams, tcfg, device="cpu", mesh={axis: 2})
+    with pytest.raises(ValueError,
+                       match="max_active=3 must divide over dp\\*fsdp=2"):
+        tserving.serve(tparams, tcfg, device="cpu", mesh={"dp": 2},
+                       max_active=3)
+
+
+# ---------------------------------------------------------------------------
+# serve(mesh=) over Gloo
+# ---------------------------------------------------------------------------
+
+def _serve_tokens(sess) -> list:
+    import mp_torch_mesh_worker as MW
+    futs = [sess.submit(p, MW.SERVE["new"]) for p in MW.serve_prompts()]
+    sess.drain()
+    out = [list(f.result().tokens) for f in futs]
+    sess.close()
+    return out
+
+
+@pytest.fixture(scope="module")
+def served2(tmp_path_factory):
+    """The port's np=2 job (``tests/mp_torch_mesh_worker.py``, mode
+    ``serving``: dp2 and tp2, with and without the prefix cache), the JAX
+    package's ``serve(mesh=)`` on meshes of the same shape, and the
+    port's unsharded engine, on the same weights and prompts."""
+    import threading
+
+    import jax.numpy as jnp
+
+    import mp_torch_dataplane_worker as DW
+    import mp_torch_mesh_worker as MW
+    from horovod_tpu.parallel import MeshConfig as JMeshConfig
+    from horovod_tpu.parallel import build_mesh as jbuild_mesh
+    outdir = str(tmp_path_factory.mktemp("serve2"))
+    jcfg = jllama.LlamaConfig.tiny()
+    full = jax.tree.map(np.asarray, jllama.init_params(
+        jcfg, jax.random.PRNGKey(0),
+        jbuild_mesh(JMeshConfig(), devices=jax.devices()[:1])))
+    np.savez(os.path.join(outdir, "params.dense.npz"),
+             **MW.flat_params(full))
+    box = {}
+    job = threading.Thread(target=lambda: box.setdefault(
+        "res", MW.launch("serving", outdir, 2, timeout=240)))
+    job.start()
+    knobs = {k: MW.SERVE[k] for k in ("block_size", "num_blocks",
+                                      "max_active")}
+    ref = {}
+    for name, sizes in MW.SERVE_MESHES.items():
+        mesh = jbuild_mesh(JMeshConfig(**sizes), devices=jax.devices()[:2])
+        params = jax.device_put(jax.tree.map(jnp.asarray, full),
+                                jllama.param_shardings(jcfg, mesh))
+        ref[name] = _serve_tokens(jserving.serve(params, jcfg, mesh=mesh,
+                                                 **knobs))
+    job.join()
+    DW.check_ranks(box["res"])
+    tparams = tllama.params_from_jax(full, device="cpu")
+    plain = {tag: _serve_tokens(tserving.serve(
+        tparams, tllama.LlamaConfig.tiny(), device="cpu", **knobs, **extra))
+        for tag, extra in (("plain", {}), ("prefix", {"prefix_cache": True}))}
+    return MW.load("serving", outdir, 2), ref, plain
+
+
+@pytest.mark.parametrize("tag", ["plain", "prefix"])
+@pytest.mark.parametrize("name", ["dp2", "tp2"])
+def test_mesh_serving_matches_unsharded_and_jax(served2, name, tag):
+    """Every rank's engine on the mesh emits every request's tokens: the
+    unsharded engine's, and the JAX package's engine's on a mesh of the
+    same shape (with the prefix cache too: the hits prefill through
+    ``extend_step_paged`` on the mesh)."""
+    import mp_torch_mesh_worker as MW
+    ranks, ref, plain = served2
+    for arrays, info in ranks:
+        assert not info["jax_loaded"]
+        got = [arrays[f"{name}.{tag}.req{i}"].tolist()
+               for i in range(len(MW.serve_prompts()))]
+        assert got == plain[tag]
+        assert got == ref[name]
+        assert info[f"{name}.{tag}.ticks"] > 0
+
+
+@pytest.mark.parametrize("name", ["dp2", "tp2"])
+def test_mesh_pool_holds_the_rank_share_of_the_kv_heads(served2, name):
+    """The pool is ``[L, num_blocks, block_size, KV/tp, Dh]`` on every
+    rank: the tp share of the kv heads, every block (dp keeps it
+    whole)."""
+    import mp_torch_mesh_worker as MW
+    ranks, _, _ = served2
+    kv = 2 // (2 if name == "tp2" else 1)
+    for _, info in ranks:
+        assert info[f"{name}.plain.pool"] == [2, MW.SERVE["num_blocks"],
+                                              MW.SERVE["block_size"], kv, 16]
 
 
 def test_migration_raises_not_implemented(models):

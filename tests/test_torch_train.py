@@ -218,19 +218,24 @@ def test_attention_hook_is_off_and_routes_through_flash(setup, monkeypatch):
     ({"use_moe": True}, {"mesh": PipelineMesh()}),
 ])
 def test_unported_training_options_raise(setup, edit, kw):
-    """A pipelined mesh (``pp > 1``) is refused, for dense and MoE
-    configs alike, naming its ROADMAP item (the other meshes train:
-    ``tests/test_torch_llama_mesh.py``)."""
+    """The name is kept from when a pipelined mesh (``pp > 1``) was
+    refused: it trains now (``tests/test_torch_llama_pp.py``).  What the
+    JAX package refuses on it stays refused with its message, for dense
+    and MoE configs alike: the blockwise loss in the 1F1B step and as a
+    hidden-state forward; an unknown schedule is a ValueError."""
     _, tcfg, _, np_params, tokens = setup
-    cfg = dataclasses.replace(tcfg, **edit)
+    cfg = dataclasses.replace(tcfg, blockwise_ce=True, **edit)
     params = _torch_params(np_params)
-    match = "Parallel strategies, and what needs them"
-    with pytest.raises(NotImplementedError, match=match):
-        tllama.loss_fn(params, {"tokens": torch.from_numpy(tokens[:, :9])},
-                       cfg, **kw)
+    match = "blockwise CE requires a pp=1 mesh"
     with pytest.raises(NotImplementedError, match=match):
         tllama.make_train_step(cfg, torch.optim.Adam(
             tllama.trainable(params)), **kw)
+    with pytest.raises(NotImplementedError, match=match):
+        tllama.forward(params, torch.from_numpy(tokens[:, :9]), cfg,
+                       return_hidden=True, **kw)
+    with pytest.raises(ValueError, match="pipeline_schedule"):
+        tllama.make_train_step(cfg, torch.optim.Adam(
+            tllama.trainable(params)), pipeline_schedule="zero-bubble", **kw)
 
 
 # ---------------------------------------------------------------------------
