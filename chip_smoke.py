@@ -10,7 +10,8 @@ door's prefix cache and speculative decoding, and batch ``generate``),
 multi-replica serving (the router, disaggregated prefill/decode),
 training (with its recompute and loss variants, as a Switch-MoE, on a
 mesh, as two pipeline stages), sharded serving at one rank and
-data-parallel training through Horovod's runtime, and checks them, phase
+data-parallel training through Horovod's runtime, and the model zoo
+(ResNet-50, BERT-Large, DLRM) trained through it, and checks them, phase
 by phase, printing one JSON line per phase:
 
 1. ``device``  the card's name and power limit (``nvidia-smi``), torch and
@@ -251,7 +252,38 @@ by phase, printing one JSON line per phase:
    under the same ``hvd.init()``, timed in turn: plain, mesh, mesh,
    plain) and ``generate(mesh=)`` on 2 prompts of 128 tokens, 16 new
    (bitwise the plain ``generate``'s); every ``torch.distributed`` call
-   wrapped and counted (none may run).
+   wrapped and counted (none may run);
+21. ``train_resnet``  ResNet-50 (``models/resnet.py``: bf16 convolutions
+   in ``channels_last``, flax's fp32 batch norm, fp32 head) on a fixed
+   synthetic batch of 128 images of 224x224x3, 1000 classes, under
+   ``hvd.init()`` at one rank (NCCL) with ``DistributedOptimizer`` over
+   SGD with momentum 0.9: one warm-up and three timed steps, every
+   kernel counter zeroed just before and read just after (none of the
+   four may launch: the JAX package computes the model outside any
+   Pallas kernel); the losses finite and below the first; step ms,
+   images/s, MFU (3 x the forward's MACs x 2 a step), peak memory; and
+   the logits of 4 images on the card (weights just drawn, every
+   block's last norm at scale 0.2 instead of 0 so that every
+   convolution counts) within ``RESNET["check_tol"]`` (max abs error
+   over the CPU's largest) of the fp32 model's on the CPU with the same
+   weights;
+22. ``train_bert``  BERT-Large (``models/bert.py``, ``bert_large()``:
+   bf16 compute, fp32 parameters, dense attention in plain PyTorch) on a
+   fixed MLM batch of 16 x 512 (15% masked), fused Adam through
+   ``DistributedOptimizer``, as ``train_resnet``: tokens/s and MFU
+   (6 N + 12 L d S flops a token), the logits of 2 sequences of 128
+   against the CPU's fp32;
+23. ``train_dlrm``  DLRM (``models/dlrm.py``) at the JAX package's
+   ``DlrmConfig()``, then at MLPerf's widths (13 dense features, 26
+   tables of 500,000 x 128 fp32, 6.66 GB; bottom MLP 512-256-128, top
+   1024-1024-512-256-1), batch 32,768: the dense half through
+   ``DistributedOptimizer`` over fused Adam, the tables under their own
+   fused Adam (a dense gradient: every row updated), the lookup's two
+   ``all_to_all_single`` exchanges over a group of their own and counted
+   (3 a step, the embeddings' backward the third), as ``train_resnet``:
+   samples/s, MFU against the fp32 rate, the tables' Adam ms (CUDA
+   events) beside the bound of their traffic, and the logits of 256
+   samples against the CPU's with the rows they read (fp32 both).
 
 Then a ``total`` line (the script's wall seconds), a ``kernels`` line,
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -260,7 +292,8 @@ CUDA device, or without the port's package beside the script, it exits
 2.  ``--phases`` runs a subset
 (``device,build,kernel,serve,frontdoor,replicas,train,train_variants,
 train_dp,train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity,
-train_moe,hier,train_mesh,train_pp,serve_mesh``; ``frontdoor``,
+train_moe,hier,train_mesh,train_pp,serve_mesh,train_resnet,train_bert,
+train_dlrm``; ``frontdoor``,
 ``replicas``, ``elastic`` and ``train_moe`` need ``build``;
 ``train_variants``, ``train_dp``, ``hvdrun_obs`` and ``train_mesh`` need
 ``train``, ``hvdrun`` and ``train_zero`` need ``train`` and
@@ -285,7 +318,8 @@ BF16_FLOPS = 989e12
 PHASES = ("device", "build", "kernel", "serve", "frontdoor", "replicas",
           "train", "train_variants", "train_dp", "train_zero", "dataplane",
           "hvdrun", "hvdrun_obs", "elastic", "train_parity", "train_moe",
-          "hier", "train_mesh", "train_pp", "serve_mesh")
+          "hier", "train_mesh", "train_pp", "serve_mesh", "train_resnet",
+          "train_bert", "train_dlrm")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -4458,6 +4492,391 @@ def phase_serve_mesh(torch, smi: str, served: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the model zoo: ResNet-50, BERT-Large and DLRM trained at one rank
+# ---------------------------------------------------------------------------
+
+FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
+ZOO_STEPS = 3
+# check_tol: the first forward's logits on the card against the fp32
+# model's on the CPU with the same weights and inputs, max |card - cpu|
+# over max |cpu|; each about four times the H100's reading (7.27e-3
+# ResNet-50, 5.34e-3 BERT-Large, both bf16; 2.04e-6 DLRM, fp32 both with
+# TF32 off).
+# check_scale: every block's last norm for the check (at its initial 0
+# no 3x3 convolution reaches the logits: tests/test_torch_models.py,
+# test_resnet50_card_check_reaches_every_convolution).  Not 1: under the
+# batch statistics of 4 images the freshly drawn network is then chaotic,
+# and bf16 rounding alone moves its logits by a large share.
+RESNET = dict(batch=128, image=224, classes=1000, lr=0.1, momentum=0.9,
+              check_batch=4, check_scale=0.2, check_tol=2.0 ** -5)
+BERT = dict(batch=16, seq=512, lr=1e-4, check_batch=2, check_seq=128,
+            check_tol=2e-2)
+# MLPerf's DLRM (Criteo 1TB): 13 dense features, 26 tables of 128-wide
+# embeddings, its bottom and top MLPs; 500k rows a table.
+DLRM_MLPERF = dict(n_dense=13, n_sparse=26, vocab_per_table=500_000,
+                   embed_dim=128, bottom_mlp=(512, 256, 128),
+                   top_mlp=(1024, 1024, 512, 256, 1))
+# lr 1e-4: at 1e-3 Adam's first step (every weight moved by about lr)
+# overshot at the 1024-wide top MLP and the second loss rose.
+DLRM = dict(batch=32768, lr=1e-4, check_batch=256, check_tol=1e-5)
+
+
+def _zoo_steps(torch, step) -> dict:
+    """One warm-up and ``ZOO_STEPS`` timed steps of ``step()`` (which
+    returns the loss), every kernel counter zeroed just before and read
+    just after; the peak device memory of the run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    losses, step_s = [], []
+    for i in range(ZOO_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        if i:
+            step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    med = sorted(step_s)[len(step_s) // 2]
+    return {"losses": losses, "step_s": step_s, "step_ms_median": med * 1e3,
+            "launches": read_launches(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _logits_check(card, cpu, tol: float) -> dict:
+    err = (card.float().cpu() - cpu).abs().max().item()
+    ref = cpu.abs().max().item()
+    return {"max_abs_err": err, "max_abs_ref": ref, "rel": err / ref,
+            "tol": tol}
+
+
+def _zoo_faults(run: dict) -> list:
+    """No ported kernel launched (the JAX package computes these models
+    outside any Pallas kernel), the losses finite and falling, the card's
+    first logits within their tolerance of the CPU's, and (DLRM) three
+    ``all_to_all_single`` a step."""
+    faults = []
+    if any(run["launches"].values()):
+        faults.append(f"kernel launches {run['launches']}, want none")
+    losses = run["losses"]
+    if not (all(math.isfinite(x) for x in losses)
+            and all(x < losses[0] for x in losses[1:])):
+        faults.append(f"losses {losses}: want finite and below the first")
+    chk = run["first_logits"]
+    if not chk["rel"] <= chk["tol"]:
+        faults.append(f"first logits on the card against the CPU's: max "
+                      f"abs err {chk['max_abs_err']!r} over max |cpu| "
+                      f"{chk['max_abs_ref']!r} = {chk['rel']} > "
+                      f"{chk['tol']}")
+    if "dist_calls" in run:
+        a2a = run["dist_calls"].get("all_to_all_single", 0)
+        if a2a != 3 * (ZOO_STEPS + 1):
+            faults.append(f"{a2a} all_to_all_single calls, want 3 a step "
+                          f"(the two exchanges forward, the embeddings' "
+                          f"back)")
+    return faults
+
+
+def _zoo_phase(torch, smi: str, label: str, run_fn, extra: dict) -> dict:
+    """``run_fn(torch, hvd)`` under ``hvd.init()`` at one rank (NCCL):
+    its line (``extra`` first), one more step under the profiler
+    (``train_breakdown``), then its faults, which fail the run."""
+    import horovod_tpu_torch as hvd
+
+    _free_cuda(torch)
+    hvd.init()
+    try:
+        run = run_fn(torch, hvd)
+        step = run.pop("step")
+        res = {**extra, **run, "card": smi}
+        emit(res)
+        train_breakdown(torch, lambda *_: step(), None, None,
+                        run["step_ms_median"], smi, path=label)
+    finally:
+        hvd.shutdown()
+        _free_cuda(torch)
+    faults = _zoo_faults(run)
+    if faults:
+        raise AssertionError(f"{label}: " + "; ".join(faults))
+    return res
+
+
+def resnet_run(torch, hvd) -> dict:
+    """ResNet-50 at ``RESNET``'s batch and image size, SGD with momentum
+    through ``DistributedOptimizer``.  The check: the logits of
+    ``check_batch`` images on the device against the fp32 model's on the
+    CPU with the same weights (batch statistics both), with every
+    block's last norm at ``check_scale`` instead of its initial 0, so
+    that every convolution reaches the logits; training then starts from
+    the initial weights."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import resnet
+
+    c = RESNET
+    dev = hvd.global_state().device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = resnet.resnet50(num_classes=c["classes"], device=dev,
+                            generator=gen)
+    model = model.to(memory_format=torch.channels_last)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(c["batch"], c["image"], c["image"], 3)
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randint(0, c["classes"],
+                                     size=(c["batch"],))).to(dev)
+    start = {k: v.detach().cpu().clone()
+             for k, v in model.state_dict().items()}
+    cb = c["check_batch"]
+    model.train()
+    with torch.no_grad():
+        for block in model.blocks:
+            block.bn2.scale.fill_(c["check_scale"])
+        weights = {k: v.detach().cpu().clone()
+                   for k, v in model.state_dict().items()}
+        card = model(x[:cb])
+    model.load_state_dict(start)    # the initial weights and statistics
+    cpu = resnet.resnet50(num_classes=c["classes"], dtype=torch.float32,
+                          device="meta")
+    cpu.load_state_dict(weights, assign=True)
+    cpu.train()
+    with torch.no_grad():
+        check = _logits_check(card, cpu(x[:cb].cpu()), c["check_tol"])
+    del cpu, start, weights, card
+
+    named = list(model.named_parameters())
+    hvd.broadcast_parameters(named, root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([p for _, p in named], lr=c["lr"],
+                        momentum=c["momentum"]), named_parameters=named)
+
+    def step():
+        opt.zero_grad()
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        return loss
+
+    run = _zoo_steps(torch, step)
+    macs = resnet.forward_macs(model, c["image"])
+    ips = c["batch"] / (run["step_ms_median"] / 1e3)
+    flops_per_image = 3 * 2 * macs
+    return {**run, "step": step, "params": sum(p.numel() for _, p in named),
+            "forward_macs_per_image": macs,
+            "flops_per_image": flops_per_image, "images_per_s": ips,
+            "mfu": ips * flops_per_image / BF16_FLOPS,
+            "first_logits": check}
+
+
+def phase_train_resnet(torch, smi: str) -> dict:
+    """ResNet-50 (bf16 convolutions, flax's fp32 batch norm) on 224x224x3,
+    batch 128, 1000 classes."""
+    return _zoo_phase(torch, smi, "train_resnet", resnet_run, {
+        "phase": "train_resnet", "model": "resnet50",
+        "dtype": "bfloat16 convolutions, fp32 norms and head",
+        "batch": RESNET["batch"], "image": RESNET["image"],
+        "optimizer": f"DistributedOptimizer(SGD(lr={RESNET['lr']}, "
+                     f"momentum={RESNET['momentum']}))"})
+
+
+def bert_run(torch, hvd) -> dict:
+    """BERT-Large on ``BERT``'s synthetic MLM batch (15% masked), fused
+    Adam through ``DistributedOptimizer``; the check: the logits of a
+    small batch on the device against the fp32 model's on the CPU."""
+    import dataclasses
+
+    from horovod_tpu_torch.models import bert
+
+    c = BERT
+    cfg = bert.BertConfig.bert_large()
+    dev = hvd.global_state().device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = bert.Bert(cfg, device=dev, generator=gen)
+    batch = bert.synthetic_mlm_batch(cfg, c["batch"], c["seq"], seed=0,
+                                     device=dev)
+    small = bert.synthetic_mlm_batch(cfg, c["check_batch"], c["check_seq"],
+                                     seed=1, device=dev)["tokens"]
+    with torch.no_grad():
+        card = model(small)
+    cpu = bert.Bert(dataclasses.replace(cfg, dtype=torch.float32),
+                    device="meta")
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in
+                         model.state_dict().items()}, assign=True)
+    with torch.no_grad():
+        check = _logits_check(card, cpu(small.cpu()), c["check_tol"])
+    del cpu, card
+
+    named = list(model.named_parameters())
+    hvd.broadcast_parameters(named, root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam([p for _, p in named], lr=c["lr"], fused=True),
+        named_parameters=named)
+
+    def step():
+        opt.zero_grad()
+        loss = bert.mlm_loss(model, batch)
+        loss.backward()
+        opt.step()
+        return loss
+
+    run = _zoo_steps(torch, step)
+    n = sum(p.numel() for _, p in named)
+    # 6 N a token for the products of the parameters (the tied head's
+    # included), 12 L d S for the attention's two products, forward and
+    # backward.
+    flops_per_token = 6 * n + 12 * cfg.n_layers * cfg.d_model * c["seq"]
+    tok_s = c["batch"] * c["seq"] / (run["step_ms_median"] / 1e3)
+    masked = int((batch["labels"] >= 0).sum())
+    return {**run, "step": step, "params": n, "masked_tokens": masked,
+            "flops_per_token": flops_per_token, "tokens_per_s": tok_s,
+            "mfu": tok_s * flops_per_token / BF16_FLOPS,
+            "first_logits": check}
+
+
+def phase_train_bert(torch, smi: str) -> dict:
+    """BERT-Large (``BertConfig.bert_large()``: bf16 compute, fp32
+    parameters), S=512, B=16, MLM at 15%, fused Adam."""
+    return _zoo_phase(torch, smi, "train_bert", bert_run, {
+        "phase": "train_bert", "model": "bert_large",
+        "dtype": "bfloat16 compute, fp32 params and norms",
+        "batch": BERT["batch"], "seq": BERT["seq"],
+        "optimizer": f"DistributedOptimizer(Adam(lr={BERT['lr']}, "
+                     f"fused=True))"})
+
+
+def dlrm_run(torch, hvd, cfg) -> dict:
+    """DLRM at ``cfg`` on ``DLRM``'s synthetic batch: the dense half
+    through ``DistributedOptimizer``, the rank's tables stepped by their
+    own fused Adam (a dense, table-shaped gradient, so every row is
+    updated), the lookup's two exchanges over a group of its own, every
+    ``all_to_all_single`` counted.  The check: the logits of a small
+    batch on the device against the CPU's, with the rows that batch
+    reads."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.models import dlrm
+
+    c = DLRM
+    dev = hvd.global_state().device
+    # The exchange's group is a new one (the engine issues the dense
+    # gradients' allreduces on the world group from its own thread); the
+    # CPU's check runs over Gloo.
+    group = dist.new_group(list(range(hvd.size())))
+    cpu_group = dist.new_group(list(range(hvd.size())), backend="gloo")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = dlrm.DlrmDense(cfg, device=dev, generator=gen)
+    tables = torch.nn.Parameter(dlrm.init_embedding_tables(cfg, gen, dev))
+    batch = dlrm.synthetic_batch(cfg, c["batch"], seed=0, device=dev)
+
+    def logits_of(m, t, b, g):
+        return m(b["dense"], dlrm.sharded_embedding_lookup_local(
+            t, b["sparse"], group=g))
+
+    cb = c["check_batch"]
+    small = {k: v[:cb] for k, v in batch.items()}
+    with torch.no_grad():
+        card = logits_of(model, tables, small, group)
+        # the rows the small batch reads: sample j reads row j of every
+        # table of the CPU's copy
+        rows = tables[torch.arange(cfg.n_sparse, device=dev)[:, None],
+                      small["sparse"].long().t()].cpu()
+    cpu = dlrm.DlrmDense(cfg, device="meta")
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in
+                         model.state_dict().items()}, assign=True)
+    cpu_small = {k: v.cpu() for k, v in small.items()}
+    cpu_small["sparse"] = torch.arange(cb, dtype=torch.int32)[:, None] \
+        .expand(cb, cfg.n_sparse).contiguous()
+    with torch.no_grad():
+        check = _logits_check(card, logits_of(cpu, rows, cpu_small,
+                                              cpu_group),
+                              c["check_tol"])
+    del cpu, rows, card
+
+    named = list(model.named_parameters())
+    hvd.broadcast_parameters(named, root_rank=0)
+    dense_opt = hvd.DistributedOptimizer(
+        torch.optim.Adam([p for _, p in named], lr=c["lr"], fused=True),
+        named_parameters=named)
+    table_opt = torch.optim.Adam([tables], lr=c["lr"], fused=True)
+    table_ms = []
+
+    def step():
+        dense_opt.zero_grad()
+        table_opt.zero_grad()
+        loss = F.binary_cross_entropy_with_logits(
+            logits_of(model, tables, batch, group), batch["label"])
+        loss.backward()
+        if hvd.size() > 1:                  # the loss is the ranks' mean
+            tables.grad.div_(hvd.size())
+        dense_opt.step()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        table_opt.step()
+        t1.record()
+        t1.synchronize()
+        table_ms.append(t0.elapsed_time(t1))
+        return loss
+
+    calls: dict = {}
+    real = _count_dist_calls(dist, calls)
+    try:
+        run = _zoo_steps(torch, step)
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    T, D = cfg.n_sparse, cfg.embed_dim
+    mlp_macs = 0
+    for sizes, fan_in in ((cfg.bottom_mlp, cfg.n_dense),
+                          (cfg.top_mlp, D + T * (T + 1) // 2)):
+        for n_out in sizes:
+            mlp_macs += fan_in * n_out
+            fan_in = n_out
+    flops_per_sample = 3 * 2 * (mlp_macs + (T + 1) ** 2 * D)
+    sps = c["batch"] / (run["step_ms_median"] / 1e3)
+    table_bytes = tables.numel() * tables.element_size()
+    # A step's traffic over the tables: the dense gradient's zero fill
+    # (the gather's backward) and fused Adam's reads of the parameter,
+    # gradient and both moments and its writes of the parameter and
+    # moments.
+    traffic = (1 + 4 + 3) * table_bytes
+    return {**run, "step": step,
+            "dense_params": sum(p.numel() for _, p in named),
+            "table_params": tables.numel(), "table_gb": table_bytes / 1e9,
+            "dist_calls": calls,
+            "flops_per_sample": flops_per_sample, "samples_per_s": sps,
+            "mfu_fp32": sps * flops_per_sample / FP32_FLOPS,
+            "table_traffic_gb_per_step": traffic / 1e9,
+            "table_traffic_bound_ms": traffic / HBM_BYTES_PER_S * 1e3,
+            "table_adam_ms": table_ms,
+            "first_logits": check}
+
+
+def phase_train_dlrm(torch, smi: str) -> list:
+    """DLRM: first the JAX package's ``DlrmConfig()``, then MLPerf's
+    widths with 500k rows a table (6.66 GB of fp32 tables), batch
+    32,768, Adam."""
+    import dataclasses
+
+    from horovod_tpu_torch.models import dlrm
+
+    out = []
+    for name, cfg in (("reference", dlrm.DlrmConfig()),
+                      ("mlperf", dataclasses.replace(dlrm.DlrmConfig(),
+                                                     **DLRM_MLPERF))):
+        out.append(_zoo_phase(
+            torch, smi, f"train_dlrm.{name}",
+            lambda torch, hvd, cfg=cfg: dlrm_run(torch, hvd, cfg), {
+                "phase": "train_dlrm", "config": name,
+                "widths": {k: getattr(cfg, k) for k in DLRM_MLPERF},
+                "batch": DLRM["batch"],
+                "optimizer": f"DistributedOptimizer(Adam(lr={DLRM['lr']}, "
+                             f"fused=True)), tables: Adam"}))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4588,6 +5007,14 @@ def main(argv=None) -> int:
     piped = phase_train_pp(torch, smi) if "train_pp" in phases else None
     served_mesh = phase_serve_mesh(torch, smi, served) \
         if "serve_mesh" in phases else None
+    zoo = {}
+    if "train_resnet" in phases:
+        zoo["train_resnet"] = phase_train_resnet(torch, smi)["launches"]
+    if "train_bert" in phases:
+        zoo["train_bert"] = phase_train_bert(torch, smi)["launches"]
+    if "train_dlrm" in phases:
+        for dlrm_res in phase_train_dlrm(torch, smi):
+            zoo[f"train_dlrm.{dlrm_res['config']}"] = dlrm_res["launches"]
     if res is not None and served is not None and trained is not None:
         # launches: paged_decode on the serving path, the flash kernels on
         # the training paths (each counted in its own run), summed.
@@ -4603,6 +5030,7 @@ def main(argv=None) -> int:
         if served_mesh is not None:
             paths["serve_mesh"] = {"paged_decode":
                                    served_mesh["counts"]["paged_decode"]}
+        paths.update(zoo)          # every counter 0 there, checked above
         keys = ("max_abs_err", "worst_row_rel_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
         emit({"kernels": [

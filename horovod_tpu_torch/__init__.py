@@ -81,9 +81,15 @@ attention, ep).  The root's per-rank helpers (``mesh``, ``per_rank``,
 ``per_rank_from_fn``, ``from_local``, ``replicate_local``, ``to_local``,
 ``to_numpy``) give a process its rank's row.
 
-Not yet ported, and raising ``NotImplementedError`` where a caller could
-reach them: pipeline parallelism (``pp > 1``) and sharded serving and
-generation (``mesh=`` in ``serve`` and ``generate``).
+Pipeline parallelism (``pp > 1``, ``parallel.pipeline``) and sharded
+serving and generation (``mesh=`` in ``serve`` and ``generate``).
+
+The model zoo (``models.mnist``, ``models.resnet``, ``models.bert``,
+``models.dlrm``), GPU-cluster host discovery (the launcher's
+``--slurm``, ``runner.cloud``) and the TensorFlow/Keras bindings
+(``horovod_tpu_torch.tensorflow``, ``.tensorflow.keras``, ``.keras``;
+they import TensorFlow, nothing else here does).  Not yet ported: the
+estimator, Spark and Ray.
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ backward, Megatron style:
 - :func:`scatter` — this rank's slice forward, all-gather backward (a
   replicated tensor split over the ranks);
 - :func:`all_to_all` — block ``i`` of dim 0 to rank ``i`` forward, the
-  inverse exchange backward;
+  inverse exchange backward (:func:`all_to_all_group` over a process
+  group, DLRM's embedding exchange);
+- :func:`mean_across_group` — the mean over a process group both ways
+  (the ResNet's synchronized batch statistics);
 - :func:`pipeline_handoff` — a GPipe tick's activation to the next
   pipeline stage forward, its cotangent to the previous stage backward
   (:class:`PipelineHandoff`); :func:`from_last_stage` — the last stage's
@@ -225,6 +228,31 @@ def gather_tensor(x: torch.Tensor, mesh, axes: Sequence[str],
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     """:func:`reduce_from` over a process group (the pipeline's)."""
     return _ReduceFrom.apply(x, group)
+
+
+class _MeanAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return _all_reduce(x, group) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group) / ctx.n, None, None
+
+
+def mean_across_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of ``x`` over a process group (flax's ``pmean``), its
+    gradient the mean of the ranks' cotangents: each rank's share of
+    every rank's loss through the shared value."""
+    n = dist.get_world_size(group)
+    return x if n == 1 else _MeanAcross.apply(x, group, n)
+
+
+def all_to_all_group(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_to_all` over a process group (``None``: the world),
+    issued even on a group of one rank."""
+    return _AllToAll.apply(x, group)
 
 
 class PipelineHandoff(torch.autograd.Function):

@@ -7,9 +7,9 @@ starts the rendezvous services, builds per-rank environment blocks, and the
 cluster manager (instead of ssh) places the worker processes.  This module
 is that shared shape for the port: the native KV + controller services of
 ``horovod_tpu_torch._native`` and the per-rank env block used by
-``runner/launch.py``.  (The Spark and Ray placement exchange comes with
-those bindings, ROADMAP section A 'Remaining models, bindings and
-examples'.)
+``runner/launch.py``.  (Only the Spark and Ray placement exchange is
+still to come, with those bindings, the last slice of ROADMAP section A
+'Remaining models, bindings and examples'.)
 
 The env block keeps ``HVDTPU_RENDEZVOUS_ADDR``: the metrics publisher
 (:mod:`horovod_tpu_torch.obs.aggregate`) finds the job's KV store by it.

@@ -30,8 +30,11 @@ Elastic mode (``--host-discovery-script`` with ``--min-np``, ``--max-np``,
 ``--autoscale-interval``) hands the job to
 :class:`~.elastic.ElasticDriver` (:func:`run_elastic`); without a
 discovery script the other elastic flags exit 2, as the reference's do.
-Not in the port yet, and refused with exit code 2 and the ROADMAP item
-that brings it (never quietly ignored): ``--tpu-pod``.
+
+``--slurm`` takes the hosts and their slots from the SLURM allocation
+the launcher runs in (:mod:`.cloud`), where the JAX package's
+``--tpu-pod`` reads a TPU-VM slice's metadata; ``--tpu-pod`` itself
+exits 2, naming ``--slurm``.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from .hosts import assign_ranks, parse_hosts
 from .. import chaos
 from .. import config as config_mod
 
-# What the refused flag waits for (ROADMAP.md section A, by title).
+# What took the refused flag's place (ROADMAP.md section A, by title).
 _TPU_POD_ITEM = "ROADMAP section A 'Remaining models, bindings and examples'"
 _LOCAL_HOSTS = ("localhost", "127.0.0.1")
 
@@ -88,9 +91,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(† horovodrun --check-build)")
     p.add_argument("-H", "--hosts", default=None,
                    help="host1:slots,host2:slots (default: localhost:np)")
+    p.add_argument("--slurm", action="store_true", default=False,
+                   help="take the hosts and their slots (one a card) from "
+                        "the SLURM allocation (SLURM_JOB_NODELIST, "
+                        "SLURM_TASKS_PER_NODE; --slots overrides the "
+                        "count); -np defaults to the slots' total")
     p.add_argument("--tpu-pod", action="store_true", default=False,
                    help="TPU-VM metadata host discovery of the JAX "
-                        "package; not in the port, refused with exit code 2")
+                        "package; refused with exit code 2 (a GPU job "
+                        "finds its hosts with --slurm)")
     p.add_argument("--ssh-port", type=int, default=22)
     # Elastic mode († horovodrun --min-np/--max-np/--host-discovery-script)
     p.add_argument("--min-np", type=int, default=None,
@@ -104,7 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "available host; enables elastic mode")
     p.add_argument("--slots", type=int, default=None,
                    help="default slots per discovered host (elastic "
-                        "mode; lines without ':slots')")
+                        "mode; lines without ':slots'), or every node's "
+                        "slots under --slurm")
     p.add_argument("--autoscale", action="store_true", default=False,
                    help="close the loop between the job's /cluster "
                         "signals and the elastic rendezvous: the driver "
@@ -569,12 +579,6 @@ def _check_build() -> int:
     return 0
 
 
-def _refuse(flag: str, item: str) -> int:
-    print(f"hvdrun: {flag} is not ported to horovod_tpu_torch yet "
-          f"({item})", file=sys.stderr)
-    return 2
-
-
 def run_elastic(command: Sequence[str], args, extra_env: dict) -> int:
     """Elastic CLI path († ``horovodrun -np 2 --min-np 1
     --host-discovery-script ./d.sh python train.py``): hand supervision to
@@ -642,7 +646,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print("hvdrun: no command given", file=sys.stderr)
         return 2
     if args.tpu_pod:
-        return _refuse("--tpu-pod", _TPU_POD_ITEM)
+        print(f"hvdrun: --tpu-pod is not ported to horovod_tpu_torch: it "
+              f"reads TPU-VM metadata; a GPU job finds its hosts with "
+              f"--slurm ({_TPU_POD_ITEM})", file=sys.stderr)
+        return 2
+    if args.slurm:
+        if args.hosts:
+            print("hvdrun: --slurm conflicts with -H/--hosts",
+                  file=sys.stderr)
+            return 2
+        from .cloud import SlurmUnavailable, slurm_hosts
+        try:
+            found = slurm_hosts(default_slots=args.slots)
+        except SlurmUnavailable as e:
+            print(f"hvdrun: {e}", file=sys.stderr)
+            return 2
+        args.hosts = ",".join(f"{h.hostname}:{h.slots}" for h in found)
+        args.slots = None   # consumed; keep the elastic-only guard honest
+        if args.num_proc is None:
+            args.num_proc = sum(h.slots for h in found)
+        if args.verbose:
+            print(f"[launcher] slurm discovery: {args.hosts}",
+                  file=sys.stderr)
     if args.num_proc is None or args.num_proc < 1:
         print("hvdrun: -np/--num-proc (>= 1) is required", file=sys.stderr)
         return 2

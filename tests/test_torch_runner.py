@@ -100,6 +100,9 @@ def test_cli_parse_and_knob_env_match_reference(case):
     argv = ARGV_CASES[case]
     ref = ref_launch.build_parser().parse_args(argv)
     port = port_launch.build_parser().parse_args(argv)
+    # the port's one flag of its own: --slurm, the GPU cluster's host
+    # discovery (the reference's --tpu-pod stays, refused)
+    assert vars(port).pop("slurm") is False
     assert vars(port) == vars(ref)
     assert port_launch._knob_env(port) == ref_launch._knob_env(ref)
 
@@ -201,15 +204,17 @@ def _roadmap_titles() -> set:
 ])
 def test_unported_flags_exit_2_naming_their_item(capsys, tmp_path, flags,
                                                  title):
-    """``--tpu-pod`` is still refused, naming its item.  The elastic flags
-    are ported: with a discovery script the job runs under the elastic
-    driver; without one each exits 2 as the reference's does, with its
-    message."""
+    """``--tpu-pod`` is still refused, naming ``--slurm``, the GPU
+    cluster's discovery that took its place with its item.  The elastic
+    flags are ported: with a discovery script the job runs under the
+    elastic driver; without one each exits 2 as the reference's does,
+    with its message."""
     if flags[0] == "--tpu-pod":
         # main() itself, in this process: the refusal precedes any spawn
         assert port_launch.main(["-np", "2", *flags, "--", "true"]) == 2
         err = capsys.readouterr().err
-        assert "not ported" in err and f"'{title}'" in err, err
+        assert "not ported" in err and "--slurm" in err, err
+        assert f"'{title}'" in err, err
     elif flags[0] == "--host-discovery-script":
         script = tmp_path / "d.sh"
         script.write_text("#!/bin/sh\necho localhost:2\n")
@@ -231,6 +236,7 @@ def test_unported_flag_exits_2_from_the_command_line():
     res = _hvdrun(["-np", "2", "--tpu-pod", "--", "true"], timeout=60)
     assert res.returncode == 2
     assert "--tpu-pod is not ported" in res.stderr
+    assert "finds its hosts with --slurm" in res.stderr
 
 
 _ALLREDUCE_JOB = """

@@ -217,13 +217,16 @@ def test_unported_knob_raises_at_init(monkeypatch, knob):
         hvd.shutdown()
 
 
-def test_not_ported_items_name_roadmap_titles():
+def test_not_ported_items_name_roadmap_titles(capsys):
     """Each refusal names its ROADMAP section A item by a title that is
-    there, so a renumbering cannot stale the messages."""
+    there, so a renumbering cannot stale the messages; ``--tpu-pod``'s
+    names the item that brought ``--slurm`` in its place."""
     import re
     with open(os.path.join(REPO, "ROADMAP.md")) as fh:
         titles = set(re.findall(r"^\d+\. \*\*(.+?)\*\*", fh.read(), re.M))
     from horovod_tpu_torch.runner import launch
+    assert launch.main(["-np", "1", "--tpu-pod", "--", "true"]) == 2
+    assert "--slurm" in capsys.readouterr().err
     items = dict(port_config._NOT_PORTED,
                  tpu_pod=launch._TPU_POD_ITEM.split("section A ")[1])
     for field, item in items.items():
