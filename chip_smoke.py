@@ -10,8 +10,9 @@ door's prefix cache and speculative decoding, and batch ``generate``),
 multi-replica serving (the router, disaggregated prefill/decode),
 training (with its recompute and loss variants, as a Switch-MoE, on a
 mesh, as two pipeline stages), sharded serving at one rank and
-data-parallel training through Horovod's runtime, and the model zoo
-(ResNet-50, BERT-Large, DLRM) trained through it, and checks them, phase
+data-parallel training through Horovod's runtime, the model zoo
+(ResNet-50, BERT-Large, DLRM) trained through it, and the estimator's
+fit of the MNIST ConvNet, and checks them, phase
 by phase, printing one JSON line per phase:
 
 1. ``device``  the card's name and power limit (``nvidia-smi``), torch and
@@ -283,9 +284,26 @@ by phase, printing one JSON line per phase:
    (3 a step, the embeddings' backward the third), as ``train_resnet``:
    samples/s, MFU against the fp32 rate, the tables' Adam ms (CUDA
    events) beside the bound of their traffic, and the logits of 256
-   samples against the CPU's with the rows they read (fp32 both).
+   samples against the CPU's with the rows they read (fp32 both);
+24. ``train_estimator``  the estimator (``horovod_tpu_torch.estimator``):
+   ``TorchEstimator`` fits the MNIST ConvNet at its published widths
+   (behind ``nn.Unflatten``, which reads the ``[B, 784]`` feature column
+   as NHWC) on 60,000 rows made from ``--seed`` with numpy (labels from
+   a seeded linear teacher), global batch 128, Adam 1e-3 through
+   ``DistributedOptimizer`` under ``hvd.init()`` at one rank (NCCL), 3
+   epochs, a checkpoint an epoch into a ``LocalStore`` in a temporary
+   directory; every kernel counter zeroed just before the fit and read
+   just after (none may launch); the epoch loss falling, one checkpoint
+   an epoch and the last restoring the fitted parameters, 8 allreduce
+   entries a step, ``TorchModel.predict`` on 1,024 rows on the card
+   within ``ESTIMATOR``'s tolerance of a CPU fp32 copy (saying whether
+   cuDNN's TF32 convolutions were on); samples/s and ms an epoch, the
+   checkpoint's bytes and save ms, peak memory, and one more short epoch
+   under the profiler (device ms a step, idle share).
 
-Then a ``total`` line (the script's wall seconds), a ``kernels`` line,
+Then a ``total`` line (the script's wall seconds), a ``kernels`` line
+(the kernel phase's numbers, null where it did not run, and each path's
+launches),
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises and exits non-zero before the last line; without a
 CUDA device, or without the port's package beside the script, it exits
@@ -293,7 +311,7 @@ CUDA device, or without the port's package beside the script, it exits
 (``device,build,kernel,serve,frontdoor,replicas,train,train_variants,
 train_dp,train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity,
 train_moe,hier,train_mesh,train_pp,serve_mesh,train_resnet,train_bert,
-train_dlrm``; ``frontdoor``,
+train_dlrm,train_estimator``; ``frontdoor``,
 ``replicas``, ``elastic`` and ``train_moe`` need ``build``;
 ``train_variants``, ``train_dp``, ``hvdrun_obs`` and ``train_mesh`` need
 ``train``, ``hvdrun`` and ``train_zero`` need ``train`` and
@@ -319,7 +337,7 @@ PHASES = ("device", "build", "kernel", "serve", "frontdoor", "replicas",
           "train", "train_variants", "train_dp", "train_zero", "dataplane",
           "hvdrun", "hvdrun_obs", "elastic", "train_parity", "train_moe",
           "hier", "train_mesh", "train_pp", "serve_mesh", "train_resnet",
-          "train_bert", "train_dlrm")
+          "train_bert", "train_dlrm", "train_estimator")
 KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
@@ -4877,6 +4895,211 @@ def phase_train_dlrm(torch, smi: str) -> list:
 
 
 # ---------------------------------------------------------------------------
+# the estimator: TorchEstimator fitting the MNIST ConvNet at one rank
+# ---------------------------------------------------------------------------
+
+# BASELINE.json's config 1 (the MNIST ConvNet at its published widths)
+# fitted as upstream's examples/spark/pytorch/pytorch_spark_mnist.py does:
+# 60,000 rows of 784 features, global batch 128, Adam 1e-3, 3 epochs.
+# check_tol: TorchModel.predict's logits on the card against a CPU fp32
+# copy of the fitted weights, max |card - cpu| over max |cpu|; 2^-7 with
+# cuDNN's TF32 convolutions on (PyTorch's default: a 10-bit mantissa on
+# the 400- and 800-term conv sums), 1e-5 with them off.
+ESTIMATOR = dict(rows=60_000, batch=128, epochs=3, lr=1e-3, check_rows=1024,
+                 check_tol_tf32=2.0 ** -7, check_tol=1e-5, profile_steps=20)
+
+
+def estimator_data(seed: int, rows: int) -> dict:
+    """``rows`` synthetic MNIST-shaped rows from ``seed``: pixels uniform
+    in [0, 1) as a ``[rows, 784]`` feature column, labels the argmax of a
+    seeded linear teacher on the centred pixels (learnable, about
+    balanced over the 10 classes)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    x = rng.rand(rows, 784).astype(np.float32)
+    teacher = rng.randn(784, 10).astype(np.float32)
+    return {"features": x, "label": ((x - 0.5) @ teacher).argmax(-1)}
+
+
+def estimator_model(torch, dev, seed: int):
+    """The MNIST ConvNet behind ``nn.Unflatten``: the estimator's
+    ``[B, 784]`` feature matrix read as NHWC ``[B, 28, 28, 1]``."""
+    from horovod_tpu_torch.models import mnist
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.nn.Sequential(torch.nn.Unflatten(1, (28, 28, 1)),
+                               mnist.ConvNet(device=dev, generator=gen))
+
+
+def phase_train_estimator(torch, smi: str, seed: int) -> dict:
+    """``TorchEstimator`` fits the MNIST ConvNet under ``hvd.init()`` at
+    one rank (NCCL) through ``DistributedOptimizer``, checkpointing every
+    epoch into a ``LocalStore`` in a temporary directory; every kernel
+    counter zeroed just before the fit and read just after (none may
+    launch: the estimator is host code around the model, and the JAX
+    package computes this model outside any Pallas kernel)."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.estimator import (LocalStore, TorchEstimator,
+                                             TorchModel)
+    from horovod_tpu_torch.optim.distributed import _DistributedOptimizer
+    from horovod_tpu_torch.utils.checkpoint import Checkpointer, tree_bytes
+
+    class TimedStore(LocalStore):
+        """Marks each epoch's end: ``checkpoint_path`` is the first call
+        of the checkpoint (after the epoch's loss was read, a device
+        sync), ``sync`` the last."""
+
+        def __init__(self, prefix: str) -> None:
+            super().__init__(prefix)
+            self.marks: list = []
+
+        def checkpoint_path(self, run_id: str) -> str:
+            self.marks.append(("save", time.perf_counter()))
+            return super().checkpoint_path(run_id)
+
+        def sync(self, run_id: str) -> None:
+            super().sync(run_id)
+            self.marks.append(("synced", time.perf_counter()))
+
+    c = ESTIMATOR
+    work = tempfile.mkdtemp(prefix="hvdtpu-estimator-")
+    _free_cuda(torch)
+    hvd.init()
+    try:
+        dev = hvd.global_state().device
+        data = estimator_data(seed, c["rows"])
+        model = estimator_model(torch, dev, seed)
+        store = TimedStore(work)
+        est = TorchEstimator(
+            model=model, feature_cols=["features"], label_cols=["label"],
+            loss="xent", batch_size=c["batch"], epochs=c["epochs"],
+            optimizer=torch.optim.Adam(model.parameters(), lr=c["lr"]),
+            store=store, run_id="mnist", seed=seed)
+        before = _engine_metrics()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        fitted = est.fit(data)
+        fit_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        entries = _delta(_engine_metrics(), before)["entries"]
+
+        steps = c["rows"] // c["batch"]
+        ends = [t for k, t in store.marks if k == "save"]
+        synced = [t for k, t in store.marks if k == "synced"]
+        starts = [t0] + synced[:-1]
+        epoch_ms = [(e - b) * 1e3 for b, e in zip(starts, ends)]
+        save_ms = [(e - b) * 1e3 for b, e in zip(ends, synced)]
+        steady_ms = sorted(epoch_ms[1:])[len(epoch_ms[1:]) // 2]
+
+        ckpt = Checkpointer(store.checkpoint_path("mnist"), read_only=True)
+        restored = ckpt.restore()["params"]
+        fitted_sd = fitted.module.state_dict()
+        restored_equal = sorted(restored) == sorted(fitted_sd) and all(
+            torch.equal(restored[k], v.cpu()) for k, v in fitted_sd.items())
+        ckpt_file = Path(store.checkpoint_path("mnist")) / str(
+            ckpt.latest_step()) / "tree.pt"
+
+        rows = {k: v[:c["check_rows"]] for k, v in data.items()}
+        tf32 = bool(torch.backends.cudnn.allow_tf32)
+        card = fitted.predict(rows)
+        cpu_model = TorchModel(module=copy.deepcopy(fitted.module).cpu(),
+                               feature_cols=["features"],
+                               label_cols=["label"])
+        cpu = cpu_model.predict(rows)
+        err = float(np.abs(card - cpu).max())
+        ref = float(np.abs(cpu).max())
+        check = {"max_abs_err": err, "max_abs_ref": ref, "rel": err / ref,
+                 "tol": c["check_tol_tf32"] if tf32 else c["check_tol"],
+                 "cudnn_tf32": tf32, "rows": c["check_rows"],
+                 "accuracy_card": float((card.argmax(-1) == rows["label"])
+                                        .mean())}
+
+        # where a step's time goes: one more short epoch of the same
+        # estimator (its DistributedOptimizer; no store) under the profiler
+        from torch.profiler import ProfilerActivity, profile
+        few = {k: v[:c["profile_steps"] * c["batch"]]
+               for k, v in data.items()}
+        est.store, est.epochs = None, 1
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            est.fit(few)
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        device_ms_step = sum(e.self_device_time_total
+                             for e in kernels) / 1e3 / c["profile_steps"]
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+
+        res = {"phase": "train_estimator", "model": "mnist.ConvNet",
+               "rows": c["rows"], "global_batch": c["batch"],
+               "epochs": c["epochs"], "steps_per_epoch": steps,
+               "optimizer": f"DistributedOptimizer(Adam(lr={c['lr']}))",
+               "distributed_optimizer": isinstance(est._opt,
+                                                   _DistributedOptimizer),
+               "allreduce_entries": entries,
+               "params": sum(p.numel() for p in fitted.module.parameters()),
+               "history": fitted.history, "fit_s": fit_s,
+               "epoch_ms": epoch_ms, "steady_epoch_ms": steady_ms,
+               "ms_per_step": steady_ms / steps,
+               "samples_per_s": steps * c["batch"] / (steady_ms / 1e3),
+               "samples_per_s_epoch0": steps * c["batch"]
+               / (epoch_ms[0] / 1e3),
+               "checkpoint_steps": ckpt.all_steps(),
+               "checkpoint_restores_equal": restored_equal,
+               "checkpoint_tensor_bytes": tree_bytes(
+                   {"params": fitted_sd}),
+               "checkpoint_file_bytes": ckpt_file.stat().st_size,
+               "checkpoint_save_ms": save_ms,
+               "peak_mem_gb": peak_gb, "launches": launches,
+               "predict_check": check,
+               "device_ms_per_step": device_ms_step if kernels
+               else "not measured",
+               "device_idle_share": 1 - device_ms_step / (steady_ms / steps)
+               if kernels else "not measured",
+               "top_kernels_ms_per_step": {
+                   e.key[:80]: e.self_device_time_total / 1e3
+                   / c["profile_steps"] for e in top},
+               "card": smi}
+        emit(res)
+    finally:
+        hvd.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+        _free_cuda(torch)
+
+    faults = []
+    if any(launches.values()):
+        faults.append(f"kernel launches {launches}, want none")
+    losses = [h["loss"] for h in res["history"]]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        faults.append(f"epoch losses {losses}: want finite, the last below "
+                      f"the first")
+    if res["checkpoint_steps"] != list(range(c["epochs"])):
+        faults.append(f"checkpoints {res['checkpoint_steps']}, want one an "
+                      f"epoch")
+    if not restored_equal:
+        faults.append("the last checkpoint does not restore the fitted "
+                      "parameters")
+    if not (res["distributed_optimizer"]
+            and entries == c["epochs"] * steps * 8):
+        faults.append(f"{entries} allreduce entries through "
+                      f"DistributedOptimizer={res['distributed_optimizer']},"
+                      f" want 8 a step ({c['epochs'] * steps * 8})")
+    if not check["rel"] <= check["tol"]:
+        faults.append(f"predict on the card against the CPU's fp32: "
+                      f"{check['rel']} > {check['tol']}")
+    if faults:
+        raise AssertionError("train_estimator: " + "; ".join(faults))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4892,6 +5115,8 @@ def main(argv=None) -> int:
     ap.add_argument("--elastic-worker", default=None, metavar="DIR",
                     help="run as the elastic phase's worker (started by the "
                     "port's elastic driver), its records and state in DIR")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of train_estimator's data and weights")
     ap.add_argument("--obs", action="store_true",
                     help="with --hvdrun-worker: the hvdrun_obs phase's "
                     "worker (step spans, the rest of the plane checked)")
@@ -5015,22 +5240,28 @@ def main(argv=None) -> int:
     if "train_dlrm" in phases:
         for dlrm_res in phase_train_dlrm(torch, smi):
             zoo[f"train_dlrm.{dlrm_res['config']}"] = dlrm_res["launches"]
-    if res is not None and served is not None and trained is not None:
-        # launches: paged_decode on the serving path, the flash kernels on
-        # the training paths (each counted in its own run), summed.
-        paths = {"serve": {"paged_decode":
-                           served["counts"]["paged_decode"]},
-                 "train": trained["launches"]}
-        if moe_trained is not None:
-            paths["train_moe"] = moe_trained["launches"]
-        if meshed is not None:
-            paths["train_mesh"] = meshed["launches"]
-        if piped is not None:
-            paths["train_pp"] = piped["launches"]
-        if served_mesh is not None:
-            paths["serve_mesh"] = {"paged_decode":
-                                   served_mesh["counts"]["paged_decode"]}
-        paths.update(zoo)          # every counter 0 there, checked above
+    if "train_estimator" in phases:
+        zoo["train_estimator"] = phase_train_estimator(
+            torch, smi, args.seed)["launches"]
+    # launches: paged_decode on the serving paths, the flash kernels on
+    # the training paths (each counted in its own run), summed; the
+    # kernel phase's numbers where it ran (null where it did not).
+    paths = {}
+    if served is not None:
+        paths["serve"] = {"paged_decode": served["counts"]["paged_decode"]}
+    if trained is not None:
+        paths["train"] = trained["launches"]
+    if moe_trained is not None:
+        paths["train_moe"] = moe_trained["launches"]
+    if meshed is not None:
+        paths["train_mesh"] = meshed["launches"]
+    if piped is not None:
+        paths["train_pp"] = piped["launches"]
+    if served_mesh is not None:
+        paths["serve_mesh"] = {"paged_decode":
+                               served_mesh["counts"]["paged_decode"]}
+    paths.update(zoo)              # every counter 0 there, checked above
+    if paths:
         keys = ("max_abs_err", "worst_row_rel_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
         emit({"kernels": [
@@ -5039,7 +5270,8 @@ def main(argv=None) -> int:
              "launches": sum(p.get(name, 0) for p in paths.values()),
              "launches_by_path": {k: p.get(name, 0)
                                   for k, p in paths.items()},
-             **{k: res[name][k] for k in keys}}
+             **{k: res[name][k] if res is not None else None
+                for k in keys}}
             for name, (lib, replaces) in KERNELS.items()]})
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
           "phases": phases, "card": smi})

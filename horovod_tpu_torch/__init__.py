@@ -88,8 +88,13 @@ The model zoo (``models.mnist``, ``models.resnet``, ``models.bert``,
 ``models.dlrm``), GPU-cluster host discovery (the launcher's
 ``--slurm``, ``runner.cloud``) and the TensorFlow/Keras bindings
 (``horovod_tpu_torch.tensorflow``, ``.tensorflow.keras``, ``.keras``;
-they import TensorFlow, nothing else here does).  Not yet ported: the
-estimator, Spark and Ray.
+they import TensorFlow, nothing else here does).
+
+The estimator layer (``estimator``: ``TorchEstimator``, ``KerasEstimator``
+and the stores; ``pyarrow`` and ``pandas`` only where a function needs
+them) and the Spark and Ray launchers (``spark.run``, ``spark.torch``,
+``spark.keras``, ``ray.RayExecutor``; ``pyspark`` and ``ray`` are imported
+when called).
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ take the inverse exchange; the two calls are made even on a group of one
 rank.  The gather's gradient is dense (a table-shaped tensor, as
 ``take_along_axis``'s is in JAX), so Adam updates every row.
 
-Beside ``DistributedOptimizer`` the exchange needs a group of its own
-(``torch.distributed.new_group``): the runtime's engine issues the dense
+Under the runtime at more than one rank the exchange needs a group of
+its own (``torch.distributed.new_group``), and ``group=None`` or the
+world group raises ``ValueError``: the runtime's engine issues the dense
 gradients' allreduces on the world group from its thread while the
 backward runs the reverse exchange, and one group's collectives must
 come in the same order on every rank.
@@ -149,7 +150,8 @@ def sharded_embedding_lookup_local(tables: torch.Tensor,
     Exchange 1 ships each batch shard's indices for a rank's tables to
     that rank; the rank looks its tables up for the whole global batch;
     exchange 2 returns the embeddings to the batch shards.  ``group``:
-    the process group the tables are sharded over (None: the world)."""
+    the process group the tables are sharded over (None: the world, which
+    raises under the runtime at more than one rank)."""
     n = dist.get_world_size(group)
     b, T = indices.shape
     t_local = tables.shape[0]

@@ -19,10 +19,11 @@ What the JAX package's flax model does, done where it does it:
   statistics ``ra = 0.9 ra + 0.1 batch``; with a process group the mean
   and the mean of squares are averaged over it (flax's ``pmean`` over
   ``axis_name``), which makes it a synchronized batch norm.  The last
-  norm of each block starts with a zero scale.  Beside
-  ``DistributedOptimizer`` that group must be one of its own
-  (``torch.distributed.new_group``), not the world group the runtime's
-  engine issues the gradients' allreduces on from its thread.
+  norm of each block starts with a zero scale.  Under the runtime at
+  more than one rank that group must be one of its own
+  (``torch.distributed.new_group``): the world group, on which the
+  runtime's engine issues the gradients' allreduces from its thread,
+  raises ``ValueError``.
 - **dtypes.** Convolutions cast their input and kernel to ``dtype``
   (bf16 by default) as ``nn.Conv(dtype=)`` does; norms compute and
   return fp32; the head is fp32; parameters stay fp32.

@@ -241,17 +241,41 @@ class _MeanAcross(torch.autograd.Function):
         return _all_reduce(g, ctx.group) / ctx.n, None, None
 
 
+def _own_group(group, what: str) -> None:
+    """Refuse the world group (``None`` or ``dist.group.WORLD``) while the
+    runtime is up with more than one rank: its engine issues the
+    gradients' allreduces on that group from its own thread during the
+    backward, and one group's collectives must come in the same order on
+    every rank, so a model's own collective there desynchronizes the job
+    (Gloo: "Received data size doesn't match", or a hang).  The reference
+    runs these inside its compiled step, with no engine beside them."""
+    from .. import context
+    if (group is None or group is dist.group.WORLD) \
+            and context.is_initialized() and context.size() > 1:
+        raise ValueError(
+            f"{what} on the world group while the runtime runs "
+            f"{context.size()} ranks: the engine's thread issues the "
+            "gradients' allreduces on that group, and the two would "
+            "desynchronize; pass a group of its own, made on every rank "
+            "with torch.distributed.new_group(ranks)")
+
+
 def mean_across_group(x: torch.Tensor, group) -> torch.Tensor:
     """The mean of ``x`` over a process group (flax's ``pmean``), its
     gradient the mean of the ranks' cotangents: each rank's share of
-    every rank's loss through the shared value."""
+    every rank's loss through the shared value.  Under the runtime at
+    more than one rank the world group raises ``ValueError``
+    (:func:`_own_group`)."""
+    _own_group(group, "mean_across_group")
     n = dist.get_world_size(group)
     return x if n == 1 else _MeanAcross.apply(x, group, n)
 
 
 def all_to_all_group(x: torch.Tensor, group) -> torch.Tensor:
     """:func:`all_to_all` over a process group (``None``: the world),
-    issued even on a group of one rank."""
+    issued even on a group of one rank.  Under the runtime at more than
+    one rank the world group raises ``ValueError`` (:func:`_own_group`)."""
+    _own_group(group, "all_to_all_group")
     return _AllToAll.apply(x, group)
 
 

@@ -6,10 +6,10 @@ The reference's Spark and Ray integrations († ``horovod/spark/runner.py``,
 starts the rendezvous services, builds per-rank environment blocks, and the
 cluster manager (instead of ssh) places the worker processes.  This module
 is that shared shape for the port: the native KV + controller services of
-``horovod_tpu_torch._native`` and the per-rank env block used by
-``runner/launch.py``.  (Only the Spark and Ray placement exchange is
-still to come, with those bindings, the last slice of ROADMAP section A
-'Remaining models, bindings and examples'.)
+``horovod_tpu_torch._native``, the per-rank env block used by
+``runner/launch.py``, ``horovod_tpu_torch.spark`` and
+``horovod_tpu_torch.ray``, and the placement exchange the last two run
+on the workers (:func:`placement_info`, :func:`placement_env`).
 
 The env block keeps ``HVDTPU_RENDEZVOUS_ADDR``: the metrics publisher
 (:mod:`horovod_tpu_torch.obs.aggregate`) finds the job's KV store by it.
@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import os
 import secrets as _secrets
-from typing import Dict, Optional
+import socket
+from typing import Dict, List, Optional
 
 
 def local_ip() -> str:
@@ -95,10 +96,12 @@ class DriverServices:
 
     def worker_env(self, rank: int, local_rank: int, *,
                    coordinator_addr: Optional[str] = None,
+                   platform: Optional[str] = None,
                    extra_env: Optional[Dict[str, str]] = None
                    ) -> Dict[str, str]:
         """The env block ``runner/launch.py base_env`` injects, minus the
-        inherited process env (the cluster manager owns that part)."""
+        inherited process env (the cluster manager owns that part).
+        ``platform`` (``"cpu"``) sets ``HVDTPU_PLATFORM``."""
         env = dict(extra_env or {})
         env.update({
             "HVDTPU_CROSS_RANK": str(rank),
@@ -111,6 +114,8 @@ class DriverServices:
         })
         if coordinator_addr:
             env["HVDTPU_COORDINATOR_ADDR"] = coordinator_addr
+        if platform:
+            env["HVDTPU_PLATFORM"] = platform
         return env
 
     def close(self) -> None:
@@ -122,3 +127,40 @@ class DriverServices:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def local_ranks(hostnames: List[str]) -> List[int]:
+    """Per-rank local rank, given each rank's hostname in rank order
+    († host_hash.py grouping: ranks sharing a host get 0,1,2,...)."""
+    seen: Dict[str, int] = {}
+    out = []
+    for h in hostnames:
+        out.append(seen.get(h, 0))
+        seen[h] = out[-1] + 1
+    return out
+
+
+# --- placement exchange (worker side) --------------------------------------
+# Each rank contributes placement_info(); from the gathered rank-ordered
+# list, placement_env() derives what only placement can decide: local rank
+# (host grouping) and the address of rank 0's torch.distributed TCP store
+# (rank 0's IP).  Used by the Spark barrier allGather and the Ray placement
+# round.
+
+def placement_info() -> str:
+    """This worker's ``"hostname|ip"``."""
+    return socket.gethostname() + "|" + local_ip()
+
+
+def placement_env(infos: List[str], rank: int, coord_port: int
+                  ) -> Dict[str, str]:
+    """``HVDTPU_LOCAL_RANK`` and ``HVDTPU_COORDINATOR_ADDR`` of ``rank``
+    from every rank's :func:`placement_info`, in rank order."""
+    # Group on the full "hostname|ip" pair: containerized Spark/Ray
+    # clusters can give distinct hosts identical default hostnames, which
+    # would mis-assign local ranks if hostname alone were the key.
+    rank0_ip = infos[0].split("|", 1)[1]
+    return {
+        "HVDTPU_LOCAL_RANK": str(local_ranks(infos)[rank]),
+        "HVDTPU_COORDINATOR_ADDR": f"{rank0_ip}:{coord_port}",
+    }

@@ -14,11 +14,17 @@ each, through the port's launcher on the CPU over Gloo (the machinery of
   (``outdir/<model>.npz``, written by the test: a rank never imports
   jax);
 - ``syncbn``: ``resnet18_thin`` with its batch norm synchronized over
-  the world group, each rank on its half of the batch: the logits, the
-  running statistics and the gradients averaged over the ranks;
+  a group of all ranks made by ``dist.new_group``, each rank on its half
+  of the batch: the logits, the running statistics and the gradients
+  averaged over the ranks;
 - ``lookup``: DLRM's ``sharded_embedding_lookup`` of the full tables
-  and indices, a rank's batch shard, and the tables' gradient under a
-  fixed cotangent; at two ranks also the refusals of uneven shards.
+  and indices over a ``dist.new_group``, a rank's batch shard, and the
+  tables' gradient under a fixed cotangent; at two ranks also the
+  refusals of uneven shards;
+- ``guard``: the world group handed to ``parallel.comm``'s
+  ``all_to_all_group`` and ``mean_across_group``, DLRM's lookups and a
+  synchronized ``BatchNorm``: each call's exception (none may reach a
+  collective).
 
 The inputs are made with numpy from fixed seeds by the functions below,
 which the test imports to build the same inputs for the JAX side.
@@ -172,7 +178,7 @@ def run_syncbn(hvd, me: int, n: int, arrays: dict, info: dict,
     import torch.distributed as dist
     import torch.nn.functional as F
     x, y = resnet_batch()
-    model = _resnet(outdir, group=dist.group.WORLD)
+    model = _resnet(outdir, group=dist.new_group(list(range(n))))
     model.train()
     logits = model(_t(_half(x, me, n)))
     F.cross_entropy(logits, _t(_half(y, me, n))).backward()
@@ -186,10 +192,12 @@ def run_syncbn(hvd, me: int, n: int, arrays: dict, info: dict,
 
 def run_lookup(hvd, me: int, n: int, arrays: dict, info: dict,
                outdir: str) -> None:
+    import torch.distributed as dist
     from horovod_tpu_torch.models import dlrm
+    group = dist.new_group(list(range(n)))
     tables, idx, cot = lookup_inputs()
     t = _t(tables).requires_grad_()
-    out = dlrm.sharded_embedding_lookup(t, _t(idx))
+    out = dlrm.sharded_embedding_lookup(t, _t(idx), group=group)
     (out * _t(_half(cot, me, n))).sum().backward()
     arrays["out"] = out.detach().numpy()
     arrays["grad"] = hvd.allreduce(t.grad, hvd.Sum, name="grad").numpy()
@@ -199,13 +207,53 @@ def run_lookup(hvd, me: int, n: int, arrays: dict, info: dict,
                 "batch": (t, _t(idx[:15])),
                 "tables": (t[:3], _t(idx[:, :3]))}.items():
             try:
-                dlrm.sharded_embedding_lookup(tb, ix)
+                dlrm.sharded_embedding_lookup(tb, ix, group=group)
             except ValueError as e:
                 refusals[name] = str(e)
         info["refusals"] = refusals
 
 
-BATTERIES = {"dp": run_dp, "syncbn": run_syncbn, "lookup": run_lookup}
+def run_guard(hvd, me: int, n: int, arrays: dict, info: dict,
+              outdir: str) -> None:
+    import torch
+    import torch.distributed as dist
+    from horovod_tpu_torch.models import dlrm, resnet
+    from horovod_tpu_torch.parallel import comm
+
+    tables, idx, _ = lookup_inputs()
+    x = torch.ones(n, 3)
+    calls = {
+        "all_to_all_group.None": lambda: comm.all_to_all_group(x, None),
+        "all_to_all_group.WORLD":
+            lambda: comm.all_to_all_group(x, dist.group.WORLD),
+        "mean_across_group.WORLD":
+            lambda: comm.mean_across_group(x, dist.group.WORLD),
+        "mean_across_group.None": lambda: comm.mean_across_group(x, None),
+        "sharded_embedding_lookup":
+            lambda: dlrm.sharded_embedding_lookup(_t(tables), _t(idx)),
+        "sharded_embedding_lookup_local": lambda:
+            dlrm.sharded_embedding_lookup_local(
+                _t(tables[:tables.shape[0] // n]),
+                _t(_half(idx, me, n))),
+        "BatchNorm": lambda: resnet.BatchNorm(
+            3, group=dist.group.WORLD, device=torch.device("cpu"))(
+                torch.ones(2, 3, 4, 4)),
+    }
+    raised = {}
+    for name, call in calls.items():
+        try:
+            call()
+            raised[name] = None
+        except Exception as e:                       # noqa: BLE001
+            raised[name] = f"{type(e).__name__}: {e}"
+    info["raised"] = raised
+    # a collective after the refusals still lines up on every rank
+    arrays["after"] = hvd.allreduce(torch.full((2,), float(me)), hvd.Sum,
+                                    name="guard.after").numpy()
+
+
+BATTERIES = {"dp": run_dp, "syncbn": run_syncbn, "lookup": run_lookup,
+             "guard": run_guard}
 
 
 def main(mode: str, outdir: str) -> int:

@@ -12,13 +12,19 @@ against the JAX package on the same inputs.
   running statistics averaged too.  Losses within 1e-4, parameters and
   statistics within 2e-4 (rtol and atol).
 - ``syncbn`` (np=2): ``resnet18_thin`` with its batch norm synchronized
-  over the world group equals the flax model on the full batch: logits
+  over a ``dist.new_group`` of both ranks equals the flax model on the
+  full batch: logits
   and statistics within 2e-4, gradients averaged over the ranks within
   relative L2 1e-5 of the full batch's.
 - ``lookup`` (np=2, np=4): ``sharded_embedding_lookup`` bitwise equal to
   the dense gather and to the JAX package's ``sharded_embedding_lookup``
   over a mesh of as many devices; the tables' gradient, summed over the
   ranks, within 1e-6 of the dense gather's.
+- ``guard`` (np=2): the world group (``None`` or ``dist.group.WORLD``)
+  handed to ``parallel.comm``'s ``all_to_all_group`` and
+  ``mean_across_group``, to DLRM's lookups and to a synchronized
+  ``BatchNorm`` raises ``ValueError`` naming ``new_group`` on both ranks
+  within the job's 60 s: a raise, not a hang.
 """
 
 import threading
@@ -48,7 +54,11 @@ def _np(tree):
 
 
 def _run(mode: str, np_: int, outdir: str) -> list:
-    DW.check_ranks(MW.launch(mode, outdir, np_))
+    return _run_within(mode, np_, outdir)
+
+
+def _run_within(mode: str, np_: int, outdir: str, timeout=180) -> list:
+    DW.check_ranks(MW.launch(mode, outdir, np_, timeout=timeout))
     ranks = MW.load(mode, outdir, np_)
     assert not any(info["jax_loaded"] for _, info in ranks)
     return ranks
@@ -240,3 +250,18 @@ def test_sharded_embedding_lookup_is_the_dense_gather(np_, tmp_path):
         refusals = ranks[0][1]["refusals"]
         assert "equal" in refusals["batch"], refusals
         assert "do not split" in refusals["tables"], refusals
+
+
+def test_world_group_beside_the_engine_raises_not_hangs(tmp_path):
+    ranks = _run_within("guard", 2, str(tmp_path), timeout=60)
+    for arrays, info in ranks:
+        assert set(info["raised"]) == {
+            "all_to_all_group.None", "all_to_all_group.WORLD",
+            "mean_across_group.WORLD", "mean_across_group.None",
+            "sharded_embedding_lookup", "sharded_embedding_lookup_local",
+            "BatchNorm"}, info
+        for name, err in info["raised"].items():
+            assert err is not None and err.startswith("ValueError"), \
+                (name, err)
+            assert "torch.distributed.new_group" in err, (name, err)
+        np.testing.assert_array_equal(arrays["after"], [1.0, 1.0])
