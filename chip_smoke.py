@@ -11,17 +11,20 @@ multi-replica serving (the router, disaggregated prefill/decode),
 training (with its recompute and loss variants, as a Switch-MoE, on a
 mesh, as two pipeline stages), sharded serving at one rank and
 data-parallel training through Horovod's runtime, the model zoo
-(ResNet-50, BERT-Large, DLRM) trained through it, and the estimator's
-fit of the MNIST ConvNet, and checks them, phase
+(ResNet-50, BERT-Large, DLRM) trained through it, the estimator's
+fit of the MNIST ConvNet, and fp32 Llama training (7B widths, and the
+JAX package's Llama examples) through the CUDA-core flash kernels, and
+checks them, phase
 by phase, printing one JSON line per phase:
 
 1. ``device``  the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions;
-2. ``build``   the CUDA kernels, ``paged_decode``, ``flash_fwd`` and
-   ``flash_bwd``, built from ``csrc/`` (one ``nvcc`` each, all at once)
-   and loaded, with the seconds each took;
+2. ``build``   the CUDA kernels, ``paged_decode``, ``flash_fwd``,
+   ``flash_bwd`` and ``flash_simple``, built from ``csrc/`` (one
+   ``nvcc`` each, all at once) and loaded, with the seconds each took;
 3. ``kernel``  each kernel against its plain PyTorch version on the card
-   (fp32, TF32 off), in bf16 at the shapes the main paths give it, plus
+   (fp32, TF32 off), in bf16 at the shapes the main paths give it (and
+   the flash kernels across their domain, below), plus
    two flash shapes whose S is a multiple of 64 but not of 128 (causal
    GQA, and full GQA at head dim 64) and one long paged-decode request,
    where the split over table columns matters most, and one split of more
@@ -299,7 +302,31 @@ by phase, printing one JSON line per phase:
    within ``ESTIMATOR``'s tolerance of a CPU fp32 copy (saying whether
    cuDNN's TF32 convolutions were on); samples/s and ms an epoch, the
    checkpoint's bytes and save ms, peak memory, and one more short epoch
-   under the profiler (device ms a step, idle share).
+   under the profiler (device ms a step, idle share);
+25. ``train_fp32``  Llama-2-7B's widths (d_model 4096, 32 heads of 128,
+   d_ff 11008, vocab 32000) in fp32 with TF32 off at 4 layers (1.07 B
+   parameters), B=1, S=4096, recompute, fused Adam through
+   ``make_train_step``: one warm-up and three timed steps, every counter
+   zeroed just before and read just after (the CUDA-core flash kernels
+   8, 4 and 4 times a step, the wgmma ones never); the first forward's
+   logits and loss through the kernels against the plain versions'
+   (``TRAIN_FP32_LOGITS_REL``, ``TRAIN_FP32_REL``), the losses falling;
+   ms a step, achieved TFLOP/s, peak memory and a profile of one step
+   (idle share, each flash kernel's device ms);
+26. ``llama_examples``  ``examples/port_llama_finetune.py`` and
+   ``port_llama_moe.py`` (the JAX package's Llama examples at their own
+   configs: fp32, head dim 16) run in this process at one rank: each
+   prints its ``DONE`` line with finite losses and launches the CUDA-core
+   flash kernels.
+
+The kernel phase's flash shapes cover the kernels' domain: besides the
+7B shapes, GQA and S a multiple of 64 but not of 128, an S of 4000
+(causal and full) and of 100, bf16 at head dims 96 (padded to 128) and
+256, fp32 at the 7B shape, at ``LlamaConfig.tiny()``'s heads and at head
+dim 256, and 70,000 batch x heads (past one grid dimension) in bf16 and
+fp32; bf16 rows within ``FLASH_ROW_TOL``, fp32 rows within
+``FLASH_ROW_TOL_FP32`` of the fp32 plain versions, each timed case's
+bound at the tensor cores' bf16 rate or the CUDA cores' fp32 rate.
 
 Then a ``total`` line (the script's wall seconds), a ``kernels`` line
 (the kernel phase's numbers, null where it did not run, and each path's
@@ -311,8 +338,9 @@ CUDA device, or without the port's package beside the script, it exits
 (``device,build,kernel,serve,frontdoor,replicas,train,train_variants,
 train_dp,train_zero,dataplane,hvdrun,hvdrun_obs,elastic,train_parity,
 train_moe,hier,train_mesh,train_pp,serve_mesh,train_resnet,train_bert,
-train_dlrm,train_estimator``; ``frontdoor``,
-``replicas``, ``elastic`` and ``train_moe`` need ``build``;
+train_dlrm,train_estimator,train_fp32,llama_examples``; ``frontdoor``,
+``replicas``, ``elastic``, ``train_moe``, ``train_fp32`` and
+``llama_examples`` need ``build``;
 ``train_variants``, ``train_dp``, ``hvdrun_obs`` and ``train_mesh`` need
 ``train``, ``hvdrun`` and ``train_zero`` need ``train`` and
 ``train_dp``, ``serve_mesh`` needs ``serve``); ``--root DIR`` drives
@@ -330,15 +358,18 @@ import sys
 import time
 from pathlib import Path
 
-# Published H100 SXM rates (NVIDIA data sheet, dense, at the 700 W limit).
+# Published H100 SXM rates (NVIDIA data sheet, dense, at the 700 W limit):
+# HBM, bf16 on the tensor cores, fp32 on the CUDA cores (no TF32).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 PHASES = ("device", "build", "kernel", "serve", "frontdoor", "replicas",
           "train", "train_variants", "train_dp", "train_zero", "dataplane",
           "hvdrun", "hvdrun_obs", "elastic", "train_parity", "train_moe",
           "hier", "train_mesh", "train_pp", "serve_mesh", "train_resnet",
-          "train_bert", "train_dlrm", "train_estimator")
-KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd")
+          "train_bert", "train_dlrm", "train_estimator", "train_fp32",
+          "llama_examples")
+KERNEL_LIBS = ("paged_decode", "flash_fwd", "flash_bwd", "flash_simple")
 SRC = "horovod_tpu_torch/csrc/"
 TPU_SRC = "horovod_tpu/ops/flash_attention.py"
 # name -> (library, the Pallas kernel it replaces, file:line of its def)
@@ -347,7 +378,13 @@ KERNELS = {
     "flash_fwd": ("flash_fwd", TPU_SRC + ":85"),
     "flash_bwd_dq": ("flash_bwd", TPU_SRC + ":185"),
     "flash_bwd_dkv": ("flash_bwd", TPU_SRC + ":224"),
+    "flash_simple_fwd": ("flash_simple", TPU_SRC + ":85"),
+    "flash_simple_dq": ("flash_simple", TPU_SRC + ":185"),
+    "flash_simple_dkv": ("flash_simple", TPU_SRC + ":224"),
 }
+# The wgmma entry points, counted on every path; the CUDA-core ones
+# (fp32, or bf16 past head dim 128) count on a path only where launched.
+BASE_KERNELS = ("paged_decode", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def emit(obj: dict) -> None:
@@ -401,22 +438,31 @@ def host_us(torch, fn, calls: int = 200) -> float:
     return best
 
 
-def _counters():
-    from horovod_tpu_torch.ops import flash_attention as FA
-    return {"paged_decode": FA.paged_attention,
-            "flash_fwd": FA.flash_forward,
-            "flash_bwd_dq": FA.flash_backward_dq,
-            "flash_bwd_dkv": FA.flash_backward_dkv}
-
-
 def zero_launches() -> None:
-    """Set every kernel's launch counter to 0."""
-    for fn in _counters().values():
+    """Set every kernel's launch counter to 0: each wrapper's total and
+    each library entry point's count."""
+    from horovod_tpu_torch.ops import flash_attention as FA
+    for fn in (FA.paged_attention, FA.flash_forward, FA.flash_backward_dq,
+               FA.flash_backward_dkv):
         fn.launches = 0
+    for name in getattr(FA, "KERNEL_LAUNCHES", {}):
+        FA.KERNEL_LAUNCHES[name] = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in _counters().items()}
+    """Launches of each kernel entry point since :func:`zero_launches`:
+    the wgmma ones and ``paged_decode`` always, a CUDA-core one where it
+    launched (so a path's exact expectation of the wgmma kernels also
+    fails if a CUDA-core kernel ran instead)."""
+    from horovod_tpu_torch.ops import flash_attention as FA
+    per = getattr(FA, "KERNEL_LAUNCHES", None)
+    if per is None:                # a tree from before the CUDA-core kernels
+        per = {"flash_fwd": FA.flash_forward.launches,
+               "flash_bwd_dq": FA.flash_backward_dq.launches,
+               "flash_bwd_dkv": FA.flash_backward_dkv.launches}
+    out = {"paged_decode": FA.paged_attention.launches}
+    out.update({k: n for k, n in per.items() if k in BASE_KERNELS or n})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -554,15 +600,24 @@ def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
 # delta), the plain version's dq there is ~0 and any rounding is "large"
 # against it, while it is ~1e-7 of a typical row.
 FLASH_ROW_TOL = 2.0 ** -5
+# fp32 (the CUDA-core kernels against the fp32 plain versions, both fp32
+# throughout, no TF32): sums of fp32 products in another order and exp2
+# against exp, some 1e-7 of a row's scale; a block dropped or misrouted
+# moves a row by order its own size.
+FLASH_ROW_TOL_FP32 = 1e-5
 FLOOR_SHARE = 2.0 ** -3
 # LSE, absolute: both sum fp32 exponentials of the same fp32-accumulated
 # scores in another order (and exp2 against exp): ~1e-6 at values near
 # log(S) ~ 8.  A 64-key block dropped from a 4096-key row moves it by
 # about log(1 - 64/4096) = -0.016.
 LSE_ABS_TOL = 1e-3
+# Set by --root: the tree driven may predate some flash shapes, whose
+# cases are then skipped (and say so) instead of failing, as are the
+# untimed coverage cases (a B * H past one grid dimension, S = 100).
+OTHER_TREE = False
 
 
-def _row_check(torch, name, label, got, ref) -> dict:
+def _row_check(torch, name, label, got, ref, tol=FLASH_ROW_TOL) -> dict:
     diff = (got.float() - ref.float()).abs()
     row_err = diff.amax(dim=-1)
     row_mag = ref.float().abs().amax(dim=-1)
@@ -570,17 +625,17 @@ def _row_check(torch, name, label, got, ref) -> dict:
     ratio = (row_err / torch.maximum(row_mag, floor).clamp_min(1e-30)
              ).max().item()
     err = diff.max().item()
-    if not (math.isfinite(err) and ratio <= FLASH_ROW_TOL):
+    if not (math.isfinite(err) and ratio <= tol):
         raise AssertionError(
             f"{name} {label}: worst row |kernel - plain| is {ratio} of the "
-            f"row's scale (limit {FLASH_ROW_TOL}); max abs {err}")
+            f"row's scale (limit {tol}); max abs {err}")
     return {"max_abs_err": err, "worst_row_rel_err": ratio}
 
 
-def flash_case(torch, gen, B, S, H, KV, D):
+def flash_case(torch, gen, B, S, H, KV, D, dtype):
     def rnd(heads):
         return torch.randn(B, S, heads, D, generator=gen,
-                           device="cuda").to(torch.bfloat16)
+                           device="cuda").to(dtype)
     return rnd(H), rnd(KV), rnd(KV), rnd(H)
 
 
@@ -590,62 +645,104 @@ def flash_bytes(q, k, outs, extra_f32=0) -> int:
         + extra_f32 * 4
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def bound(nbytes: int, flops: int, flops_per_s: float = BF16_FLOPS) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops,
+            "peak_flops_per_s": flops_per_s}
 
 
-def check_flash(torch, gen, *, label, B, S, H, KV, D, causal) -> dict:
-    """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their plain
-    versions at one shape (the backward on the kernel forward's o and lse),
-    then each timed beside its bound and the library yardstick: SDPA for
-    the forward, one autograd.grad through SDPA's output (dq, dk and dv
-    together) for the backward pair.  The port never calls SDPA.  A second
-    launch of each backward kernel must give bitwise the same dq, dk and
-    dv."""
+def flash_entry_points(FA, dtype, D) -> tuple:
+    """The kernel entry points (forward, dq, dkv) the flash wrappers launch
+    at this dtype and head dim."""
+    plan = getattr(FA, "flash_plan", None)
+    if plan is not None and plan(dtype, D)[0] == "flash_simple":
+        return ("flash_simple_fwd", "flash_simple_dq", "flash_simple_dkv")
+    return ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def check_flash(torch, gen, *, label, B, S, H, KV, D, causal, dtype=None,
+                timed=True) -> dict:
+    """The flash wrappers against their plain versions at one shape (the
+    backward on the kernel forward's o and lse): each output row within
+    ``FLASH_ROW_TOL`` (bf16) or ``FLASH_ROW_TOL_FP32`` (fp32) of its scale,
+    lse within ``LSE_ABS_TOL``, each wrapper launching the entry point
+    :func:`flash_entry_points` names once, and a second launch of each
+    backward kernel giving bitwise the same dq, dk and dv.  Then, if
+    ``timed``, each timed beside its bound (bf16 operations at the tensor
+    cores' rate, fp32 at the CUDA cores') and the library yardstick at the
+    same dtype: SDPA for the forward, one autograd.grad through SDPA's
+    output (dq, dk and dv together) for the backward pair.  The port never
+    calls SDPA.  Results are keyed by entry point."""
     import torch.nn.functional as F
     from horovod_tpu_torch.ops import flash_attention as FA
 
-    q, k, v, do = flash_case(torch, gen, B, S, H, KV, D)
+    dtype = dtype or torch.bfloat16
+    dname = str(dtype).split(".")[-1]
+    if OTHER_TREE and not (timed and FA.supported((B, S, H, D), dtype, KV)):
+        emit({"phase": "kernel", "shape": label, "dtype": dname,
+              "skipped": "another tree: untimed, or outside its "
+              "flash_attention.supported"})
+        return {}
+    names = flash_entry_points(FA, dtype, D)
+    tol = FLASH_ROW_TOL if dtype == torch.bfloat16 else FLASH_ROW_TOL_FP32
+    q, k, v, do = flash_case(torch, gen, B, S, H, KV, D, dtype)
     sc = 1.0 / math.sqrt(D)
     shape = {"shape": label, "B": B, "S": S, "H": H, "KV": KV, "D": D,
-             "causal": causal, "dtype": "bfloat16"}
+             "causal": causal, "dtype": dname,
+             "padded_head_dim": FA.flash_plan(dtype, D)[1]
+             if hasattr(FA, "flash_plan") else D}
+    before = read_launches()
     o, lse = FA.flash_forward(q, k, v, sc, causal)
-    ro, rlse = FA.flash_forward_reference(q, k, v, sc, causal)
     delta = FA.flash_delta(o, do)
     args = (q, k, v, do, lse, delta, sc, causal)
     dq = FA.flash_backward_dq(*args)
     dk, dv = FA.flash_backward_dkv(*args)
-    rdq = FA.flash_backward_dq_reference(*args)
-    rdk, rdv = FA.flash_backward_dkv_reference(*args)
     torch.cuda.synchronize()
-    res = {"flash_fwd": _row_check(torch, "flash_fwd", label, o, ro),
-           "flash_bwd_dq": _row_check(torch, "flash_bwd_dq", label, dq, rdq)}
-    dk_c = _row_check(torch, "flash_bwd_dkv", label, dk, rdk)
-    dv_c = _row_check(torch, "flash_bwd_dkv", label, dv, rdv)
-    res["flash_bwd_dkv"] = {
+    after = read_launches()
+    moved = {n: after.get(n, 0) - before.get(n, 0) for n in after}
+    if moved != {n: int(n in names) for n in moved}:
+        raise AssertionError(f"{label}: launches {moved}, want one each of "
+                             f"{names}")
+    ro, rlse = FA.flash_forward_reference(q, k, v, sc, causal)
+    res = {names[0]: _row_check(torch, names[0], label, o, ro, tol)}
+    lse_err = (lse - rlse).abs().max().item()
+    if not (math.isfinite(lse_err) and lse_err <= LSE_ABS_TOL):
+        raise AssertionError(f"{names[0]} {label}: lse off by {lse_err} "
+                             f"(limit {LSE_ABS_TOL})")
+    res[names[0]]["lse_max_abs_err"] = lse_err
+    del ro, rlse
+    rdq = FA.flash_backward_dq_reference(*args)
+    res[names[1]] = _row_check(torch, names[1], label, dq, rdq, tol)
+    del rdq
+    rdk, rdv = FA.flash_backward_dkv_reference(*args)
+    dk_c = _row_check(torch, names[2], label, dk, rdk, tol)
+    dv_c = _row_check(torch, names[2], label, dv, rdv, tol)
+    del rdk, rdv
+    res[names[2]] = {
         "max_abs_err": max(dk_c["max_abs_err"], dv_c["max_abs_err"]),
         "worst_row_rel_err": max(dk_c["worst_row_rel_err"],
                                  dv_c["worst_row_rel_err"])}
-    lse_err = (lse - rlse).abs().max().item()
-    if not (math.isfinite(lse_err) and lse_err <= LSE_ABS_TOL):
-        raise AssertionError(f"flash_fwd {label}: lse off by {lse_err} "
-                             f"(limit {LSE_ABS_TOL})")
-    res["flash_fwd"]["lse_max_abs_err"] = lse_err
-    del ro, rlse, rdq, rdk, rdv
     dq2 = FA.flash_backward_dq(*args)
     dk2, dv2 = FA.flash_backward_dkv(*args)
     torch.cuda.synchronize()
     for name, a, b in (("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
-        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+        if not torch.equal(_bits(a), _bits(b)):
             raise AssertionError(f"{label}: two launches gave different "
                                  f"{name} bits")
-    res["flash_bwd_dq"]["bitwise_repeatable"] = True
-    res["flash_bwd_dkv"]["bitwise_repeatable"] = True
+    res[names[1]]["bitwise_repeatable"] = True
+    res[names[2]]["bitwise_repeatable"] = True
     del dq2, dk2, dv2
+    for name in names:
+        res[name].update(shape)
+        res[name]["row_rel_tol"] = tol
+    if not timed:
+        for name in names:
+            emit({"phase": "kernel", "name": name, "timed": False,
+                  **res[name]})
+        return res
 
     # Library yardsticks on [B, H, S, D] copies made outside the timed
     # calls (K/V repeated to H heads for GQA).
@@ -661,33 +758,28 @@ def check_flash(torch, gen, *, label, B, S, H, KV, D, causal) -> dict:
     del lib_out, qt, kt, vt, dot
 
     flops = {n: FA.flash_flops((B, S, H, D), causal, p)
-             for n, p in (("flash_fwd", 2), ("flash_bwd_dq", 3),
-                          ("flash_bwd_dkv", 4))}
+             for n, p in zip(names, (2, 3, 4))}
     rows = B * H * S
-    nbytes = {"flash_fwd": flash_bytes(q, k, (o,), rows),
-              "flash_bwd_dq": flash_bytes(q, k, (do, dq), 2 * rows),
-              "flash_bwd_dkv": flash_bytes(q, k, (do, dk, dv), 2 * rows)}
-    timed = {
-        "flash_fwd": (lambda: FA.flash_forward(q, k, v, sc, causal),
-                      lambda: FA.flash_forward_reference(q, k, v, sc,
-                                                         causal), lib_fwd),
-        "flash_bwd_dq": (lambda: FA.flash_backward_dq(*args),
-                         lambda: FA.flash_backward_dq_reference(*args),
-                         lib_bwd),
-        "flash_bwd_dkv": (lambda: FA.flash_backward_dkv(*args),
-                          lambda: FA.flash_backward_dkv_reference(*args),
-                          lib_bwd),
-    }
+    nbytes = dict(zip(names, (flash_bytes(q, k, (o,), rows),
+                              flash_bytes(q, k, (do, dq), 2 * rows),
+                              flash_bytes(q, k, (do, dk, dv), 2 * rows))))
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    timed = dict(zip(names, (
+        (lambda: FA.flash_forward(q, k, v, sc, causal),
+         lambda: FA.flash_forward_reference(q, k, v, sc, causal), lib_fwd),
+        (lambda: FA.flash_backward_dq(*args),
+         lambda: FA.flash_backward_dq_reference(*args), lib_bwd),
+        (lambda: FA.flash_backward_dkv(*args),
+         lambda: FA.flash_backward_dkv_reference(*args), lib_bwd))))
     for name, (fn, plain, lib_ms) in timed.items():
         r = res[name]
-        r.update(shape)
         r.update({"ms": time_cold(torch, fn),
                   "plain_ms": time_cold(torch, plain, iters=10),
                   "library_ms": lib_ms,
-                  "library": "SDPA forward" if name == "flash_fwd" else
-                  "SDPA backward (dq, dk, dv in one autograd.grad)"})
-        r.update(bound(nbytes[name], flops[name]))
-        r["row_rel_tol"] = FLASH_ROW_TOL
+                  "library": ("SDPA forward" if name == names[0] else
+                              "SDPA backward (dq, dk, dv in one "
+                              "autograd.grad)") + f", {dname}"})
+        r.update(bound(nbytes[name], flops[name], rate))
         emit({"phase": "kernel", "name": name, **r})
     return res
 
@@ -697,6 +789,7 @@ def phase_kernel(torch) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
+    f32 = torch.float32
     flash7b = check_flash(torch, gen, label="llama2_7b_train", B=1, S=4096,
                           H=32, KV=32, D=128, causal=True)
     check_flash(torch, gen, label="gqa_rep4", B=2, S=2048, H=32, KV=8,
@@ -711,6 +804,33 @@ def phase_kernel(torch) -> dict:
     # last 128-key CTA of flash_bwd_dkv and 128-row CTA of flash_bwd_dq.
     check_flash(torch, gen, label="ragged_full", B=1, S=1088, H=16, KV=4,
                 D=64, causal=False)
+    # The wgmma kernels' wider coverage: an S that is no multiple of 64
+    # (a ragged 64-row tile; TMA's zeros past S, lse and delta padded),
+    # causal and full; bf16 D = 96 zero-padded to 128; a B * H past the
+    # 65535 CTAs of one grid dimension; an S below one 128-row box.
+    check_flash(torch, gen, label="s4000_causal", B=1, S=4000, H=32, KV=32,
+                D=128, causal=True)
+    check_flash(torch, gen, label="s4000_full", B=1, S=4000, H=32, KV=8,
+                D=128, causal=False)
+    check_flash(torch, gen, label="d96_gqa", B=1, S=4096, H=32, KV=8, D=96,
+                causal=True)
+    check_flash(torch, gen, label="wide_bh_bf16", B=17500, H=4, KV=4, S=64,
+                D=64, causal=True, timed=False)
+    check_flash(torch, gen, label="short_s", B=3, S=100, H=8, KV=2, D=64,
+                causal=True, timed=False)
+    # The CUDA-core kernels: fp32 at the 7B shape, at LlamaConfig.tiny()'s
+    # heads with an S no multiple of 64, at D = 256; bf16 past D = 128; a
+    # B * H past one grid dimension.
+    fp32_7b = check_flash(torch, gen, label="llama2_7b_train_fp32", B=1,
+                          S=4096, H=32, KV=32, D=128, causal=True, dtype=f32)
+    check_flash(torch, gen, label="tiny_fp32", B=2, S=100, H=4, KV=2, D=16,
+                causal=True, dtype=f32)
+    check_flash(torch, gen, label="d256_bf16", B=1, S=2048, H=16, KV=16,
+                D=256, causal=True)
+    check_flash(torch, gen, label="d256_fp32", B=1, S=1024, H=8, KV=8,
+                D=256, causal=True, dtype=f32)
+    check_flash(torch, gen, label="wide_bh_fp32", B=17500, H=4, KV=4, S=64,
+                D=16, causal=True, dtype=f32, timed=False)
     # Ragged lengths 1..2048, partial last pages, rows padded to 128
     # columns at block 0.
     ragged = [1, 17, 300, 777, 1024, 1500, 2000, 2048]
@@ -748,7 +868,7 @@ def phase_kernel(torch) -> dict:
     check_paged_decode(torch, gen, label="tiny_fp32", B=3, H=4, KV=2,
                        Dh=16, BS=8, lengths=[5, 17, 30], n_cols=6,
                        dtype=torch.float32, timed=False)
-    return {"paged_decode": res7b, **flash7b}
+    return {"paged_decode": res7b, **flash7b, **fp32_7b}
 
 
 # ---------------------------------------------------------------------------
@@ -1964,9 +2084,8 @@ def train_breakdown(torch, step, params, batch, wall_ms: float,
           "device_idle_share": (1 - device_ms / wall_ms) if kernels
           else "not measured",
           "flash_ms_per_step": {
-              "flash_fwd": flash_ms("flash_fwd_kernel"),
-              "flash_bwd_dq": flash_ms("flash_bwd_dq_kernel"),
-              "flash_bwd_dkv": flash_ms("flash_bwd_dkv_kernel")},
+              name: flash_ms(f"{name}_kernel") for name in KERNELS
+              if name != "paged_decode"},
           "top_kernels_ms_per_step": {
               e.key[:80]: e.self_device_time_total / 1e3 for e in top},
           "card": smi})
@@ -5100,6 +5219,187 @@ def phase_train_estimator(torch, smi: str, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train_fp32: Llama-2-7B's widths in fp32 through the CUDA-core kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_FP32_LAYERS = 4   # Llama-2-7B's width, depth cut to fit fp32 Adam
+# The first step's loss through the kernels against the plain versions'
+# (both fp32, TF32 off): attention outputs some 1e-6 apart move a mean of
+# 4096 cross-entropies by far less.
+TRAIN_FP32_REL = 1e-5
+# The first forward's logits, the largest difference as a share of the
+# largest logit: the same rounding carried through 4 layers of 4096- and
+# 11008-term sums (5.3e-6 on the card); a dropped or misrouted key block
+# moves an attention row by order its own size, and the logits by far
+# more than this.
+TRAIN_FP32_LOGITS_REL = 1e-4
+
+
+def phase_train_fp32(torch, smi: str, steps: int = 3) -> dict:
+    """Llama-2-7B's widths (d_model 4096, 32 heads of 128, d_ff 11008,
+    vocab 32000) in fp32 at 4 layers, B=1, S=4096, per-layer recompute,
+    fused Adam through ``make_train_step``: one warm-up and ``steps`` timed
+    steps, every step's attention through ``flash_simple``.  The first
+    loss, and the first forward's logits (their largest difference over
+    the largest logit), are held against a forward with the plain
+    versions of the kernels."""
+    import numpy as np
+
+    from horovod_tpu_torch.models import llama
+
+    _free_cuda(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=TRAIN_FP32_LAYERS,
+                                      dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, "cuda")
+    n_params = sum(t.numel() for t in llama.trainable(params))
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(1, TRAIN_S + 1))
+    batch = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    inputs = batch["tokens"][:, :-1]
+    llama._FORCE_ATTENTION_REFERENCE = True
+    try:
+        with torch.no_grad():
+            plain_loss = llama.loss_fn(params, batch, cfg).item()
+            plain_logits = llama.forward(params, inputs, cfg)[0]
+    finally:
+        llama._FORCE_ATTENTION_REFERENCE = False
+    with torch.no_grad():
+        logits = llama.forward(params, inputs, cfg)[0]
+    logits_err = (logits - plain_logits).abs().max().item()
+    logits_rel = logits_err / plain_logits.abs().max().item()
+    del logits, plain_logits
+    _free_cuda(torch)
+    opt = torch.optim.Adam(llama.trainable(params), lr=TRAIN_LR, fused=True)
+    step = llama.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launches()
+    losses, step_s = [step(params, batch).item()], []   # warm-up step
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_steps = steps + 1
+    want = {"paged_decode": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0, "flash_simple_fwd": 2 * cfg.n_layers,
+            "flash_simple_dq": cfg.n_layers,
+            "flash_simple_dkv": cfg.n_layers}
+    faults = []
+    if counts != {k: n_steps * v for k, v in want.items()}:
+        faults.append(f"launches over {n_steps} steps: {counts}; want per "
+                      f"step {want}")
+    first_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    if not logits_rel <= TRAIN_FP32_LOGITS_REL:
+        faults.append(f"first forward's logits through the kernels off the "
+                      f"plain versions' by {logits_rel} of the largest "
+                      f"(limit {TRAIN_FP32_LOGITS_REL})")
+    if not first_rel <= TRAIN_FP32_REL:
+        faults.append(f"first loss {losses[0]} against the plain versions' "
+                      f"{plain_loss}: rel {first_rel} > {TRAIN_FP32_REL}")
+    ln_v = math.log(cfg.vocab_size)
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - ln_v) <= 2
+            and all(x < losses[0] for x in losses[1:])):
+        faults.append(f"losses {losses}: want finite, the first within 2 "
+                      f"of ln V = {ln_v}, then below it")
+    med = sorted(step_s)[len(step_s) // 2]
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * TRAIN_S
+    tok_s = TRAIN_S / med
+    res = {"phase": "train_fp32", "model": "llama2_7b widths, 4 layers",
+           "dtype": "float32", "tf32": False, "remat": cfg.remat,
+           "batch": 1, "seq": TRAIN_S,
+           "optimizer": f"Adam(lr={TRAIN_LR}, fused=True)",
+           "params": n_params, "losses": losses,
+           "first_loss_plain_attention": plain_loss,
+           "first_loss_rel": first_rel, "first_loss_rel_tol": TRAIN_FP32_REL,
+           "first_logits_max_abs_err": logits_err,
+           "first_logits_rel_err": logits_rel,
+           "first_logits_rel_tol": TRAIN_FP32_LOGITS_REL,
+           "step_s": step_s, "step_ms_median": med * 1e3,
+           "tokens_per_s": tok_s, "flops_per_token": flops_per_token,
+           "achieved_tflops": tok_s * flops_per_token / 1e12,
+           "launches": counts, "launches_per_step": want,
+           "peak_mem_gb": peak_gb, "card": smi}
+    emit(res)
+    train_breakdown(torch, step, params, batch, med * 1e3, smi,
+                    model="train_fp32")
+    del params, opt, step, batch
+    _free_cuda(torch)
+    if faults:
+        raise AssertionError("train_fp32: " + "; ".join(faults))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# llama_examples: the port's Llama examples at one rank on the card
+# ---------------------------------------------------------------------------
+
+LLAMA_EXAMPLES = (("port_llama_finetune.py", "llama_finetune"),
+                  ("port_llama_moe.py", "moe"))
+
+
+def phase_llama_examples(torch, smi: str, root: Path) -> dict:
+    """Each of the port's Llama training examples (the JAX package's
+    ``examples/llama_finetune.py`` and ``llama_moe.py``, fp32 at
+    ``LlamaConfig.tiny``'s head dim 16) run in this process at one rank,
+    as ``python examples/<script>`` would: its ``DONE`` line with finite
+    losses, and its attention through the CUDA-core flash kernels."""
+    import contextlib
+    import io
+    import re
+    import runpy
+
+    out = {}
+    faults = []
+    for script, name in LLAMA_EXAMPLES:
+        _free_cuda(torch)
+        buf = io.StringIO()
+        argv = sys.argv
+        sys.argv = [script]
+        zero_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(root / "examples" / script),
+                               run_name="__main__")
+        finally:
+            sys.argv = argv
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        text = buf.getvalue()
+        m = re.search(rf"DONE {name} first=(\S+) last=(\S+) size=1", text)
+        first, last = (float(m.group(1)), float(m.group(2))) if m \
+            else (math.nan, math.nan)
+        if not (m and math.isfinite(first) and math.isfinite(last)):
+            faults.append(f"{script}: no DONE line with finite losses in "
+                          f"{text[-2000:]!r}")
+        if not all(counts.get(k, 0) > 0 for k in (
+                "flash_simple_fwd", "flash_simple_dq", "flash_simple_dkv")):
+            faults.append(f"{script}: launches {counts}, want the fp32 "
+                          f"flash kernels")
+        out[name] = counts
+        emit({"phase": "llama_examples", "script": f"examples/{script}",
+              "first_loss": first, "last_loss": last, "wall_s": wall,
+              "launches": counts, "done_line": m.group(0) if m else None,
+              "card": smi})
+    _free_cuda(torch)
+    if faults:
+        raise AssertionError("llama_examples: " + "; ".join(faults))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5121,6 +5421,8 @@ def main(argv=None) -> int:
                     help="with --hvdrun-worker: the hvdrun_obs phase's "
                     "worker (step spans, the rest of the plane checked)")
     args = ap.parse_args(argv)
+    global OTHER_TREE
+    OTHER_TREE = args.root is not None
     t_start = time.perf_counter()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -5153,6 +5455,11 @@ def main(argv=None) -> int:
         ap.error("replicas launches the kernels: run build and replicas")
     if "train_moe" in phases and "build" not in phases:
         ap.error("train_moe launches the kernels: run build and train_moe")
+    if "train_fp32" in phases and "build" not in phases:
+        ap.error("train_fp32 launches the kernels: run build and train_fp32")
+    if "llama_examples" in phases and "build" not in phases:
+        ap.error("llama_examples launches the kernels: run build and "
+                 "llama_examples")
     if "elastic" in phases and "build" not in phases:
         ap.error("elastic's worker loads the kernels build builds: run "
                  "build and elastic")
@@ -5243,6 +5550,10 @@ def main(argv=None) -> int:
     if "train_estimator" in phases:
         zoo["train_estimator"] = phase_train_estimator(
             torch, smi, args.seed)["launches"]
+    fp32_trained = phase_train_fp32(torch, smi) if "train_fp32" in phases \
+        else None
+    examples = phase_llama_examples(torch, smi, root) \
+        if "llama_examples" in phases else None
     # launches: paged_decode on the serving paths, the flash kernels on
     # the training paths (each counted in its own run), summed; the
     # kernel phase's numbers where it ran (null where it did not).
@@ -5261,6 +5572,10 @@ def main(argv=None) -> int:
         paths["serve_mesh"] = {"paged_decode":
                                served_mesh["counts"]["paged_decode"]}
     paths.update(zoo)              # every counter 0 there, checked above
+    if fp32_trained is not None:
+        paths["train_fp32"] = fp32_trained["launches"]
+    if examples is not None:
+        paths.update({f"llama_examples.{k}": v for k, v in examples.items()})
     if paths:
         keys = ("max_abs_err", "worst_row_rel_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")
@@ -5270,7 +5585,7 @@ def main(argv=None) -> int:
              "launches": sum(p.get(name, 0) for p in paths.values()),
              "launches_by_path": {k: p.get(name, 0)
                                   for k, p in paths.items()},
-             **{k: res[name][k] if res is not None else None
+             **{k: res[name][k] if res is not None and name in res else None
                 for k in keys}}
             for name, (lib, replaces) in KERNELS.items()]})
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start,

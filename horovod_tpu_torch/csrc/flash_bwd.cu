@@ -24,7 +24,8 @@
 //   (every consumer warp is done with the stage).  The maps are 4-D over
 //   (D, heads, S, B), built on the host per launch, so a tile never
 //   crosses a batch and GQA is a coordinate: q head h reads kv head
-//   h / (H / KV).  Rows past S arrive as zeros;
+//   h / (H / KV).  Rows past S arrive as zeros.  The grid's y dimension
+//   holds the (b, head) index up to 65535 and z continues it;
 // - every tile in shared memory is a [rows, D] box with D contiguous, as
 //   TMA lays it down.  The same tile is the K-major operand where a
 //   product contracts over D (S, dP) and the MN-major one where it
@@ -55,10 +56,20 @@
 // - lse log2(e)) in one multiply-add and one `ex2.approx`; masked entries
 // (the mask value -1e30) give p = 0; p is rounded to bf16 before dV and ds
 // before dQ and dK.  Only the tile on the causal diagonal is masked; a
-// tile wholly above it is skipped.  S is a multiple of 64, so a 64-row
-// warpgroup's rows lie wholly inside or wholly past S: a warpgroup past S
-// (the second half of the last 128-row CTA when S % 128 == 64) computes
-// nothing and stores nothing, and no tile of 64 keys or queries is ragged.
+// tile wholly above it is skipped.
+//
+// S may be any length.  A warpgroup whose rows all lie past S computes
+// and stores nothing; in a ragged one, rows past S are computed and never
+// stored.  Their Q, dO, K and V rows arrive as zeros, and lse and delta
+// come in rows of ld = S rounded up to 64 (the wrapper pads them with
+// zeros when S % 64 != 0, so each 64-row tile is one aligned 16-byte bulk
+// copy), so every such value stays finite and touches only its own row of
+// an accumulator.  In flash_bwd_dq a ragged last key tile of a full
+// (non-causal) launch gets p = 0 for its keys past S, which would otherwise
+// add to every row's dQ; under the causal mask those keys lie after every
+// row that is stored.  In flash_bwd_dkv keys are the accumulators' rows, so
+// a key past S changes nothing that is stored, and a query past S (zero Q
+// and dO rows, lse and delta 0) adds exactly 0 to dK and dV.
 //
 // What was tried on the card (NVIDIA H100 80GB HBM3, 700 W, 7B shape, dq /
 // dkv ms; PERF.md): three-stage rings for both 0.414-0.418 / 0.567-0.574;
@@ -154,20 +165,25 @@ __device__ __forceinline__ void to_frag(uint32_t (&a)[BT / 16][4], const float (
 }
 
 // Store a warpgroup's 64 x D fp32 accumulator as bf16 rows `stride`
-// elements apart: this thread's rows r and r + 8.
+// elements apart: this thread's rows r and r + 8, those below `rows`.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst, size_t stride, const float (&acc)[D / 2],
-                                           int r) {
+                                           int r, int rows) {
   const int t4 = (threadIdx.x % 32) & 3;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t4;
-    *reinterpret_cast<uint32_t*>(dst + (size_t)r * stride + col) =
-        pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(dst + (size_t)(r + 8) * stride + col) =
-        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    if (r < rows)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)r * stride + col) =
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < rows)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(r + 8) * stride + col) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
+
+// lse and delta rows are ld = S rounded up to a streamed tile apart.
+__device__ __forceinline__ int lse_ld(int S) { return (S + BT - 1) / BT * BT; }
 
 template <int N> __device__ __forceinline__ void zero(float (&a)[N]) {
 #pragma unroll
@@ -183,7 +199,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
                     const float* __restrict__ lse,              // [B, H, S]
                     const float* __restrict__ delta,            // [B, H, S]
                     bf16* __restrict__ dq,                      // [B, S, H, D]
-                    int S, int H, int KV, float scale, float scale_log2) {
+                    int B, int S, int H, int KV, float scale, float scale_log2) {
   using L = DqLayout<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
@@ -199,10 +215,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
 
   const int n_q = (S + BC - 1) / BC;
   const int qi = CAUSAL ? n_q - 1 - blockIdx.x : blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y + gridDim.y * blockIdx.z;
+  if (bh >= B * H) return;
   const int b = bh / H, h = bh - b * H;
   const int g = h / (H / KV);
-  const int n_t = S / BT;
+  const int n_t = (S + BT - 1) / BT;
   const int n_kv = CAUSAL ? min((qi * BC + BC - 1) / BT + 1, n_t) : n_t;
   const int wg = threadIdx.x / 128;
 
@@ -251,8 +268,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
 
     float lse0 = 0.f, lse1 = 0.f, dl0 = 0.f, dl1 = 0.f;
     if (live) {
-      const float* lse_row = lse + (size_t)bh * S + r0 + rw;
-      const float* dl_row = delta + (size_t)bh * S + r0 + rw;
+      const float* lse_row = lse + (size_t)bh * lse_ld(S) + r0 + rw;
+      const float* dl_row = delta + (size_t)bh * lse_ld(S) + r0 + rw;
       lse0 = lse_row[0] * kLog2e;
       lse1 = lse_row[8] * kLog2e;
       dl0 = dl_row[0];
@@ -288,12 +305,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
         hopper::wgmma_wait<1>();
         hopper::reg_fence(s);
         const bool diag = CAUSAL && key0 == r0;
+        const bool ragged = !CAUSAL && key0 + BT > S;  // keys past S in this tile
 #pragma unroll
         for (int j = 0; j < BT / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float p = exp2_approx(fmaf(s[4 * j + e], scale_log2, -(e & 2 ? lse1 : lse0)));
             if (diag && 8 * j + 2 * t4 + (e & 1) > rw + 4 * (e & 2)) p = 0.f;
+            if (ragged && key0 + 8 * j + 2 * t4 + (e & 1) >= S) p = 0.f;
             s[4 * j + e] = p;
           }
         // ds = p * (dp - delta) * scale, then dQ += ds K.
@@ -316,7 +335,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
       if (lane == 0) hopper::mbar_arrive(empty + st);
     }
     if (live)
-      store_rows<D>(dq + ((size_t)b * S + r0) * H * D + (size_t)h * D, (size_t)H * D, acc, rw);
+      store_rows<D>(dq + ((size_t)b * S + r0) * H * D + (size_t)h * D, (size_t)H * D, acc, rw,
+                    S - r0);
   }
 }
 
@@ -330,7 +350,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
                      const float* __restrict__ delta,            // [B, H, S]
                      bf16* __restrict__ dk,                      // [B, S, KV, D]
                      bf16* __restrict__ dv,                      // [B, S, KV, D]
-                     int S, int H, int KV, float scale, float scale_log2) {
+                     int B, int S, int H, int KV, float scale, float scale_log2) {
   using L = DkvLayout<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
@@ -347,11 +367,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
   float* dl_s = reinterpret_cast<float*>(smem + L::kDelta);
 
   const int ki = blockIdx.x;  // key blocks near 0 walk the most query tiles
-  const int bg = blockIdx.y;
+  const int bg = blockIdx.y + gridDim.y * blockIdx.z;
+  if (bg >= B * KV) return;
   const int b = bg / KV, g = bg - b * KV;
   const int rep = H / KV;
   const int lower = CAUSAL ? ki * BC / BT : 0;  // first query tile at or past the diagonal
-  const int per_head = S / BT - lower;
+  const int per_head = (S + BT - 1) / BT - lower;
   const int total = rep * per_head;
   const int wg = threadIdx.x / 128;
 
@@ -388,7 +409,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
           hopper::tma_load_4d(do_s + st * L::kTile + x * kBoxT, &tm_do, full + st, 64 * x, h,
                               q0, b);
         }
-        const size_t row = ((size_t)b * H + h) * S + q0;
+        const size_t row = ((size_t)b * H + h) * lse_ld(S) + q0;
         hopper::bulk_load(lse_s + st * BT, lse + row, BT * 4, full + st);
         hopper::bulk_load(dl_s + st * BT, delta + row, BT * 4, full + st);
       }
@@ -474,8 +495,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, D]
     if (live) {
       const size_t stride = (size_t)KV * D;
       const size_t off = ((size_t)b * S + k0) * stride + (size_t)g * D;
-      store_rows<D>(dk + off, stride, dk_acc, rw);
-      store_rows<D>(dv + off, stride, dv_acc, rw);
+      store_rows<D>(dk + off, stride, dk_acc, rw, S - k0);
+      store_rows<D>(dv + off, stride, dv_acc, rw, S - k0);
     }
   }
 }
@@ -508,9 +529,8 @@ cudaError_t launch_dq(const Args& a, bf16* dq) {
   const size_t smem = DqLayout<D>::kBytes;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.S + BC - 1) / BC, a.B * a.H);
-  kernel<<<grid, kThreads, smem, a.stream>>>(mq, mk, mv, mdo, a.lse, a.delta, dq, a.S, a.H,
-                                             a.KV, a.scale, a.scale * kLog2e);
+  kernel<<<head_grid((a.S + BC - 1) / BC, a.B * a.H), kThreads, smem, a.stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, dq, a.B, a.S, a.H, a.KV, a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -523,14 +543,13 @@ cudaError_t launch_dkv(const Args& a, bf16* dk, bf16* dv) {
   const size_t smem = DkvLayout<D>::kBytes;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.S + BC - 1) / BC, a.B * a.KV);
-  kernel<<<grid, kThreads, smem, a.stream>>>(mq, mk, mv, mdo, a.lse, a.delta, dk, dv, a.S,
-                                             a.H, a.KV, a.scale, a.scale * kLog2e);
+  kernel<<<head_grid((a.S + BC - 1) / BC, a.B * a.KV), kThreads, smem, a.stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, dk, dv, a.B, a.S, a.H, a.KV, a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
 bool valid(int B, int S, int H, int KV, int D) {
-  return B > 0 && S > 0 && S % BT == 0 && KV > 0 && H % KV == 0 && B * H <= 65535 &&
+  return B > 0 && S > 0 && KV > 0 && H % KV == 0 && (long long)B * H < (1ll << 31) &&
          (D == 64 || D == 128);
 }
 
@@ -539,8 +558,9 @@ bool valid(int B, int S, int H, int KV, int D) {
 extern "C" {
 
 // bf16 q, dout, dq [B, S, H, D] and k, v [B, S, KV, D], contiguous and
-// 16-byte aligned; lse and delta fp32 [B, H, S], 16-byte aligned.  D is 64
-// or 128, S a multiple of 64, KV divides H.  Returns a cudaError_t.
+// 16-byte aligned; lse and delta fp32 [B, H, ld] with ld = S rounded up to
+// 64 (zeros past S), 16-byte aligned.  D is 64 or 128, KV divides H, and
+// B * H is below 2^31.  Returns a cudaError_t.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                  const void* delta, void* dq, int B, int S, int H, int KV, int D, float scale,
                  int causal, void* stream) {
@@ -557,7 +577,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H,
                   int KV, int D, float scale, int causal, void* stream) {
-  if (!valid(B, S, H, KV, D) || B * KV > 65535) return cudaErrorInvalidValue;
+  if (!valid(B, S, H, KV, D)) return cudaErrorInvalidValue;
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
                B, S, H, KV, scale, static_cast<cudaStream_t>(stream)};
   bf16* ok = static_cast<bf16*>(dk);

@@ -49,6 +49,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+// A grid of `tiles` x `heads` CTAs whose (b, head) index is blockIdx.y +
+// gridDim.y * blockIdx.z: y holds up to 65535 of them and z the rest.
+inline dim3 head_grid(int tiles, int heads) {
+  const int y = heads < 65535 ? heads : 65535;
+  return dim3(tiles, y, (heads + y - 1) / y);
+}
+
 // Set the dynamic shared memory of a kernel above the 48 KB default.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {

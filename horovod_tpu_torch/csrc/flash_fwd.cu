@@ -22,8 +22,8 @@
 //   consumer warp is done with the stage).  The maps are 4-D over (D,
 //   heads, S, B), built on the host per launch, so a tile never crosses a
 //   batch and GQA is a coordinate: q head h reads kv head h / (H / KV).
-//   Rows past S arrive as zeros; a ragged last key tile is masked and rows
-//   past S are not stored;
+//   Rows past S arrive as zeros, so S may be any length: a ragged last key
+//   tile is masked and rows past S are not stored;
 // - S = Q K^T is `wgmma.m64n128k16` with both operands in shared memory
 //   (K-major descriptors); O += P V is `wgmma.m64n{D}k16` with P from
 //   registers, rounded to bf16 straight from the S accumulator, and V in
@@ -41,7 +41,9 @@
 //   `ex2.approx` each;
 // - causal: the key loop stops at the diagonal tile and masks only it;
 //   CTAs of the last query tiles, which walk the most K/V tiles, are
-//   launched first so the short ones fill the tail;
+//   launched first so the short ones fill the tail.  The grid's y
+//   dimension holds b * H + h up to 65535 and z continues it, so any B * H
+//   is one launch;
 // - numerics follow the Pallas kernel: scores in fp32, base-2
 //   exponentials with log2(e) folded into the scale, the mask value -1e30,
 //   p rounded to bf16 before P.V while the row sum l takes the fp32 p, and
@@ -86,7 +88,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // [B, S, H, D]
                  const __grid_constant__ CUtensorMap tm_v,  // [B, S, KV, D]
                  bf16* __restrict__ o,                      // [B, S, H, D]
                  float* __restrict__ lse,                   // [B, H, S]
-                 int S, int H, int KV, float scale_log2) {
+                 int B, int S, int H, int KV, float scale_log2) {
   using L = Layout<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
@@ -102,7 +104,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // [B, S, H, D]
 
   const int n_q = (S + BQ - 1) / BQ;
   const int qi = CAUSAL ? n_q - 1 - blockIdx.x : blockIdx.x;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y + gridDim.y * blockIdx.z;
+  if (bh >= B * H) return;
   const int b = bh / H, h = bh - b * H;
   const int g = h / (H / KV);
   const int n_k = (S + BK - 1) / BK;
@@ -330,9 +333,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   const size_t smem = Layout<D>::kBytes;
   e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  kernel<<<grid, kThreads, smem, stream>>>(mq, mk, mv, static_cast<bf16*>(o), lse, S, H, KV,
-                                           scale * kLog2e);
+  kernel<<<flash::head_grid((S + BQ - 1) / BQ, B * H), kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), lse, B, S, H, KV, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -341,11 +343,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 extern "C" {
 
 // bf16 q [B, S, H, D], k/v [B, S, KV, D] and o [B, S, H, D], contiguous and
-// 16-byte aligned; lse fp32 [B, H, S].  D is 64 or 128, S a multiple of 64,
-// KV divides H.  Returns a cudaError_t.
+// 16-byte aligned; lse fp32 [B, H, S].  D is 64 or 128, KV divides H, and
+// B * H is below 2^31.  Returns a cudaError_t.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
               int H, int KV, int D, float scale, int causal, void* stream) {
-  if (B <= 0 || S <= 0 || S % 64 != 0 || KV <= 0 || H % KV != 0 || B * H > 65535)
+  if (B <= 0 || S <= 0 || KV <= 0 || H % KV != 0 || (long long)B * H >= (1ll << 31))
     return cudaErrorInvalidValue;
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1054,13 +1054,19 @@ def _attention(q, k, v, plan: _Plan, causal: bool,
     expanded to q's heads first), else the flash ``autograd.Function``
     (its kernels on CUDA tensors, which raise for a shape outside
     ``FA.supported``; its plain versions on CPU tensors) on the local
-    batch rows and heads."""
+    batch rows and heads.  A head dim past ``FA.FLASH_MAX_HEAD_DIM`` runs
+    dense attention on either device, decided from the shape alone, as
+    the JAX package's ``_attention`` does where no Pallas kernel takes it
+    (``horovod_tpu/models/llama.py:417``)."""
     if plan.size["sp"] > 1:
         from ..parallel.ring_attention import sp_local_attention
         fn = sp_local_attention(sp_mode)
         k, v = FA.gqa_expand(q, k, v)
         group, _ = comm.group_of(plan.mesh, ("sp",))
         return fn(q, k, v, group=group, causal=causal)
+    if q.shape[-1] > FA.FLASH_MAX_HEAD_DIM:
+        return FA.dense_attention(q, k, v, 1.0 / math.sqrt(q.shape[-1]),
+                                  causal)
     return FA.flash_attention(q, k, v, None, causal,
                               plain=_FORCE_ATTENTION_REFERENCE)
 

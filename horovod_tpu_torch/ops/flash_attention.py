@@ -12,8 +12,13 @@ fallback between the two.
   (``csrc/flash_fwd.cu``, replacing the Pallas ``_fwd_kernel`` of
   ``horovod_tpu/ops/flash_attention.py``), and ``flash_bwd_dq`` and
   ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``, replacing ``_bwd_dq_kernel``
-  and ``_bwd_dkv_kernel``).  All three are bound by tensor-core operations
-  at training lengths; :func:`flash_flops` counts them.
+  and ``_bwd_dkv_kernel``), ``wgmma`` kernels for bf16 at head dims up to
+  128; fp32 at any head dim up to 256 and bf16 above 128 run the same three
+  on CUDA cores (``csrc/flash_simple.cu``: ``flash_simple_fwd``,
+  ``flash_simple_dq``, ``flash_simple_dkv``, fp32 throughout, no TF32).
+  :func:`flash_plan` picks the library and the head dim it is padded to.
+  All are bound by operations at training lengths (the tensor cores' or
+  the CUDA cores' rate); :func:`flash_flops` counts them.
 - :func:`paged_attention` is the decode-step attention of the serving
   engine over a block-paged KV pool (``csrc/paged_decode.cu``, replacing
   ``_paged_decode_kernel``), split over table columns across CTAs
@@ -45,7 +50,8 @@ _ERR = (ctypes.c_char_p, [_I])
 # library -> function -> (restype, argtypes).  A launch takes device
 # pointers, then sizes, then the stream last, and returns a cudaError_t
 # that <library>_error_string names.  The flash launches take their
-# tensors, then B, S, H, KV, D, scale and causal.
+# tensors, then B, S, H, KV, D, scale and causal (and flash_simple's the
+# dtype code of _DTYPE_CODE).
 _SIGNATURES = {
     "paged_decode": {
         "paged_decode": (_I, [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
@@ -59,6 +65,12 @@ _SIGNATURES = {
         "flash_bwd_dq": (_I, [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
         "flash_bwd_dkv": (_I, [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
         "flash_bwd_error_string": _ERR,
+    },
+    "flash_simple": {
+        "flash_simple_fwd": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]),
+        "flash_simple_dq": (_I, [_P] * 7 + [_I] * 5 + [_F, _I, _I, _P]),
+        "flash_simple_dkv": (_I, [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P]),
+        "flash_simple_error_string": _ERR,
     },
 }
 
@@ -81,13 +93,28 @@ def _launch(lib_name: str, fn: str, device: torch.device, *args,
 # flash attention: plain versions, gating, kernel wrappers, autograd
 # ---------------------------------------------------------------------------
 
-#: Head dims the flash kernels are compiled for.
+#: Dtypes the flash kernels take: the two that the JAX package's Llama
+#: configs use.
+FLASH_DTYPES = (torch.float32, torch.bfloat16)
+#: Largest head dim the flash kernels take, the JAX package's bound.
+FLASH_MAX_HEAD_DIM = 256
+#: Head dims the wgmma kernels are compiled for (bf16); a bf16 head dim up
+#: to 128 is zero-padded to the next of them.
 FLASH_HEAD_DIMS = (64, 128)
-#: Rows of a consumer warpgroup's tile and of a streamed tile in every
-#: flash kernel; S must be a multiple of it.  A CTA covers 128 rows (two
-#: warpgroups), so at an S that is not a multiple of 128 the last CTA's
-#: second warpgroup lies past S and the kernels mask or skip it.
+#: Head dims the CUDA-core kernels are compiled for: each in fp32, 256 in
+#: bf16 (a head dim above 128).
+SIMPLE_HEAD_DIMS = (32, 64, 128, 256)
+#: Rows of a consumer warpgroup's tile and of a streamed tile in the wgmma
+#: flash kernels (and of every tile of the CUDA-core ones).  A wgmma CTA
+#: covers 128 rows (two warpgroups); rows past S read as zeros, are masked
+#: as keys and never stored, so S may be any length.  The backward kernels
+#: read lse and delta in rows of S rounded up to it.
 FLASH_BLOCK = 64
+#: Kernel launches per library entry point in this process; each flash
+#: wrapper's ``.launches`` is the total of its entry points.
+KERNEL_LAUNCHES = dict.fromkeys(
+    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_simple_fwd",
+     "flash_simple_dq", "flash_simple_dkv"), 0)
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,27 +139,65 @@ def _mask(s: torch.Tensor, causal: bool) -> torch.Tensor:
 
 
 def default_blocks(seq_len: int) -> tuple[int, int]:
-    """(query rows, key rows) that S must be a multiple of: the 64 rows of
-    one consumer warpgroup's ``wgmma`` tile.  ``flash_fwd`` covers 128
+    """(query rows, key rows) of the kernels' streamed tiles: the 64 rows
+    of one consumer warpgroup's ``wgmma`` tile.  ``flash_fwd`` covers 128
     query rows and 128-key tiles a CTA, ``flash_bwd_dq`` 128 query rows and
-    64-key tiles, ``flash_bwd_dkv`` 128 keys and 64-row query tiles; each
-    masks or skips the half-full last CTA of such an S.  Fixed by the
-    kernels' register and shared-memory budget, not by the TPU sweep of the
-    JAX package."""
+    64-key tiles, ``flash_bwd_dkv`` 128 keys and 64-row query tiles, and
+    the CUDA-core kernels 64 by 64; each masks its ragged last tiles, so S
+    need not be a multiple of them.  Fixed by the kernels' register and
+    shared-memory budget, not by the TPU sweep of the JAX package."""
     del seq_len
     return FLASH_BLOCK, FLASH_BLOCK
 
 
 def supported(q_shape: tuple, dtype: torch.dtype,
               kv_heads: Optional[int] = None) -> bool:
-    """Shapes and dtypes the flash kernels take on the card: bf16, head
-    dim 64 or 128, S a positive multiple of the block, and kv heads
-    (default: H) dividing the q heads."""
+    """Shapes and dtypes the flash kernels take on the card: fp32 or
+    bf16, any head dim up to 256, any S >= 1 and batch >= 1, kv heads
+    (default: H) dividing the q heads, and B * H below 2^31 (the kernels'
+    grid).  The JAX package's ``supported`` takes any dtype and D <= 256."""
     B, S, H, D = q_shape
     KV = H if kv_heads is None else kv_heads
-    bq, bk = default_blocks(S)
-    return (dtype == torch.bfloat16 and D in FLASH_HEAD_DIMS and S > 0
-            and S % bq == 0 and S % bk == 0 and KV > 0 and H % KV == 0)
+    return (dtype in FLASH_DTYPES and 1 <= D <= FLASH_MAX_HEAD_DIM
+            and S >= 1 and B >= 1 and KV > 0 and H % KV == 0
+            and B * H < 2 ** 31)
+
+
+def flash_plan(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
+    """(library, padded head dim) of the flash kernels for a dtype and
+    head dim inside :func:`supported`: bf16 up to 128 runs the ``wgmma``
+    kernels (``"flash"``: ``flash_fwd`` and ``flash_bwd``) at 64 or 128,
+    everything else the CUDA-core kernels (``"flash_simple"``) at the next
+    of :data:`SIMPLE_HEAD_DIMS`.  D = 96 in bf16 thus pays for 128 columns,
+    4/3 of its work."""
+    if dtype == torch.bfloat16 and head_dim <= FLASH_HEAD_DIMS[-1]:
+        lib, dims = "flash", FLASH_HEAD_DIMS
+    else:
+        lib, dims = "flash_simple", SIMPLE_HEAD_DIMS
+    return lib, next(d for d in dims if d >= head_dim)
+
+
+def _pad_head_dim(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """``t [..., D]`` with zero columns up to ``dp`` (``t`` when D = dp)."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
+def call_padded(fn, dp: int, tensors: tuple, *args):
+    """``fn(*tensors, *args)`` with each of ``tensors`` (``[B, S, heads,
+    D]``) zero-padded to head dim ``dp``, and each 4-D output sliced back to
+    D.  Exact: zero columns of q and k add 0 to every score, so p, lse and
+    ``delta = rowsum(dO O)`` are unchanged, and zero columns of v and dO
+    give zero columns of o, dq, dk and dv, which the slice drops.  The
+    caller passes the scale of the real D."""
+    D = tensors[0].shape[-1]
+    out = fn(*(_pad_head_dim(t, dp) for t in tensors), *args)
+    if D == dp:
+        return out
+
+    def cut(t):
+        return t[..., :D].contiguous() if t.dim() == 4 else t
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
 def _check_qkv(q, k, v):
@@ -152,12 +217,13 @@ def _check_flash_kernel_inputs(q, k, v, *others) -> None:
     """Raise ``ValueError`` for inputs the flash kernels do not take: a
     shape or dtype outside :func:`supported`, tensors that differ in dtype
     or device, or a tensor that is not 16-byte aligned (TMA loads every
-    tile, and a tensor map's base must be 16-byte aligned)."""
+    tile of the wgmma kernels, the CUDA-core kernels load 16 bytes a
+    thread)."""
     if not supported(tuple(q.shape), q.dtype, k.shape[2]):
         raise ValueError(
-            f"flash kernels take bf16, head dim in {FLASH_HEAD_DIMS}, S a "
-            f"multiple of {FLASH_BLOCK} and kv heads dividing q heads; got "
-            f"q {tuple(q.shape)} {q.dtype}, k/v {tuple(k.shape)}")
+            f"flash kernels take float32 or bfloat16, head dim 1 to "
+            f"{FLASH_MAX_HEAD_DIM}, S >= 1 and kv heads dividing q heads; "
+            f"got q {tuple(q.shape)} {q.dtype}, k/v {tuple(k.shape)}")
     for t in (k, v) + others:
         if t.dtype != q.dtype:
             raise ValueError(f"all of q, k, v, o, dO must be {q.dtype}; "
@@ -229,10 +295,23 @@ def flash_backward_dkv_reference(q, k, v, do, lse, delta, scale: float,
     return (_group_sum(dk, KV).to(k.dtype), _group_sum(dv, KV).to(v.dtype))
 
 
-def _flash_launch(lib_name: str, fn: str, q, tensors, scale, causal):
+def _flash_launch(lib: str, kernel: str, tensors, scale, causal) -> None:
+    """Launch entry point ``kernel`` (``fwd``, ``dq`` or ``dkv``) of
+    ``lib`` (see :func:`flash_plan`) on ``tensors``: q, k, ... with the
+    head dim padded, and count it in :data:`KERNEL_LAUNCHES`."""
+    q = tensors[0]
     B, S, H, D = q.shape
+    extra = ()
+    if lib == "flash_simple":
+        lib_name, fn = lib, f"flash_simple_{kernel}"
+        extra = (_DTYPE_CODE[q.dtype],)
+    else:
+        lib_name = "flash_fwd" if kernel == "fwd" else "flash_bwd"
+        fn = "flash_fwd" if kernel == "fwd" else f"flash_bwd_{kernel}"
     _launch(lib_name, fn, q.device, *(t.data_ptr() for t in tensors),
-            B, S, H, tensors[1].shape[2], D, float(scale), int(bool(causal)))
+            B, S, H, tensors[1].shape[2], D, float(scale), int(bool(causal)),
+            *extra)
+    KERNEL_LAUNCHES[fn] += 1
 
 
 def _on_card(name: str, q: torch.Tensor) -> bool:
@@ -248,23 +327,31 @@ def flash_forward(q, k, v, scale: float, causal: bool
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Attention forward, ``(o, lse)`` as :func:`flash_forward_reference`
     gives them.  CPU tensors run the plain version; CUDA tensors launch
-    ``flash_fwd`` on the current stream and add one to
-    ``flash_forward.launches``, or raise."""
+    ``flash_fwd`` or ``flash_simple_fwd`` (:func:`flash_plan`) on the
+    current stream and add one to ``flash_forward.launches``, or raise."""
     _check_qkv(q, k, v)
     if not _on_card("flash_forward", q):
         return flash_forward_reference(q, k, v, scale, causal)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_flash_kernel_inputs(q, k, v)
-    B, S, H, _ = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
-    _flash_launch("flash_fwd", "flash_fwd", q, (q, k, v, o, lse), scale,
-                  causal)
+    lib, dp = flash_plan(q.dtype, q.shape[-1])
+
+    def fwd(q, k, v):
+        B, S, H, _ = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+        _flash_launch(lib, "fwd", (q, k, v, o, lse), scale, causal)
+        return o, lse
+    out = call_padded(fwd, dp, (q, k, v))
     flash_forward.launches += 1
-    return o, lse
+    return out
 
 
 def _bwd_inputs(q, k, v, do, lse, delta):
+    """The backward kernels' inputs, checked: q, k, v, dO contiguous, and
+    lse and delta as the library reads them (the wgmma kernels in rows of
+    S rounded up to :data:`FLASH_BLOCK`, zeros past S).  Returns ``(lib,
+    padded head dim, q, k, v, do, lse, delta)``."""
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
     _check_flash_kernel_inputs(q, k, v, do)
     B, S, H, _ = q.shape
@@ -275,22 +362,32 @@ def _bwd_inputs(q, k, v, do, lse, delta):
             raise ValueError(f"{name} must be contiguous, 16-byte aligned "
                              f"fp32 [B, H, S] on {q.device}; got "
                              f"{tuple(t.shape)} {t.dtype}")
-    return q, k, v, do
+    lib, dp = flash_plan(q.dtype, q.shape[-1])
+    ld = -(-S // FLASH_BLOCK) * FLASH_BLOCK
+    if lib == "flash" and ld != S:
+        lse, delta = (torch.nn.functional.pad(t, (0, ld - S))
+                      for t in (lse, delta))
+    return lib, dp, q, k, v, do, lse, delta
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, scale: float, causal: bool
                       ) -> torch.Tensor:
     """dQ as :func:`flash_backward_dq_reference` gives it.  CPU tensors run
-    the plain version; CUDA tensors launch ``flash_bwd_dq`` and add one to
-    ``flash_backward_dq.launches``, or raise."""
+    the plain version; CUDA tensors launch ``flash_bwd_dq`` or
+    ``flash_simple_dq`` and add one to ``flash_backward_dq.launches``, or
+    raise."""
     _check_qkv(q, k, v)
     if not _on_card("flash_backward_dq", q):
         return flash_backward_dq_reference(q, k, v, do, lse, delta, scale,
                                            causal)
-    q, k, v, do = _bwd_inputs(q, k, v, do, lse, delta)
-    dq = torch.empty_like(q)
-    _flash_launch("flash_bwd", "flash_bwd_dq", q,
-                  (q, k, v, do, lse, delta, dq), scale, causal)
+    lib, dp, q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+
+    def dq_fn(q, k, v, do):
+        dq = torch.empty_like(q)
+        _flash_launch(lib, "dq", (q, k, v, do, lse, delta, dq), scale,
+                      causal)
+        return dq
+    dq = call_padded(dq_fn, dp, (q, k, v, do))
     flash_backward_dq.launches += 1
     return dq
 
@@ -298,21 +395,27 @@ def flash_backward_dq(q, k, v, do, lse, delta, scale: float, causal: bool
 def flash_backward_dkv(q, k, v, do, lse, delta, scale: float, causal: bool
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) as :func:`flash_backward_dkv_reference` gives them.  CPU
-    tensors run the plain version; CUDA tensors launch ``flash_bwd_dkv``
-    and add one to ``flash_backward_dkv.launches``, or raise."""
+    tensors run the plain version; CUDA tensors launch ``flash_bwd_dkv`` or
+    ``flash_simple_dkv`` and add one to ``flash_backward_dkv.launches``, or
+    raise."""
     _check_qkv(q, k, v)
     if not _on_card("flash_backward_dkv", q):
         return flash_backward_dkv_reference(q, k, v, do, lse, delta, scale,
                                             causal)
-    q, k, v, do = _bwd_inputs(q, k, v, do, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _flash_launch("flash_bwd", "flash_bwd_dkv", q,
-                  (q, k, v, do, lse, delta, dk, dv), scale, causal)
+    lib, dp, q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+
+    def dkv_fn(q, k, v, do):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _flash_launch(lib, "dkv", (q, k, v, do, lse, delta, dk, dv), scale,
+                      causal)
+        return dk, dv
+    out = call_padded(dkv_fn, dp, (q, k, v, do))
     flash_backward_dkv.launches += 1
-    return dk, dv
+    return out
 
 
-#: kernel launches made through each flash wrapper in this process
+#: kernel launches made through each flash wrapper in this process (all
+#: its entry points; :data:`KERNEL_LAUNCHES` has them one by one)
 flash_forward.launches = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
@@ -360,9 +463,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D]``.  ``scale`` defaults to ``1 / sqrt(D)``.
 
     The forward runs ``flash_fwd`` and the backward ``flash_bwd_dq`` and
-    ``flash_bwd_dkv`` on CUDA tensors (a shape or dtype outside
-    :func:`supported` raises), their plain versions on CPU tensors, or,
-    with ``plain=True``, the plain versions on either device."""
+    ``flash_bwd_dkv`` on CUDA tensors, or their CUDA-core counterparts (see
+    :func:`flash_plan`; a shape or dtype outside :func:`supported` raises),
+    their plain versions on CPU tensors, or, with ``plain=True``, the
+    plain versions on either device."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, float(scale), bool(causal),

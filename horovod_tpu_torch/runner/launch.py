@@ -220,6 +220,17 @@ RESTART_EXIT_CODE = 75
 VICTIM_EXIT_CODE = 76
 
 
+def blame_order(exited: list) -> list:
+    """The ``(rank, exit code)`` pairs one monitor pass saw, in the order
+    the launcher takes them: a culprit's exit before a victim's or a
+    restart's, each group in rank order.  Survivors of a dying rank exit
+    with the victim code within milliseconds of it, so both can land in
+    one pass, and rank order alone would blame (and spare) the wrong
+    host."""
+    return sorted(exited, key=lambda e: (
+        e[1] in (RESTART_EXIT_CODE, VICTIM_EXIT_CODE), e[0]))
+
+
 def launch_workers(command: Sequence[str], *, np_total: int,
                    hosts_spec: Optional[str] = None,
                    extra_env: Optional[dict] = None,
@@ -414,13 +425,7 @@ def launch_workers(command: Sequence[str], *, np_total: int,
             chaos.fire("heartbeat")
             exited = [(rank_id, rc) for rank_id, w in list(pending.items())
                       if (rc := w.proc.poll()) is not None]
-            # A culprit's exit outranks a victim's or a restart's seen in
-            # the same pass: survivors of a dying rank exit with the
-            # victim code within milliseconds of it, and rank order alone
-            # would blame (and spare) the wrong host.
-            exited.sort(key=lambda e: e[1] in (RESTART_EXIT_CODE,
-                                               VICTIM_EXIT_CODE))
-            for rank_id, rc in exited:
+            for rank_id, rc in blame_order(exited):
                 exit_codes[rank_id] = rc
                 del pending[rank_id]
                 if verbose:

@@ -422,14 +422,41 @@ def test_script_discovery(tmp_path):
     assert hosts == [HostSlots("host1", 2), HostSlots("host2", 4)]
 
 
+@pytest.mark.parametrize("exited,want", [
+    ([(0, port_launch.VICTIM_EXIT_CODE), (1, 17)],
+     [(1, 17), (0, port_launch.VICTIM_EXIT_CODE)]),
+    ([(0, port_launch.RESTART_EXIT_CODE), (2, port_launch.VICTIM_EXIT_CODE),
+      (3, 1)],
+     [(3, 1), (0, port_launch.RESTART_EXIT_CODE),
+      (2, port_launch.VICTIM_EXIT_CODE)]),
+    ([(1, 17), (0, port_launch.VICTIM_EXIT_CODE)],
+     [(1, 17), (0, port_launch.VICTIM_EXIT_CODE)]),
+    ([(0, 0), (1, 0)], [(0, 0), (1, 0)]),
+])
+def test_blame_order_puts_a_culprit_before_victims(exited, want):
+    """One monitor pass that saw a victim (or a restart) before the
+    culprit takes the culprit first; otherwise rank order."""
+    assert port_launch.blame_order(exited) == want
+
+
 def test_a_culprits_exit_outranks_a_victims_in_one_pass(tmp_path):
-    """Two ranks exit in the same monitor pass, the lower one with the
-    victim code: the launcher blames the other (the reference's rank-order
-    scan blames the victim, whose code spares every host)."""
+    """Rank 1 fails (17); rank 0, a victim, exits with the victim code
+    only after rank 1's exit (it waits for rank 1's file, then 0.5 s).
+    Whether the monitor sees both exits in one pass (where
+    :func:`blame_order` puts the culprit first) or rank 1's alone first,
+    the launcher blames rank 1 and its host (the reference's rank-order
+    scan of one pass blames the victim, whose code spares every host)."""
+    flag = tmp_path / "culprit_exited"
     script = ("import os, sys, time\n"
               "r = int(os.environ['HVDTPU_CROSS_RANK'])\n"
-              "time.sleep(1.0)\n"
-              f"sys.exit({port_launch.VICTIM_EXIT_CODE} if r == 0 else 17)\n")
+              f"flag = {str(flag)!r}\n"
+              "if r == 1:\n"
+              "    open(flag, 'w').close()\n"
+              "    sys.exit(17)\n"
+              "while not os.path.exists(flag):\n"
+              "    time.sleep(0.01)\n"
+              "time.sleep(0.5)\n"
+              f"sys.exit({port_launch.VICTIM_EXIT_CODE})\n")
     info: dict = {}
     code = port_launch.launch_workers(
         [sys.executable, "-c", script], np_total=2,

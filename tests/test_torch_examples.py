@@ -42,6 +42,9 @@ def _run(script: str, *flags: str, timeout: float = 240) -> str:
     ("port_tf_keras_mnist.py",
      ("--samples", "64", "--batch-size", "16", "--epochs", "2"),
      "tf_keras_mnist"),
+    ("port_llama_finetune.py", ("--steps", "4", "--seq-len", "32"),
+     "llama_finetune"),
+    ("port_llama_moe.py", ("--steps", "4",), "moe"),
 ])
 def test_port_example_runs_at_two_ranks(script, flags, name):
     if name == "tf_keras_mnist":
@@ -51,5 +54,5 @@ def test_port_example_runs_at_two_ranks(script, flags, name):
     assert m, out
     first, last = float(m.group(1)), float(m.group(2))
     assert math.isfinite(first) and math.isfinite(last), out
-    if name in ("mnist", "dlrm"):
+    if name in ("mnist", "dlrm", "llama_finetune", "moe"):
         assert last < first, out

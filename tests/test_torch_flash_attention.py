@@ -130,14 +130,23 @@ def test_plain_versions_match_dense_oracles():
                                atol=2 ** -6)
 
 
+# fp32, a head dim of 96 or 320, an S no multiple of 64, fp16, a kv head
+# count that does not divide H: the flash kernels take fp32 and bf16 at
+# any head dim up to 256 and any S, as the JAX package's `supported` takes
+# any dtype up to 256.
 @pytest.mark.parametrize("shape,dtype,kv,ok", [
     ((1, 4096, 32, 128), torch.bfloat16, 32, True),
     ((2, 2048, 32, 128), torch.bfloat16, 8, True),
     ((2, 1024, 16, 64), torch.bfloat16, None, True),
-    ((1, 4096, 32, 128), torch.float32, 32, False),
-    ((1, 4096, 32, 96), torch.bfloat16, 32, False),
-    ((1, 4000, 32, 128), torch.bfloat16, 32, False),
+    ((1, 4096, 32, 128), torch.float32, 32, True),
+    ((1, 4096, 32, 96), torch.bfloat16, 32, True),
+    ((1, 4000, 32, 128), torch.bfloat16, 32, True),
     ((1, 4096, 32, 128), torch.bfloat16, 12, False),
+    ((2, 100, 4, 16), torch.float32, 2, True),
+    ((1, 1, 1, 256), torch.bfloat16, 1, True),
+    ((1, 128, 4, 320), torch.float32, 4, False),
+    ((1, 128, 4, 64), torch.float16, 4, False),
+    ((1, 128, 4, 64), torch.bfloat16, 3, False),
 ])
 def test_supported_gates_the_kernels(shape, dtype, kv, ok):
     assert FA.supported(shape, dtype, kv) is ok
@@ -145,19 +154,37 @@ def test_supported_gates_the_kernels(shape, dtype, kv, ok):
 
 
 @pytest.mark.parametrize("edit,match", [
-    (dict(dtype=torch.float32), "bf16"),
-    (dict(D=96), "head dim"),
-    (dict(S=100), "multiple of 64"),
+    (dict(D=320), "head dim 1 to 256"),
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    (dict(KV=3), "kv heads dividing"),
+    (dict(misaligned=True), "16-byte aligned"),
 ])
 def test_kernel_input_checks_refuse(edit, match):
     """What the CUDA kernels do not take raises before any launch (checked
-    on CPU tensors; the wrappers run it for CUDA tensors)."""
+    on CPU tensors; the wrappers run it for CUDA tensors): a head dim past
+    256, a dtype other than fp32 and bf16, kv heads not dividing q heads,
+    a view that does not start 16-byte aligned."""
+    kw = dict(S=128, D=64, dtype=torch.bfloat16, KV=2, misaligned=False)
+    kw.update(edit)
+    q = torch.zeros(1, kw["S"], 4, kw["D"], dtype=kw["dtype"])
+    if kw["misaligned"]:
+        q = torch.zeros(q.numel() + 1, dtype=kw["dtype"])[1:].view(q.shape)
+    k = torch.zeros(1, kw["S"], kw["KV"], kw["D"], dtype=kw["dtype"])
+    with pytest.raises(ValueError, match=match):
+        FA._check_flash_kernel_inputs(q, k, k)
+
+
+@pytest.mark.parametrize("edit", [
+    dict(dtype=torch.float32), dict(D=96), dict(S=100), dict(D=256),
+    dict(D=16, dtype=torch.float32, S=1)])
+def test_kernel_input_checks_accept_the_new_domain(edit):
+    """fp32, a bf16 head dim of 96 (padded to 128), an S no multiple of 64,
+    a head dim of 256: what the checks once refused the kernels now take."""
     kw = dict(S=128, D=64, dtype=torch.bfloat16)
     kw.update(edit)
     q = torch.zeros(1, kw["S"], 4, kw["D"], dtype=kw["dtype"])
     k = torch.zeros(1, kw["S"], 2, kw["D"], dtype=kw["dtype"])
-    with pytest.raises(ValueError, match=match):
-        FA._check_flash_kernel_inputs(q, k, k)
+    FA._check_flash_kernel_inputs(q, k, k, q)
 
 
 def test_kernel_input_checks_accept_the_training_layout():
@@ -187,14 +214,14 @@ def test_backward_input_checks_refuse_bad_lse(bad):
 
 def test_cpu_calls_leave_the_launch_counters_at_zero():
     before = (FA.flash_forward.launches, FA.flash_backward_dq.launches,
-              FA.flash_backward_dkv.launches)
+              FA.flash_backward_dkv.launches, dict(FA.KERNEL_LAUNCHES))
     q, k, v, _ = _qkv(4, 2)
     tq, tk, tv = (torch.from_numpy(x[:, :64]).requires_grad_()
                   for x in (q, k, v))
     FA.flash_attention(tq, tk, tv).sum().backward()
     FA.flash_attention(tq, tk, tv, plain=True).sum().backward()
     assert (FA.flash_forward.launches, FA.flash_backward_dq.launches,
-            FA.flash_backward_dkv.launches) == before
+            FA.flash_backward_dkv.launches, dict(FA.KERNEL_LAUNCHES)) == before
 
 
 def test_flash_flops_counts_the_causal_triangle():
@@ -212,7 +239,7 @@ def test_kernel_sources_export_bound_symbols():
     source exports with C linkage; every source notes the TPU kernel it
     replaces and includes the shared numerics header, which holds the
     Pallas kernels' mask value and the helpers both kernels use."""
-    for lib in ("flash_fwd", "flash_bwd"):
+    for lib in ("flash_fwd", "flash_bwd", "flash_simple"):
         sigs = FA._SIGNATURES[lib]
         src = (_build.SRC_DIR / f"{lib}.cu").read_text()
         c_block = src[src.index('extern "C"'):]
@@ -264,10 +291,11 @@ def test_backward_source_is_a_hopper_kernel():
         assert re.search(rf"\b{name}\s*\(", bwd), name
 
 
-@pytest.mark.parametrize("lib", ["flash_fwd", "flash_bwd"])
+@pytest.mark.parametrize("lib", ["flash_fwd", "flash_bwd", "flash_simple"])
 def test_build_hash_covers_the_hopper_header(tmp_path, monkeypatch, lib):
     """Editing csrc/hopper_common.cuh rebuilds each flash library: its
-    name carries a hash of every csrc/*.cuh."""
+    name carries a hash of every csrc/*.cuh (flash_simple includes only
+    flash_common.cuh, and rebuilds all the same)."""
     src = tmp_path / "csrc"
     src.mkdir()
     for f in _build.SRC_DIR.iterdir():
