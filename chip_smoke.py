@@ -13,7 +13,7 @@ mesh, as two pipeline stages), sharded serving at one rank and
 data-parallel training through Horovod's runtime, the model zoo
 (ResNet-50, BERT-Large, DLRM) trained through it, the estimator's
 fit of the MNIST ConvNet, and fp32 Llama training (7B widths, and the
-JAX package's Llama examples) through the CUDA-core flash kernels, and
+JAX package's Llama examples) through the ``flash_simple`` kernels, and
 checks them, phase
 by phase, printing one JSON line per phase:
 
@@ -44,7 +44,10 @@ by phase, printing one JSON line per phase:
    zeroed just before the run and read just after; ``paged_decode`` must
    launch exactly once per layer per decode tick, the flash kernels never.
    One decode tick's logits through the kernel must match the gather
-   path's;
+   path's.  Then a 2-layer bf16 Llama at head dim 100 (OpenLLaMA-3B's
+   widths), whose K/V rows the kernel copies in 4-byte pieces, served
+   through ``serve()``, its tokens teacher-forced through the plain
+   attention;
 5. ``frontdoor``  the same model (serve's seed) through the front door's
    paths, a pool of 512 blocks of 16, 8 slots, 32 new tokens a request,
    every launch counter zeroed before each part and read after it:
@@ -307,7 +310,7 @@ by phase, printing one JSON line per phase:
    d_ff 11008, vocab 32000) in fp32 with TF32 off at 4 layers (1.07 B
    parameters), B=1, S=4096, recompute, fused Adam through
    ``make_train_step``: one warm-up and three timed steps, every counter
-   zeroed just before and read just after (the CUDA-core flash kernels
+   zeroed just before and read just after (the ``flash_simple`` kernels
    8, 4 and 4 times a step, the wgmma ones never); the first forward's
    logits and loss through the kernels against the plain versions'
    (``TRAIN_FP32_LOGITS_REL``, ``TRAIN_FP32_REL``), the losses falling;
@@ -316,17 +319,21 @@ by phase, printing one JSON line per phase:
 26. ``llama_examples``  ``examples/port_llama_finetune.py`` and
    ``port_llama_moe.py`` (the JAX package's Llama examples at their own
    configs: fp32, head dim 16) run in this process at one rank: each
-   prints its ``DONE`` line with finite losses and launches the CUDA-core
-   flash kernels.
+   prints its ``DONE`` line with finite losses and launches the
+   ``flash_simple`` kernels.
 
 The kernel phase's flash shapes cover the kernels' domain: besides the
 7B shapes, GQA and S a multiple of 64 but not of 128, an S of 4000
-(causal and full) and of 100, bf16 at head dims 96 (padded to 128) and
-256, fp32 at the 7B shape, at ``LlamaConfig.tiny()``'s heads and at head
-dim 256, and 70,000 batch x heads (past one grid dimension) in bf16 and
-fp32; bf16 rows within ``FLASH_ROW_TOL``, fp32 rows within
-``FLASH_ROW_TOL_FP32`` of the fp32 plain versions, each timed case's
-bound at the tensor cores' bf16 rate or the CUDA cores' fp32 rate.
+(causal and full) and of 100, bf16 at head dims 96 (padded to 128), 160
+and 256 (padded to 256), fp32 at the 7B shape, at ``LlamaConfig.tiny()``'s
+heads and at head dim 256, and 70,000 batch x heads (past one grid
+dimension) in bf16 and fp32; bf16 rows within ``FLASH_ROW_TOL``, fp32 rows
+within ``FLASH_ROW_TOL_FP32`` of the fp32 plain versions, each timed
+case's bound at the tensor cores' bf16 rate, at 3 x the flops at their
+TF32 rate for the 3xTF32 fp32 forward and dK/dV (the CUDA cores' fp32
+bound beside it), or at the CUDA cores' fp32 rate for the fp32 dQ.
+``paged_decode`` also runs at head dims whose rows are no multiple of
+16 bytes (bf16 100, fp32 6 and 250).
 
 Then a ``total`` line (the script's wall seconds), a ``kernels`` line
 (the kernel phase's numbers, null where it did not run, and each path's
@@ -359,9 +366,13 @@ import time
 from pathlib import Path
 
 # Published H100 SXM rates (NVIDIA data sheet, dense, at the 700 W limit):
-# HBM, bf16 on the tensor cores, fp32 on the CUDA cores (no TF32).
+# HBM, bf16 and TF32 on the tensor cores, fp32 on the CUDA cores.  The fp32
+# route of flash_simple_fwd and _dkv runs three TF32 products for each
+# fp32 one (3xTF32): its bound is 3 x the flops at the TF32 rate, beside
+# the CUDA cores' for comparison; flash_simple_dq runs on the CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
 PHASES = ("device", "build", "kernel", "serve", "frontdoor", "replicas",
           "train", "train_variants", "train_dp", "train_zero", "dataplane",
@@ -382,7 +393,7 @@ KERNELS = {
     "flash_simple_dq": ("flash_simple", TPU_SRC + ":185"),
     "flash_simple_dkv": ("flash_simple", TPU_SRC + ":224"),
 }
-# The wgmma entry points, counted on every path; the CUDA-core ones
+# The wgmma entry points, counted on every path; the flash_simple ones
 # (fp32, or bf16 past head dim 128) count on a path only where launched.
 BASE_KERNELS = ("paged_decode", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -451,9 +462,9 @@ def zero_launches() -> None:
 
 def read_launches() -> dict:
     """Launches of each kernel entry point since :func:`zero_launches`:
-    the wgmma ones and ``paged_decode`` always, a CUDA-core one where it
-    launched (so a path's exact expectation of the wgmma kernels also
-    fails if a CUDA-core kernel ran instead)."""
+    the wgmma ones and ``paged_decode`` always, a ``flash_simple`` one
+    where it launched (so a path's exact expectation of the wgmma kernels
+    also fails if a ``flash_simple`` kernel ran instead)."""
     from horovod_tpu_torch.ops import flash_attention as FA
     per = getattr(FA, "KERNEL_LAUNCHES", None)
     if per is None:                # a tree from before the CUDA-core kernels
@@ -510,6 +521,10 @@ def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
 
     dtype = dtype or torch.bfloat16
     dname = str(dtype).split(".")[-1]
+    if OTHER_TREE and not timed:
+        emit({"phase": "kernel", "name": "paged_decode", "shape": label,
+              "dtype": dname, "skipped": "another tree: untimed"})
+        return {}
     q, kp, vp, tables, lens = paged_case(
         torch, gen, B=B, H=H, KV=KV, Dh=Dh, BS=BS, lengths=lengths,
         n_cols=n_cols, dtype=dtype)
@@ -600,10 +615,11 @@ def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
 # delta), the plain version's dq there is ~0 and any rounding is "large"
 # against it, while it is ~1e-7 of a typical row.
 FLASH_ROW_TOL = 2.0 ** -5
-# fp32 (the CUDA-core kernels against the fp32 plain versions, both fp32
-# throughout, no TF32): sums of fp32 products in another order and exp2
-# against exp, some 1e-7 of a row's scale; a block dropped or misrouted
-# moves a row by order its own size.
+# fp32 (the flash_simple kernels against the fp32 plain versions, TF32
+# off: the kernels' 3xTF32 products keep fp32's accuracy, dq is fp32 on
+# the CUDA cores): sums of fp32 products in another order, the tensor
+# cores' sums rounded toward zero, exp2 against exp, some 1e-6 of a row's
+# scale; a block dropped or misrouted moves a row by order its own size.
 FLASH_ROW_TOL_FP32 = 1e-5
 FLOOR_SHARE = 2.0 ** -3
 # LSE, absolute: both sum fp32 exponentials of the same fp32-accumulated
@@ -672,7 +688,9 @@ def check_flash(torch, gen, *, label, B, S, H, KV, D, causal, dtype=None,
     :func:`flash_entry_points` names once, and a second launch of each
     backward kernel giving bitwise the same dq, dk and dv.  Then, if
     ``timed``, each timed beside its bound (bf16 operations at the tensor
-    cores' rate, fp32 at the CUDA cores') and the library yardstick at the
+    cores' rate; fp32 at 3 x the TF32 rate for flash_simple_fwd and _dkv,
+    whose fp32 route is 3xTF32, with the CUDA cores' bound beside it, and
+    at the CUDA cores' for flash_simple_dq) and the library yardstick at the
     same dtype: SDPA for the forward, one autograd.grad through SDPA's
     output (dq, dk and dv together) for the backward pair.  The port never
     calls SDPA.  Results are keyed by entry point."""
@@ -763,7 +781,6 @@ def check_flash(torch, gen, *, label, B, S, H, KV, D, causal, dtype=None,
     nbytes = dict(zip(names, (flash_bytes(q, k, (o,), rows),
                               flash_bytes(q, k, (do, dq), 2 * rows),
                               flash_bytes(q, k, (do, dk, dv), 2 * rows))))
-    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     timed = dict(zip(names, (
         (lambda: FA.flash_forward(q, k, v, sc, causal),
          lambda: FA.flash_forward_reference(q, k, v, sc, causal), lib_fwd),
@@ -779,7 +796,15 @@ def check_flash(torch, gen, *, label, B, S, H, KV, D, causal, dtype=None,
                   "library": ("SDPA forward" if name == names[0] else
                               "SDPA backward (dq, dk, dv in one "
                               "autograd.grad)") + f", {dname}"})
-        r.update(bound(nbytes[name], flops[name], rate))
+        if dtype == torch.bfloat16:
+            r.update(bound(nbytes[name], flops[name]))
+        elif name in ("flash_simple_fwd", "flash_simple_dkv"):
+            r.update(bound(nbytes[name], 3 * flops[name], TF32_FLOPS))
+            r["route"] = "3xTF32 on the tensor cores"
+            r["bound_ms_cuda_cores"] = bound(
+                nbytes[name], flops[name], FP32_FLOPS)["bound_ms"]
+        else:
+            r.update(bound(nbytes[name], flops[name], FP32_FLOPS))
         emit({"phase": "kernel", "name": name, **r})
     return res
 
@@ -818,15 +843,18 @@ def phase_kernel(torch) -> dict:
                 D=64, causal=True, timed=False)
     check_flash(torch, gen, label="short_s", B=3, S=100, H=8, KV=2, D=64,
                 causal=True, timed=False)
-    # The CUDA-core kernels: fp32 at the 7B shape, at LlamaConfig.tiny()'s
-    # heads with an S no multiple of 64, at D = 256; bf16 past D = 128; a
-    # B * H past one grid dimension.
+    # The flash_simple kernels: fp32 at the 7B shape, at
+    # LlamaConfig.tiny()'s heads with an S no multiple of 64, at D = 256;
+    # bf16 past D = 128; a B * H past one grid dimension.
     fp32_7b = check_flash(torch, gen, label="llama2_7b_train_fp32", B=1,
                           S=4096, H=32, KV=32, D=128, causal=True, dtype=f32)
     check_flash(torch, gen, label="tiny_fp32", B=2, S=100, H=4, KV=2, D=16,
                 causal=True, dtype=f32)
     check_flash(torch, gen, label="d256_bf16", B=1, S=2048, H=16, KV=16,
                 D=256, causal=True)
+    # bf16 D = 160 (zero-padded to 256), GQA, an S no multiple of 64.
+    check_flash(torch, gen, label="d160_bf16", B=1, S=1000, H=16, KV=4,
+                D=160, causal=True, timed=False)
     check_flash(torch, gen, label="d256_fp32", B=1, S=1024, H=8, KV=8,
                 D=256, causal=True, dtype=f32)
     check_flash(torch, gen, label="wide_bh_fp32", B=17500, H=4, KV=4, S=64,
@@ -868,6 +896,14 @@ def phase_kernel(torch) -> dict:
     check_paged_decode(torch, gen, label="tiny_fp32", B=3, H=4, KV=2,
                        Dh=16, BS=8, lengths=[5, 17, 30], n_cols=6,
                        dtype=torch.float32, timed=False)
+    # Rows whose bytes are no multiple of 16: the narrow-copy instance
+    # (4-byte pieces for bf16 Dh = 100 and fp32 Dh = 6 and 250), split
+    # and merged, GQA.
+    for Dh, dt in ((100, torch.bfloat16), (6, torch.float32),
+                   (250, torch.float32)):
+        check_paged_decode(torch, gen, label=f"narrow_dh{Dh}", B=8, H=32,
+                           KV=8, Dh=Dh, BS=16, lengths=ragged, n_cols=128,
+                           dtype=dt, timed=False)
     return {"paged_decode": res7b, **flash7b, **fp32_7b}
 
 
@@ -924,8 +960,82 @@ def phase_serve(torch, smi: str) -> dict:
     logits_parity(torch, params, cfg, eng)
     decode_breakdown(torch, eng, smi)
     sess.close()
+    serve_head_dim_100(torch, smi)
     return {"counts": counts, "metrics": res, "prompts": prompts,
             "tokens": [list(r.tokens) for r in results]}
+
+
+# OpenLLaMA-3B's widths (d_model 3200, 32 heads of 100, d_ff 8640, vocab
+# 32000) at 2 layers in bf16: K/V rows of 200 bytes, no multiple of 16, so
+# the paged kernel copies them in 4-byte pieces.
+NARROW_HEAD_CFG = dict(vocab_size=32000, d_model=3200, n_layers=2,
+                       n_heads=32, n_kv_heads=32, d_ff=8640)
+
+
+def serve_head_dim_100(torch, smi: str) -> dict:
+    """``serve()`` of a bf16 Llama at head dim 100 on the card: 4 requests
+    of 17-131 prompt tokens, 16 new each, through the paged kernel (its
+    launches, ``n_layers`` a decode tick), and again through the gather
+    path (``use_flash="never"``, no launch).  The kernel path's tokens are
+    held against the plain path: a forward over each prompt and its tokens
+    with the plain attention puts every emitted token within δ of the top
+    logit at its position (``teacher_forced(plain=True)``); the share of
+    tokens equal to the gather path's is reported beside it."""
+    import numpy as np
+
+    from horovod_tpu_torch import serving
+    from horovod_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama2_7b(**NARROW_HEAD_CFG)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    params = llama.init_params(cfg, gen, "cuda")
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, size=(n,))
+               for n in (17, 64, 100, 131)]
+    new = 16
+    runs = {}
+    for path in ("auto", "never"):
+        sess = serving.serve(params, cfg, num_blocks=64, block_size=16,
+                             max_active=4, use_flash=path)
+        zero_launches()
+        ticks0 = sess.engine.decode_ticks
+        res, wall = _run_requests(sess, prompts, new)
+        counts = read_launches()
+        ticks = sess.engine.decode_ticks - ticks0
+        sess.close()
+        runs[path] = {"tokens": [list(r.tokens) for r in res],
+                      "launches": counts, "decode_ticks": ticks,
+                      "wall_s": wall}
+    kern, gath = runs["auto"], runs["never"]
+    faults = []
+    if not (kern["decode_ticks"] and kern["launches"]["paged_decode"]
+            == cfg.n_layers * kern["decode_ticks"]):
+        faults.append(f"kernel path: {kern['launches']} over "
+                      f"{kern['decode_ticks']} ticks")
+    if gath["launches"]["paged_decode"]:
+        faults.append(f"gather path launched {gath['launches']}")
+    if any(len(t) != new for t in kern["tokens"] + gath["tokens"]):
+        faults.append("a request emitted the wrong number of tokens")
+    if faults:
+        raise AssertionError("serve at head dim 100: " + "; ".join(faults))
+    held = teacher_forced(torch, params, cfg,
+                          list(zip(prompts, kern["tokens"])), plain=True)
+    same = sum(a == b for x, y in zip(kern["tokens"], gath["tokens"])
+               for a, b in zip(x, y))
+    out = {"phase": "serve", "part": "head_dim_100",
+           "model": "OpenLLaMA-3B widths, 2 layers", "dtype": "bfloat16",
+           "head_dim": cfg.d_model // cfg.n_heads,
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": new,
+           "decode_ticks": kern["decode_ticks"],
+           "paged_decode_launches": kern["launches"]["paged_decode"],
+           "held_against_plain_attention": held,
+           "gather_path_equal_share": same / (new * len(prompts)),
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()}, "card": smi}
+    emit(out)
+    del params
+    _free_cuda(torch)
+    return out
 
 
 def _serve_timed(torch, sess, prompts, max_tokens: int) -> tuple:
@@ -1125,12 +1235,14 @@ def _counters_now(names) -> dict:
     return {n: REGISTRY.get(n).total() for n in names}
 
 
-def teacher_forced(torch, params, cfg, seqs: list) -> dict:
-    """One ``forward`` over each prompt + emitted tokens (the flash kernels;
-    each sequence right-padded with token 0 to a multiple of 64, which
-    causality leaves inert): for every emitted token, whether it is the
-    argmax at its position and its gap below the top logit against
-    δ = ``FD_DELTA_REL`` x the row's largest |logit|."""
+def teacher_forced(torch, params, cfg, seqs: list, plain: bool = False
+                   ) -> dict:
+    """One ``forward`` over each prompt + emitted tokens (the flash kernels,
+    or with ``plain`` the plain attention; each sequence right-padded with
+    token 0 to a multiple of 64, which causality leaves inert): for every
+    emitted token, whether it is the argmax at its position and its gap
+    below the top logit against δ = ``FD_DELTA_REL`` x the row's largest
+    |logit|."""
     import dataclasses
 
     from horovod_tpu_torch.models import llama
@@ -1144,12 +1256,16 @@ def teacher_forced(torch, params, cfg, seqs: list) -> dict:
         full = list(p) + list(t)
         tokens[b, :len(full)] = torch.tensor(full)
     zero_launches()
-    with torch.no_grad():
-        logits, _ = llama.forward(params, tokens, cfg_f)
+    llama._FORCE_ATTENTION_REFERENCE = plain
+    try:
+        with torch.no_grad():
+            logits, _ = llama.forward(params, tokens, cfg_f)
+    finally:
+        llama._FORCE_ATTENTION_REFERENCE = False
     counts = read_launches()
     _check_launches("teacher-forced forward", counts, {
-        "paged_decode": 0, "flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0})
+        "paged_decode": 0, "flash_fwd": 0 if plain else cfg.n_layers,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0})
     n = exact = 0
     worst = 0.0
     for b, (p, t) in enumerate(seqs):
@@ -5219,7 +5335,7 @@ def phase_train_estimator(torch, smi: str, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# train_fp32: Llama-2-7B's widths in fp32 through the CUDA-core kernels
+# train_fp32: Llama-2-7B's widths in fp32 through the flash_simple kernels
 # ---------------------------------------------------------------------------
 
 TRAIN_FP32_LAYERS = 4   # Llama-2-7B's width, depth cut to fit fp32 Adam
@@ -5354,7 +5470,7 @@ def phase_llama_examples(torch, smi: str, root: Path) -> dict:
     ``examples/llama_finetune.py`` and ``llama_moe.py``, fp32 at
     ``LlamaConfig.tiny``'s head dim 16) run in this process at one rank,
     as ``python examples/<script>`` would: its ``DONE`` line with finite
-    losses, and its attention through the CUDA-core flash kernels."""
+    losses, and its attention through the ``flash_simple`` kernels."""
     import contextlib
     import io
     import re

@@ -1,7 +1,7 @@
-// Flash attention on CUDA cores for what the wgmma kernels (flash_fwd.cu,
-// flash_bwd.cu) do not take: fp32 inputs at any head dim up to 256, and
-// bf16 inputs at a head dim above 128.  Three kernels, the forward and the
-// two backward ones, each computed in fp32 throughout.
+// Flash attention for what the wgmma kernels (flash_fwd.cu, flash_bwd.cu)
+// do not take: fp32 inputs at any head dim up to 256, and bf16 inputs at a
+// head dim above 128.  Three kernels: the forward and dK/dV on the tensor
+// cores (`mma.sync`) fed by asynchronous copies, and dQ on the CUDA cores.
 //
 // Replaces the same Pallas TPU kernels as the wgmma kernels, at these
 // dtypes and widths: `_fwd_kernel` (horovod_tpu/ops/flash_attention.py:85,
@@ -10,59 +10,993 @@
 // dtype and any head dim up to 256 (`supported`, :512); the JAX package's
 // Llama configs train in fp32 (`LlamaConfig.tiny`, head dim 16) and bf16.
 //
-// fp32 is computed in fp32, with no TF32: PyTorch's own fp32 products on
-// the card run in full fp32 by default (`allow_tf32` is False), and so does
-// the JAX package's fp32 math on the CPU.  Hopper's tensor cores take fp32
-// only as TF32 (10 mantissa bits), so these kernels run on the CUDA cores,
-// 67 TFLOP/s of fp32 FMAs on an H100 SXM against 989 TFLOP/s of bf16
-// wgmma.  What bounds them is that rate: at the Llama-2-7B training shape
-// in fp32 (B=1, S=4096, H=32, D=128, causal) the forward's two causal
-// S x S x D products are 137 GFLOP, 2.05 ms at 67 TFLOP/s, against 0.08 ms
-// to move q, k, v and o once at 3.35 TB/s.  A 3xTF32 wgmma design (three
-// TF32 products that recover fp32's precision) would be the faster route;
-// it is later work.
+// fp32 is computed to fp32 accuracy, as PyTorch's own fp32 products on
+// the card (`allow_tf32` False) and the JAX package's fp32 math on the CPU
+// are.  Hopper's tensor cores take fp32 only as TF32 (10 mantissa bits, 495
+// TFLOP/s against 67 TFLOP/s of fp32 FMAs on the CUDA cores), so the
+// forward and dK/dV multiply in 3xTF32: each operand x is split into hi =
+// x rounded to TF32 (to nearest) and lo = x - hi, and a product is lo.hi +
+// hi.lo + hi.hi (lo.lo, below 2^-22 of it, is dropped), summed in fp32.
+// That is fp32's accuracy at three TF32 products, not TF32's, whatever
+// `allow_tf32` says.  bf16 at DP = 256 multiplies bf16 on the tensor cores
+// with fp32 sums, the numerics of the wgmma kernels: p and dS rounded to
+// bf16 before the products that take them.
 //
-// The design is the plain flash algorithm on tiles in shared memory:
-// - every tile is 64 rows (queries or keys) by DP columns, fp32 in shared
-//   memory, rows DP + 4 floats apart (16-byte aligned rows, and the 8
-//   lanes of a 16-byte shared load land in 8 distinct bank quads);
-// - a CTA of 256 threads (16 x 16) computes a 64 x 64 score tile, each
-//   thread 4 rows (ty * 4 + i) by 4 columns (tx + 16 j), with float4 loads
-//   along the head dim: 16 FMAs per 8 shared loads;
-// - the score tile goes back to shared memory transposed ([col][row], rows
-//   68 floats apart) and feeds the product with the next tile, each thread
-//   accumulating 4 rows by DP / 16 columns in registers;
-// - the forward keeps its 64 query rows resident and streams 64-key K and
-//   V tiles, with the online softmax of flash_fwd.cu (base-2 exponentials,
-//   the running max reduced across the 16 lanes of a row, each lane's part
-//   of the running sum reduced once at the end, lse = m ln 2 + log(l));
-// - flash_simple_dq keeps its 64 query rows (Q and dO) and streams K and V,
-//   flash_simple_dkv keeps 64 keys (K and V) and walks the GQA group's q
-//   heads and the query tiles from the causal diagonal to S, summing dK and
-//   dV in registers: no atomics, a fixed order of sums, so two launches give
-//   the same bits;
-// - tiles past S read as zero rows; a key past S gets p = 0 and a row past
-//   S is never stored.  The causal mask is applied only on the diagonal
-//   tile, tiles above it are skipped.
+// What bounds them: operations.  At the Llama-2-7B training shape in fp32
+// (B=1, S=4096, H=32, D=128, causal) the forward's two causal S x S x D
+// products are 137 GFLOP: 0.83 ms as three TF32 products at 495 TFLOP/s
+// (2.05 ms as fp32 FMAs at 67), against 0.08 ms to move q, k, v and o once
+// at 3.35 TB/s; dK/dV's four products 1.67 ms.  bf16 at D = 256 (S 2048,
+// H 16, causal) is 0.035 ms (forward) and 0.070 ms (dK/dV) at 989 TFLOP/s.
+//
+// The design of the forward and dK/dV:
+// - `mma.sync` (m16n8k8 TF32 for fp32, m16n8k16 bf16), each warp a 16-row
+//   slice of the tile.  Not `wgmma`: it takes TF32 only K-major in both
+//   operands, so P.V, P^T.dO and dS^T.Q would need V^T, dO^T and Q^T in
+//   shared memory twice over (hi and lo), more than 227 KB at DP = 128; and
+//   at DP = 256 a 64-row wgmma tile's dK and dV accumulators are 256
+//   registers a thread, past the 255 a thread has.  Where a wgmma
+//   accumulator fits, the bf16 forward at DP = 256, the forward is a wgmma
+//   kernel (`wg256`, below, on flash_fwd.cu's design: 128 registers of O a
+//   thread, so 64-key tiles and a two-stage TMA ring).  The dK/dV kernel
+//   splits each 16-key slice between a
+//   pair of warps: one computes S^T = K Q^T, P^T and dV += P^T dO, the
+//   other dP^T = V dO^T, dS^T and dK += dS^T Q, taking P^T from its partner
+//   through shared memory (a named barrier of the pair), so each holds one
+//   DP-wide accumulator;
+// - streamed tiles (64-key K and V in the forward; 64-row Q, dO, lse and
+//   delta in dK/dV) come through a ring of two stages with 16-byte
+//   `cp.async` copies (4-byte for lse and delta): one barrier a tile
+//   publishes tile j and frees the stage of tile j - 1, which tile j + 1
+//   then loads while tile j is multiplied; rows past S arrive as zeros (a
+//   copy of 0 source bytes);
+// - P never goes through shared memory in the forward: the score
+//   accumulator is the A operand of the next product.  For TF32 the C
+//   fragment holds columns 2t, 2t + 1 where the A fragment wants t, t + 4,
+//   so the k index of P.V is permuted (slot t is key 2t, slot t + 4 key
+//   2t + 1) and V's rows are read in the same order;
+// - fp32 tiles are read as 16-byte vectors: an A or B fragment of an
+//   S = A B^T product two k-steps at a time (slots t, t + 4 hold head-dim
+//   columns 4t, 4t + 1 and then 4t + 2, 4t + 3), and a B fragment of P.V
+//   four n-blocks at a time (n-block j of a 32-column group holds columns
+//   4g + j, so a lane's output is 8 consecutive columns).  The 16-byte
+//   chunks of a row are XOR-swizzled by (r & 6) ^ ((r & 1) << 2), which
+//   makes both access patterns free of bank conflicts; bf16 tiles are read
+//   with `ldmatrix` (transposed for V, dO and Q as the B of P.V-shaped
+//   products) under the usual r & 7 swizzle;
+// - hi and lo are split in registers as each fragment is read, hi by an
+//   integer add and mask (`split`);
+// - the tensor cores round their fp32 sums toward zero, a bias that grows
+//   with the length of a chain of sums: into one accumulator over 4096 keys
+//   it put a row 6e-5 off the plain version on an H100 (the bar is 1e-5).
+//   So the cross terms lo.hi + hi.lo sum apart from hi.hi, each key tile's
+//   P.V (P^T.dO, dS^T.Q) sums from zero and is added in a rounded fp32 add,
+//   and the head-dim sums of S run in chains of at most 128 columns;
+// - the online softmax, base-2 exponentials and lse = m ln 2 + log l, of
+//   flash_fwd.cu; a key past S gets p = 0, a row past S is never stored,
+//   the causal mask is applied on the diagonal tiles only and a warp (a
+//   pair in dK/dV) skips a tile wholly above its rows;
+// - dK/dV keeps its keys resident and walks the GQA group's q heads and the
+//   query tiles from the causal diagonal to S, summing in registers in a
+//   fixed order: no atomics, so two launches give the same bits.
+// Tiles (rows x DP): forward 128 query rows and 64-key K/V tiles, dK/dV 64
+// keys and 64-row Q/dO tiles; fp32 at DP = 256 halves both (4 warps, or 2
+// pairs).  At most 214 KB of shared memory, one CTA of 8 warps an SM.
+// bf16 at DP = 256, forward and dK/dV on `mma.sync` (H100 80GB HBM3, 700
+// W; S 2048, H 16): 0.268 and 0.428 ms; the wgmma forward 0.134.
+//
+// What was tried on the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md), at
+// the 7B shape in fp32, forward / dK/dV: hi and lo by `cvt.rna.tf32.f32`
+// 3.40 / 8.60 ms (cvt compiles to four instructions with inf and NaN
+// guards, and the splits held the issue slots); hi by an integer add and
+// mask, lo unrounded 2.70 / 5.48 (the same worst rows); hi by Veltkamp's
+// fp32 split 3.09 / 6.26; each streamed tile split once into hi and lo
+// tiles for all warps (32-row tiles to fit) 3.02 / 6.04.
+//
+// dQ (flash_simple_dq) runs on the CUDA cores, fp32 throughout: 64
+// query rows resident, 64-key K and V tiles copied through registers into
+// shared memory, a 16 x 16 thread grid of 4 x 4 register tiles, the score
+// tile through shared memory transposed.
 //
 // Head dims: DP is 32, 64, 128 or 256; the wrapper zero-pads D up to the
 // next of them (zero columns add 0 to every score and give zero columns of
-// o, dq, dk and dv).  Shared memory at DP = 256: a tile is 64 x 260 x 4 =
-// 66,560 bytes and the transposed score tile 64 x 68 x 4 = 17,408.  The
-// forward holds Q, K and V (217,088 bytes with the score tile); the backward
-// kernels hold four tiles where they fit (DP <= 128: 152,576 bytes at 128)
-// and three at DP = 256 (217,088 bytes), re-reading one resident tile per
-// streamed tile instead (Q in flash_simple_dq, K and V in
-// flash_simple_dkv).  The limit is 232,448 bytes a CTA (227 KB).
+// o, dq, dk and dv).
 //
 // Plain C entry points, bound from Python with ctypes: each launch goes on
 // the stream it is handed, allocates nothing and returns the cudaError_t.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace flash;
+
+// ----------------------------------------------------- asynchronous copies
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// Copy 16 (or 4) bytes; bytes past src_bytes are written as zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Named barriers of a pair of warps (ids 1..15; 0 is __syncthreads).
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+
+// The swizzle of the 16-byte chunks of row r of a tile (low 3 bits of the
+// chunk index): conflict-free for the fp32 fragment loads below, and for
+// ldmatrix in bf16.
+template <typename T> __device__ __forceinline__ int swz(int r);
+template <> __device__ __forceinline__ int swz<float>(int r) { return (r & 6) ^ ((r & 1) << 2); }
+template <> __device__ __forceinline__ int swz<bf16>(int r) { return r & 7; }
+
+// dst [R, DP] (rows DP elements apart, chunks swizzled) = rows 0 .. rows -
+// 1 of src, `stride` elements apart, and zeros below them: NT threads each
+// issue 16-byte cp.async copies (not committed here).
+template <int DP, int R, int NT, typename T>
+__device__ __forceinline__ void async_tile(T* dst, const T* src, size_t stride, int rows) {
+  constexpr int E = 16 / sizeof(T), C = DP / E;
+  static_assert(C >= 8, "the swizzle needs 8 chunks a row");
+#pragma unroll
+  for (int i0 = 0; i0 < R * C; i0 += NT) {
+    const int i = i0 + threadIdx.x;
+    if ((R * C) % NT == 0 || i < R * C) {
+      const int r = i / C, c = i % C;
+      const bool ok = r < rows;
+      cp_async16(dst + r * DP + ((c ^ swz<T>(r)) * E), src + (size_t)(ok ? r : 0) * stride + c * E,
+                 ok ? 16 : 0);
+    }
+  }
+}
+
+// ---------------------------------------------------- tensor-core products
+
+// x = hi + lo for 3xTF32: hi is x rounded to TF32, to nearest with ties
+// away from zero (half of the 13 dropped bits added, then cleared: what
+// cvt.rna.tf32.f32 gives a finite x, in two integer instructions where
+// cvt compiles to four with guards for inf and NaN), and lo = x - hi,
+// exact.  The tensor cores read lo's top 11 significant bits; rounding lo
+// as well changed no worst row on the card and cost a third of dK/dV's
+// time.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// a . b in 3xTF32: hi . hi into d, the two small cross terms into dl.
+// The tensor cores round each fp32 sum toward zero, a bias that grows with
+// the number of sums in a chain (6e-5 of a row after 4096 keys into one
+// accumulator on an H100); keeping the cross terms apart makes the chain
+// of large sums a third as long, and their own errors are 2^-11 smaller.
+__device__ __forceinline__ void mma3(float (&d)[4], float (&dl)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  mma_tf32(dl, al, bh0, bh1);
+  mma_tf32(dl, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero_frags(float (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.f;
+}
+
+// The accumulator of a warp's 16 x 8 n-block, m16n8 C fragment: lane 4 g +
+// t holds (row g, column 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+
+// acc[j] += A[m0 + 0..15][:] . B[n0 + 8 j + 0..7][:]^T over DP columns,
+// j < NJ: A and B tiles in shared memory, m0 and n0 multiples of 8.
+// fp32: both operands are split as they are read.  A lane reads 4 columns
+// of a row at a time, which are two k-steps (slots t, t + 4 = columns 4t,
+// 4t + 1, then 4t + 2, 4t + 3); rows m0 + g, m0 + g + 8 and n0 + 8 j + g
+// share one swizzle.  acc holds zeros on entry; the hi . hi sums run in
+// chains of at most 128 columns, each added to acc in a rounded fp32 add.
+template <int DP, int NJ>
+__device__ __forceinline__ void mma_nt(float (&acc)[NJ][4], const float* a, int m0,
+                                       const float* b, int n0) {
+  constexpr int kChains = DP > 128 ? DP / 128 : 1, kSteps = DP / 16 / kChains;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int sw = swz<float>(g);
+  const float* ar = a + (m0 + g) * DP;
+  const float* br = b + (n0 + g) * DP;
+  float lo[NJ][4];
+  zero_frags(lo);
+  // Columns 16 s .. 16 s + 15 of every product into hi and lo.
+  auto step = [&](float (&hi)[NJ][4], int s) {
+    const int c = ((4 * s + t) ^ sw) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(ar + c);
+    const float4 y = *reinterpret_cast<const float4*>(ar + 8 * DP + c);
+    uint32_t ah[2][4], al[2][4];
+    split(x.x, ah[0][0], al[0][0]);
+    split(y.x, ah[0][1], al[0][1]);
+    split(x.y, ah[0][2], al[0][2]);
+    split(y.y, ah[0][3], al[0][3]);
+    split(x.z, ah[1][0], al[1][0]);
+    split(y.z, ah[1][1], al[1][1]);
+    split(x.w, ah[1][2], al[1][2]);
+    split(y.w, ah[1][3], al[1][3]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 z = *reinterpret_cast<const float4*>(br + j * 8 * DP + c);
+      uint32_t bh[4], bl[4];
+      split(z.x, bh[0], bl[0]);
+      split(z.y, bh[1], bl[1]);
+      split(z.z, bh[2], bl[2]);
+      split(z.w, bh[3], bl[3]);
+      mma3(hi[j], lo[j], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+      mma3(hi[j], lo[j], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+    }
+  };
+  if constexpr (kChains == 1) {
+#pragma unroll 2
+    for (int s = 0; s < kSteps; ++s) step(acc, s);
+  } else {
+#pragma unroll
+    for (int ch = 0; ch < kChains; ++ch) {
+      float hi[NJ][4];
+      zero_frags(hi);
+#pragma unroll 2
+      for (int s = ch * kSteps; s < (ch + 1) * kSteps; ++s) step(hi, s);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += hi[j][e];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += lo[j][e];
+}
+// bf16: ldmatrix of A's 16 x 16 block and two n-blocks of B a k-step.
+template <int DP, int NJ>
+__device__ __forceinline__ void mma_nt(float (&acc)[NJ][4], const bf16* a, int m0,
+                                       const bf16* b, int n0) {
+  static_assert(NJ % 2 == 0, "n-blocks go in pairs");
+  const int lane = threadIdx.x & 31;
+  const int ar = m0 + (lane & 15), ac = lane >> 4;
+  const int br = n0 + (lane & 7) + ((lane >> 4) << 3), bc = (lane >> 3) & 1;
+#pragma unroll 4
+  for (int s = 0; s < DP / 16; ++s) {
+    uint32_t af[4];
+    ldsm_x4(af, a + ar * DP + (((2 * s + ac) ^ (ar & 7)) << 3));
+#pragma unroll
+    for (int jp = 0; jp < NJ / 2; ++jp) {
+      uint32_t bfr[4];
+      ldsm_x4(bfr, b + (br + 16 * jp) * DP + (((2 * s + bc) ^ (br & 7)) << 3));
+      mma_bf16(acc[2 * jp], af, bfr[0], bfr[1]);
+      mma_bf16(acc[2 * jp + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// acc += P . X[k0 + 0..8 NK - 1][:], P the warp's 16 x 8 NK score
+// accumulator (p[kb] the C fragment of keys k0 + 8 kb ..) and X a tile in
+// shared memory, k0 a multiple of 8.
+// fp32: X is split as it is read.  A slot t is key 2t and slot t + 4 key
+// 2t + 1 (the C fragment's own columns), so X's rows 2t and 2t + 1 are
+// read in that order; n-block j of a 32-column group G holds columns
+// 32 G + 4 g + j, so a lane reads 4 n-blocks' B in one 16-byte load, and
+// its outputs are columns 32 G + 8 t .. + 7 (store_rows).  Each group's
+// product over this tile is summed from zero and added to acc in an
+// ordinary, rounded fp32 add: the truncated chains are one tile long.
+template <int DP, int NK>
+__device__ __forceinline__ void mma_nn(float (&acc)[DP / 8][4], const float (&p)[NK][4],
+                                       const float* x, int k0) {
+  // P split once where registers allow (DP <= 128), else at each use.
+  constexpr bool kPresplit = DP <= 128;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int s0 = swz<float>(2 * t), s1 = swz<float>(2 * t + 1);
+  uint32_t ph[kPresplit ? NK : 1][4], pl[kPresplit ? NK : 1][4];
+  auto split_p = [&](int kb, uint32_t (&h)[4], uint32_t (&l)[4]) {
+    split(p[kb][0], h[0], l[0]);
+    split(p[kb][2], h[1], l[1]);
+    split(p[kb][1], h[2], l[2]);
+    split(p[kb][3], h[3], l[3]);
+  };
+  if constexpr (kPresplit) {
+#pragma unroll
+    for (int kb = 0; kb < NK; ++kb) split_p(kb, ph[kb], pl[kb]);
+  }
+#pragma unroll
+  for (int G = 0; G < DP / 32; ++G) {
+    float part[4][4], lo[4][4];
+    zero_frags(part);
+    zero_frags(lo);
+#pragma unroll
+    for (int kb = 0; kb < NK; ++kb) {
+      const int i = kPresplit ? kb : 0;
+      if constexpr (!kPresplit) split_p(kb, ph[0], pl[0]);
+      const float* r0 = x + (k0 + 8 * kb + 2 * t) * DP;
+      const float4 u = *reinterpret_cast<const float4*>(r0 + ((8 * G + g) ^ s0) * 4);
+      const float4 w = *reinterpret_cast<const float4*>(r0 + DP + ((8 * G + g) ^ s1) * 4);
+      const float uv[4] = {u.x, u.y, u.z, u.w}, wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(uv[jj], bh0, bl0);
+        split(wv[jj], bh1, bl1);
+        mma3(part[jj], lo[jj], ph[i], pl[i], bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * G + jj][e] += part[jj][e] + lo[jj][e];
+  }
+}
+// bf16: P packed to bf16 two n-blocks at a time (one k16 step), X's B
+// fragments by transposed ldmatrix.
+template <int DP, int NK>
+__device__ __forceinline__ void mma_nn(float (&acc)[DP / 8][4], const float (&p)[NK][4],
+                                       const bf16* x, int k0) {
+  static_assert(NK % 2 == 0, "keys go in 16s");
+  const int lane = threadIdx.x & 31;
+  const int xr = (lane & 7) + (((lane >> 3) & 1) << 3), xc = lane >> 4;
+#pragma unroll
+  for (int kk = 0; kk < NK / 2; ++kk) {
+    const uint32_t af[4] = {
+        pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const int r = k0 + 16 * kk + xr;
+#pragma unroll
+    for (int jp = 0; jp < DP / 16; ++jp) {
+      uint32_t bfr[4];
+      ldsm_x4_t(bfr, x + r * DP + (((2 * jp + xc) ^ (r & 7)) << 3));
+      mma_bf16(acc[2 * jp], af, bfr[0], bfr[1]);
+      mma_bf16(acc[2 * jp + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// A lane's two rows of an mma_nn accumulator, times mul0 and mul1, to the
+// row pointers d0 (row g) and d1 (row g + 8); a null pointer skips a row.
+template <int DP>
+__device__ __forceinline__ void store_rows(float* d0, float* d1, const float (&acc)[DP / 8][4],
+                                           float mul0, float mul1) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int G = 0; G < DP / 32; ++G) {
+    const float(&a)[4] = acc[4 * G];
+    const float(&b)[4] = acc[4 * G + 1];
+    const float(&c)[4] = acc[4 * G + 2];
+    const float(&d)[4] = acc[4 * G + 3];
+    if (d0 != nullptr) {
+      *reinterpret_cast<float4*>(d0 + 32 * G + 8 * t) =
+          make_float4(a[0] * mul0, b[0] * mul0, c[0] * mul0, d[0] * mul0);
+      *reinterpret_cast<float4*>(d0 + 32 * G + 8 * t + 4) =
+          make_float4(a[1] * mul0, b[1] * mul0, c[1] * mul0, d[1] * mul0);
+    }
+    if (d1 != nullptr) {
+      *reinterpret_cast<float4*>(d1 + 32 * G + 8 * t) =
+          make_float4(a[2] * mul1, b[2] * mul1, c[2] * mul1, d[2] * mul1);
+      *reinterpret_cast<float4*>(d1 + 32 * G + 8 * t + 4) =
+          make_float4(a[3] * mul1, b[3] * mul1, c[3] * mul1, d[3] * mul1);
+    }
+  }
+}
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* d0, bf16* d1, const float (&acc)[DP / 8][4],
+                                           float mul0, float mul1) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    if (d0 != nullptr)
+      *reinterpret_cast<uint32_t*>(d0 + 8 * j + 2 * t) =
+          pack_bf16(acc[j][0] * mul0, acc[j][1] * mul0);
+    if (d1 != nullptr)
+      *reinterpret_cast<uint32_t*>(d1 + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2] * mul1, acc[j][3] * mul1);
+  }
+}
+
+// The (b * heads + head) index of this CTA (flash::head_grid).
+__device__ __forceinline__ int head_index() { return blockIdx.y + gridDim.y * blockIdx.z; }
+
+// ------------------------------------------------------------ forward, fp32
+
+// 8 warps of 16 query rows and 64-key tiles; at DP = 256 (64 KB a 64-row
+// tile) 4 warps and 32-key tiles.  Shared memory: Q, then two stages of K
+// and V.
+template <int DP> struct FwdCfg {
+  static constexpr bool kWide = DP == 256;
+  static constexpr int kWarps = kWide ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int BQ = 16 * kWarps;
+  static constexpr int BK = kWide ? 32 : 64;
+  static constexpr size_t kSmem = (size_t)(BQ + 4 * BK) * DP * sizeof(float);
+  static_assert(kSmem <= kMaxSmem, "tiles must fit a CTA");
+};
+
+template <int DP, bool CAUSAL>
+__global__ void __launch_bounds__(FwdCfg<DP>::kThreads, 1)
+flash_simple_fwd_kernel(const float* __restrict__ q,   // [B, S, H, DP]
+                        const float* __restrict__ k,   // [B, S, KV, DP]
+                        const float* __restrict__ v,   // [B, S, KV, DP]
+                        float* __restrict__ o,         // [B, S, H, DP]
+                        float* __restrict__ lse,       // [B, H, S]
+                        int B, int S, int H, int KV, float scale_log2) {
+  using T = float;
+  using C = FwdCfg<DP>;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::kThreads, NJ = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* kv_s = qs + BQ * DP;  // stage st: K at kv_s + 2 st BK DP, V after it
+
+  const int bh = head_index();
+  if (bh >= B * H) return;
+  const int b = bh / H, h = bh % H, g = h / (H / KV);
+  const int n_q = (S + BQ - 1) / BQ;
+  const int qi = CAUSAL ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int q0 = qi * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane & 3;
+  const int m0 = 16 * warp;                 // the warp's rows in the tile
+  const int row0 = q0 + m0 + (lane >> 2);   // this lane's rows: row0, row0 + 8
+  const size_t qs_stride = (size_t)H * DP, kv_stride = (size_t)KV * DP;
+  const T* k_bg = k + (size_t)b * S * kv_stride + (size_t)g * DP;
+  const T* v_bg = v + (size_t)b * S * kv_stride + (size_t)g * DP;
+  const int n_k = (S + BK - 1) / BK;
+  const int n_kv = CAUSAL ? min(n_k, (q0 + BQ - 1) / BK + 1) : n_k;
+
+  auto load_kv = [&](int it) {
+    T* ks = kv_s + (it & 1) * 2 * BK * DP;
+    const int k0 = it * BK, rows = min(BK, S - k0);
+    async_tile<DP, BK, NT>(ks, k_bg + (size_t)k0 * kv_stride, kv_stride, rows);
+    async_tile<DP, BK, NT>(ks + BK * DP, v_bg + (size_t)k0 * kv_stride, kv_stride, rows);
+  };
+  async_tile<DP, BQ, NT>(qs, q + ((size_t)b * S + q0) * qs_stride + (size_t)h * DP, qs_stride,
+                         min(BQ, S - q0));
+  load_kv(0);
+  cp_async_commit();
+
+  float acc[DP / 8][4];
+  zero_frags(acc);
+  float m_0 = kNegInf, m_1 = kNegInf;  // running max (base 2) of rows row0, row0 + 8
+  float l_0 = 0.f, l_1 = 0.f;          // this lane's part of their running sums
+
+  for (int it = 0; it < n_kv; ++it) {
+    cp_async_wait<0>();
+    // Tile it has landed for every thread, and every thread is done with
+    // tile it - 1: its stage takes tile it + 1, loaded while this one is
+    // multiplied.
+    __syncthreads();
+    if (it + 1 < n_kv) load_kv(it + 1);
+    cp_async_commit();
+    const int k0 = it * BK;
+    const T* ks = kv_s + (it & 1) * 2 * BK * DP;
+    // A key tile wholly after the warp's last row adds nothing to it.
+    if (!CAUSAL || k0 <= q0 + m0 + 15) {
+      float s[NJ][4];
+      zero_frags(s);
+      mma_nt<DP, NJ>(s, qs, m0, ks, 0);
+      const bool edge = (CAUSAL && k0 + BK - 1 > q0 + m0) || k0 + BK > S;
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale_log2;
+          const int key = k0 + 8 * j + 2 * t4 + (e & 1), row = row0 + 8 * (e >> 1);
+          if (edge && (key >= S || (CAUSAL && key > row))) x = kNegInf;
+          s[j][e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x);
+          else mx1 = fmaxf(mx1, x);
+        }
+      const float mn0 = fmaxf(m_0, quad_max(mx0)), mn1 = fmaxf(m_1, quad_max(mx1));
+      const float alpha0 = exp2f(m_0 - mn0), alpha1 = exp2f(m_1 - mn1);
+      m_0 = mn0;
+      m_1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[j][0] = exp2f(s[j][0] - mn0);
+        s[j][1] = exp2f(s[j][1] - mn0);
+        s[j][2] = exp2f(s[j][2] - mn1);
+        s[j][3] = exp2f(s[j][3] - mn1);
+        sum0 += s[j][0] + s[j][1];
+        sum1 += s[j][2] + s[j][3];
+      }
+      l_0 = l_0 * alpha0 + sum0;
+      l_1 = l_1 * alpha1 + sum1;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        acc[j][0] *= alpha0;
+        acc[j][1] *= alpha0;
+        acc[j][2] *= alpha1;
+        acc[j][3] *= alpha1;
+      }
+      mma_nn<DP, NJ>(acc, s, ks + BK * DP, 0);  // O += P V
+    }
+  }
+
+  l_0 = fmaxf(quad_sum(l_0), 1e-30f);
+  l_1 = fmaxf(quad_sum(l_1), 1e-30f);
+  T* o_row = o + ((size_t)b * S + row0) * qs_stride + (size_t)h * DP;
+  store_rows<DP>(row0 < S ? o_row : nullptr, row0 + 8 < S ? o_row + 8 * qs_stride : nullptr, acc,
+                 1.f / l_0, 1.f / l_1);
+  if (t4 == 0) {
+    float* lse_row = lse + (size_t)bh * S;
+    if (row0 < S) lse_row[row0] = m_0 * kLn2 + logf(l_0);
+    if (row0 + 8 < S) lse_row[row0 + 8] = m_1 * kLn2 + logf(l_1);
+  }
+}
+
+// ------------------------------------------------ forward, bf16 at DP = 256
+
+// bf16 at DP = 256 on `wgmma`, as flash_fwd.cu does at D <= 128: a CTA of
+// two consumer warpgroups of 64 query rows and a producer warpgroup whose
+// one thread keeps TMA loads of K and V in flight (4-D tensor maps over
+// (D, heads, S, B), 64-column boxes, 128-byte swizzle), the producer's
+// registers handed to the consumers (`setmaxnreg`).  A 64-row warpgroup's
+// fp32 O accumulator at D = 256 is 128 registers a thread, so the key
+// tiles are 64 wide (S 32 registers, P 16) where flash_fwd.cu's are 128,
+// and the ring has two stages: Q (64 KB) and two stages of K and V (64
+// KB each) are 192 KB.  S = Q K^T is `wgmma.m64n64k16` with both operands
+// in shared memory; O += P V is two `wgmma.m64n128k16` (one a 128-column
+// half of V) with P from registers, rounded to bf16 from the S
+// accumulator, and V as the transposed (MN-major) operand.  The consumers
+// take turns to issue (named barriers), so one's softmax overlaps the
+// other's products; the numerics are flash_fwd.cu's.
+namespace wg256 {
+
+constexpr int kD = 256;
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int BQ = 64 * kConsumers;                  // query rows a CTA
+constexpr int BK = 64;                               // keys a K/V tile
+constexpr int kStages = 2;
+constexpr int kBoxQ = 128 * BQ;                      // a 64-column box of Q
+constexpr int kBoxK = 128 * BK;                      // a 64-column box of K or V
+constexpr int kTileQ = (kD / 64) * kBoxQ;            // 64 KB
+constexpr int kTileK = (kD / 64) * kBoxK;            // 32 KB
+constexpr int kBar = kTileQ + 2 * kStages * kTileK;  // barriers after the tiles
+constexpr size_t kSmem = kBar + 8 * (1 + 3 * kStages) + 1024;
+static_assert(kSmem <= kMaxSmem, "tiles must fit a CTA");
+
+// Named as the fp32 forward is, so a profile's flash_simple_fwd time
+// counts both.
+template <bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_simple_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,  // [B, S, H, 256]
+                        const __grid_constant__ CUtensorMap tm_k,  // [B, S, KV, 256]
+                        const __grid_constant__ CUtensorMap tm_v,  // [B, S, KV, 256]
+                        bf16* __restrict__ o,                      // [B, S, H, 256]
+                        float* __restrict__ lse,                   // [B, H, S]
+                        int B, int S, int H, int KV, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + kBar);
+  uint64_t* q_full = bar;
+  uint64_t* k_full = bar + 1;
+  uint64_t* v_full = bar + 1 + kStages;
+  uint64_t* empty = bar + 1 + 2 * kStages;
+  unsigned char* q_s = smem;
+  unsigned char* k_s = smem + kTileQ;
+  unsigned char* v_s = smem + kTileQ + kStages * kTileK;
+
+  const int n_q = (S + BQ - 1) / BQ;
+  const int qi = CAUSAL ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int bh = head_index();
+  if (bh >= B * H) return;
+  const int b = bh / H, h = bh - b * H;
+  const int g = h / (H / KV);
+  const int n_k = (S + BK - 1) / BK;
+  const int n_kv = CAUSAL ? min(n_k, (qi * BQ + BQ - 1) / BK + 1) : n_k;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(empty + s, kConsumers * 4);  // one arrival a consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer: one thread keeps the ring full.
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == kConsumers * 128) {
+      hopper::mbar_expect_tx(q_full, kTileQ);
+#pragma unroll
+      for (int x = 0; x < kD / 64; ++x)
+        hopper::tma_load_4d(q_s + x * kBoxQ, &tm_q, q_full, 64 * x, h, qi * BQ, b);
+      for (int it = 0; it < n_kv; ++it) {
+        const int st = it % kStages;
+        hopper::mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(k_full + st, kTileK);
+#pragma unroll
+        for (int x = 0; x < kD / 64; ++x)
+          hopper::tma_load_4d(k_s + st * kTileK + x * kBoxK, &tm_k, k_full + st, 64 * x, g,
+                              it * BK, b);
+        hopper::mbar_expect_tx(v_full + st, kTileK);
+#pragma unroll
+        for (int x = 0; x < kD / 64; ++x)
+          hopper::tma_load_4d(v_s + st * kTileK + x * kBoxK, &tm_v, v_full + st, 64 * x, g,
+                              it * BK, b);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows qi * BQ + 64 wg .. + 63.
+    hopper::reg_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int gr = lane >> 2, t4 = lane & 3;
+    const int row_min = qi * BQ + wg * 64;            // the warpgroup's first row
+    const int row0 = row_min + warp * 16 + gr;        // and row0 + 8
+
+    float o0[64], o1[64];  // columns 0-127 and 128-255
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o0[i] = o1[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf;  // running max (base 2) of rows row0, row0 + 8
+    float l0 = 0.f, l1 = 0.f;          // this lane's part of the running sums
+
+    // As flash_fwd.cu: while the tensor cores run S(it + 1) = Q K(it + 1)^T
+    // and O += P(it) V(it), this warpgroup takes the softmax of S(it + 1).
+    float s[BK / 2];
+    uint32_t pa[BK / 16][4];
+    auto issue_s = [&](int it) {
+      const unsigned char* k_t = k_s + (it % kStages) * kTileK;
+      hopper::mbar_wait(k_full + it % kStages, (it / kStages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int off = (kk % 4) * 32;
+        hopper::wgmma_m64n64k16_ss(
+            s, hopper::desc_sw128(q_s + (kk / 4) * kBoxQ + wg * 64 * 128 + off, 16, 1024),
+            hopper::desc_sw128(k_t + (kk / 4) * kBoxK + off, 16, 1024), kk > 0);
+      }
+      hopper::wgmma_commit();
+    };
+    auto issue_pv = [&](int it) {
+      const unsigned char* v_t = v_s + (it % kStages) * kTileK;
+      hopper::mbar_wait(v_full + it % kStages, (it / kStages) & 1);
+      hopper::reg_fence(o0);
+      hopper::reg_fence(o1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        hopper::wgmma_m64n128k16_rs_tb(
+            o0, pa[kk], hopper::desc_sw128(v_t + kk * 16 * 128, kBoxK, 1024), 1);
+        hopper::wgmma_m64n128k16_rs_tb(
+            o1, pa[kk], hopper::desc_sw128(v_t + 2 * kBoxK + kk * 16 * 128, kBoxK, 1024), 1);
+      }
+      hopper::wgmma_commit();
+    };
+    // Softmax of S(it) in place, as flash_fwd.cu's.
+    auto softmax = [&](int it, float& alpha0, float& alpha1) {
+      hopper::reg_fence(s);
+      const int key0 = it * BK;
+      if ((CAUSAL && key0 + BK - 1 > row_min) || key0 + BK > S) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = key0 + 8 * j + 2 * t4 + (e & 1);
+            const int row = row0 + ((e >> 1) << 3);
+            if (col >= S || (CAUSAL && col > row)) s[4 * j + e] = kNegInf;
+          }
+      }
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx0 = fmaxf(m0, quad_max(mx0) * scale_log2);
+      mx1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+      alpha0 = exp2_approx(m0 - mx0);
+      alpha1 = exp2_approx(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        s[4 * j] = exp2_approx(fmaf(s[4 * j], scale_log2, -m0));
+        s[4 * j + 1] = exp2_approx(fmaf(s[4 * j + 1], scale_log2, -m0));
+        s[4 * j + 2] = exp2_approx(fmaf(s[4 * j + 2], scale_log2, -m1));
+        s[4 * j + 3] = exp2_approx(fmaf(s[4 * j + 3], scale_log2, -m1));
+        sum0 += s[4 * j] + s[4 * j + 1];
+        sum1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+    };
+    auto to_pa = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+    auto release = [&](int it) {
+      if (lane == 0) hopper::mbar_arrive(empty + it % kStages);
+    };
+    auto rescale = [&](float a0, float a1) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o0[4 * j] *= a0;
+        o0[4 * j + 1] *= a0;
+        o0[4 * j + 2] *= a1;
+        o0[4 * j + 3] *= a1;
+        o1[4 * j] *= a0;
+        o1[4 * j + 1] *= a0;
+        o1[4 * j + 2] *= a1;
+        o1[4 * j + 3] *= a1;
+      }
+    };
+
+    const int other = 1 - wg;
+    auto turn_wait = [&]() {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(256) : "memory");
+    };
+    auto turn_pass = [&]() {
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + other), "n"(256) : "memory");
+    };
+    if (wg == 1) asm volatile("bar.arrive %0, %1;\n" ::"r"(1), "n"(256) : "memory");
+
+    hopper::mbar_wait(q_full, 0);
+    float alpha0, alpha1;
+    turn_wait();
+    issue_s(0);
+    turn_pass();
+    hopper::wgmma_wait<0>();
+    softmax(0, alpha0, alpha1);  // O is still 0: no rescale
+    to_pa();
+    for (int it = 0; it + 1 < n_kv; ++it) {
+      turn_wait();
+      issue_s(it + 1);
+      issue_pv(it);             // reads pa until it lands
+      turn_pass();
+      hopper::wgmma_wait<1>();  // S(it + 1) has landed in s
+      softmax(it + 1, alpha0, alpha1);
+      hopper::wgmma_wait<0>();  // P(it) V(it) has landed in o0, o1
+      hopper::reg_fence(o0);
+      hopper::reg_fence(o1);
+      release(it);
+      rescale(alpha0, alpha1);
+      to_pa();
+    }
+    turn_wait();
+    issue_pv(n_kv - 1);
+    if (wg == 0) turn_pass();  // warpgroup 1 took the first turn's pass
+    hopper::wgmma_wait<0>();
+    hopper::reg_fence(o0);
+    hopper::reg_fence(o1);
+    release(n_kv - 1);
+
+    l0 = fmaxf(quad_sum(l0), 1e-30f);
+    l1 = fmaxf(quad_sum(l1), 1e-30f);
+    const float s0 = 1.f / l0, s1 = 1.f / l1;
+    const size_t q_stride = (size_t)H * kD;
+    bf16* o_row = o + ((size_t)b * S + row0) * q_stride + (size_t)h * kD;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (row0 < S) {
+        *reinterpret_cast<uint32_t*>(o_row + col) = pack_bf16(o0[4 * j] * s0, o0[4 * j + 1] * s0);
+        *reinterpret_cast<uint32_t*>(o_row + 128 + col) =
+            pack_bf16(o1[4 * j] * s0, o1[4 * j + 1] * s0);
+      }
+      if (row0 + 8 < S) {
+        *reinterpret_cast<uint32_t*>(o_row + 8 * q_stride + col) =
+            pack_bf16(o0[4 * j + 2] * s1, o0[4 * j + 3] * s1);
+        *reinterpret_cast<uint32_t*>(o_row + 8 * q_stride + 128 + col) =
+            pack_bf16(o1[4 * j + 2] * s1, o1[4 * j + 3] * s1);
+      }
+    }
+    if (t4 == 0) {
+      float* lse_row = lse + (size_t)bh * S;
+      if (row0 < S) lse_row[row0] = m0 * kLn2 + logf(l0);
+      if (row0 + 8 < S) lse_row[row0 + 8] = m1 * kLn2 + logf(l1);
+    }
+  }
+}
+
+template <bool CAUSAL>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int H, int KV, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t e = hopper::make_map(&mq, q, B, S, H, kD, BQ);
+  if (e == cudaSuccess) e = hopper::make_map(&mk, k, B, S, KV, kD, BK);
+  if (e == cudaSuccess) e = hopper::make_map(&mv, v, B, S, KV, kD, BK);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_simple_fwd_kernel<CAUSAL>;
+  e = allow_smem(kernel, kSmem);
+  if (e != cudaSuccess) return e;
+  kernel<<<head_grid((S + BQ - 1) / BQ, B * H), kThreads, kSmem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(o), lse, B, S, H, KV, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace wg256
+
+// ------------------------------------------------------------------- dK/dV
+
+// Pairs of warps over 16-key slices: 4 pairs (64 keys) and 64-row Q/dO
+// tiles; fp32 at DP = 256 2 pairs and 32-row tiles.  Shared memory: K and
+// V, two stages of (Q, dO, lse, delta), and each pair's P^T exchange.
+template <int DP, typename T> struct DkvCfg {
+  static constexpr bool kWide = sizeof(T) == 4 && DP == 256;
+  static constexpr int kPairs = kWide ? 2 : 4;
+  static constexpr int kThreads = 64 * kPairs;
+  static constexpr int BKEY = 16 * kPairs;
+  static constexpr int BQ = kWide ? 32 : 64;
+  static constexpr size_t kKV = 2 * (size_t)BKEY * DP * sizeof(T);
+  static constexpr size_t kStage = 2 * (size_t)BQ * DP * sizeof(T) + 2 * BQ * sizeof(float);
+  static constexpr size_t kSmem = kKV + 2 * kStage + (size_t)kPairs * 16 * BQ * sizeof(float);
+  static_assert(kSmem <= kMaxSmem, "tiles must fit a CTA");
+};
+
+template <int DP, typename T, bool CAUSAL>
+__global__ void __launch_bounds__(DkvCfg<DP, T>::kThreads, 1)
+flash_simple_dkv_kernel(const T* __restrict__ q,        // [B, S, H, DP]
+                        const T* __restrict__ k,        // [B, S, KV, DP]
+                        const T* __restrict__ v,        // [B, S, KV, DP]
+                        const T* __restrict__ dout,     // [B, S, H, DP]
+                        const float* __restrict__ lse,  // [B, H, S]
+                        const float* __restrict__ delta,
+                        T* __restrict__ dk,             // [B, S, KV, DP]
+                        T* __restrict__ dv,             // [B, S, KV, DP]
+                        int B, int S, int H, int KV, float scale, float scale_log2) {
+  using C = DkvCfg<DP, T>;
+  constexpr int BQ = C::BQ, BKEY = C::BKEY, NT = C::kThreads, NJ = BQ / 8, NP = C::kPairs;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + BKEY * DP;
+  unsigned char* stages = smem_raw + C::kKV;
+  // pex[(pair * NJ + j) * 32 + lane]: the C fragment of n-block j of the
+  // pair's P^T, in the order its lanes hold it.
+  float4* pex = reinterpret_cast<float4*>(stages + 2 * C::kStage);
+  auto q_s = [&](int st) { return reinterpret_cast<T*>(stages + st * C::kStage); };
+  auto do_s = [&](int st) { return q_s(st) + BQ * DP; };
+  auto lse_s = [&](int st) { return reinterpret_cast<float*>(do_s(st) + BQ * DP); };
+  auto dl_s = [&](int st) { return lse_s(st) + BQ; };
+
+  const int bg = head_index();
+  if (bg >= B * KV) return;
+  const int b = bg / KV, g = bg % KV, rep = H / KV;
+  const int k0 = blockIdx.x * BKEY;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane & 3;
+  const int pair = warp % NP;
+  const bool first = warp < NP;  // S^T, P^T and dV; its partner dP^T, dS^T and dK
+  const int km = 16 * pair;      // the pair's keys in the tile
+  const int key0 = k0 + km + (lane >> 2);  // this lane's keys: key0, key0 + 8
+  const size_t qs_stride = (size_t)H * DP, kv_stride = (size_t)KV * DP;
+  const size_t kv_off = ((size_t)b * S + k0) * kv_stride + (size_t)g * DP;
+  const int n_t = (S + BQ - 1) / BQ;
+  const int t0 = CAUSAL ? k0 / BQ : 0;  // the first query tile reaching a key
+  const int per_head = n_t - t0;
+  const int n_items = rep * per_head;   // (q head, query tile), heads outer
+
+  auto load_item = [&](int i) {
+    const int h = g * rep + i / per_head, qq0 = (t0 + i % per_head) * BQ;
+    const int rows = min(BQ, S - qq0), st = i & 1;
+    const size_t q_off = ((size_t)b * S + qq0) * qs_stride + (size_t)h * DP;
+    async_tile<DP, BQ, NT>(q_s(st), q + q_off, qs_stride, rows);
+    async_tile<DP, BQ, NT>(do_s(st), dout + q_off, qs_stride, rows);
+    const size_t r_off = ((size_t)b * H + h) * S + qq0;
+    for (int x = threadIdx.x; x < 2 * BQ; x += NT) {
+      const int r = x % BQ;
+      const bool ok = r < rows;
+      cp_async4((x < BQ ? lse_s(st) : dl_s(st)) + r, (x < BQ ? lse : delta) + r_off + (ok ? r : 0),
+                ok ? 4 : 0);
+    }
+  };
+  const int krows = min(BKEY, S - k0);
+  async_tile<DP, BKEY, NT>(ks, k + kv_off, kv_stride, krows);
+  async_tile<DP, BKEY, NT>(vs, v + kv_off, kv_stride, krows);
+  load_item(0);
+  cp_async_commit();
+
+  float acc[DP / 8][4];  // dV (first warp of a pair) or dK
+  zero_frags(acc);
+  for (int i = 0; i < n_items; ++i) {
+    cp_async_wait<0>();
+    // Item i has landed for every thread, and every thread is done with
+    // item i - 1 (its stage and pex): its stage takes item i + 1, loaded
+    // while this one is multiplied.
+    __syncthreads();
+    if (i + 1 < n_items) load_item(i + 1);
+    cp_async_commit();
+    const int st = i & 1, qq0 = (t0 + i % per_head) * BQ;
+    // A query tile wholly before the pair's first key adds nothing to it.
+    if (CAUSAL && qq0 + BQ - 1 < k0 + km) continue;
+    float s[NJ][4];
+    zero_frags(s);
+    if (first) {
+      mma_nt<DP, NJ>(s, ks, km, q_s(st), 0);  // S^T = K Q^T
+      // p = 2^(s * scale log2 e - lse log2 e), 0 for a query past S or
+      // before the key (keys past S are never stored).
+      const bool edge = (CAUSAL && qq0 < k0 + km + 15) || qq0 + BQ > S;
+      const float* ls = lse_s(st);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * t4 + (e & 1), key = key0 + 8 * (e >> 1);
+          float p = exp2f(fmaf(s[j][e], scale_log2, -ls[c] * kLog2e));
+          if (edge && (qq0 + c >= S || (CAUSAL && qq0 + c < key))) p = 0.f;
+          s[j][e] = p;
+        }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        pex[(pair * NJ + j) * 32 + lane] = make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
+      pair_arrive(1 + pair);                         // P^T is in shared memory
+      mma_nn<DP, NJ>(acc, s, do_s(st), 0);    // dV += P^T dO
+    } else {
+      mma_nt<DP, NJ>(s, vs, km, do_s(st), 0);  // dP^T = V dO^T
+      pair_sync(1 + pair);
+      const float* dl = dl_s(st);
+      // ds = p * (dp - delta) * scale
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 p = pex[(pair * NJ + j) * 32 + lane];
+        const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = pv[e] * (s[j][e] - dl[8 * j + 2 * t4 + (e & 1)]) * scale;
+      }
+      mma_nn<DP, NJ>(acc, s, q_s(st), 0);      // dK += dS^T Q
+    }
+  }
+
+  T* out = (first ? dv : dk) + ((size_t)b * S + key0) * kv_stride + (size_t)g * DP;
+  store_rows<DP>(key0 < S ? out : nullptr, key0 + 8 < S ? out + 8 * kv_stride : nullptr, acc,
+                 1.f, 1.f);
+}
+
+// ------------------------------------------------- dQ, on the CUDA cores
 
 constexpr int kRows = 64;         // rows of every tile, queries or keys
 constexpr int kThreads = 256;     // 16 x 16
@@ -211,107 +1145,6 @@ __device__ __forceinline__ void zero(float (&a)[4][N]) {
     for (int c = 0; c < N; ++c) a[i][c] = 0.f;
 }
 
-// Reductions over the 16 lanes that hold one row of a score tile.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o *= 2) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 1; o < 16; o *= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The (b * heads + head) index of this CTA (flash::head_grid).
-__device__ __forceinline__ int head_index() { return blockIdx.y + gridDim.y * blockIdx.z; }
-
-template <int DP, typename T, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_simple_fwd_kernel(const T* __restrict__ q,   // [B, S, H, DP]
-                        const T* __restrict__ k,   // [B, S, KV, DP]
-                        const T* __restrict__ v,   // [B, S, KV, DP]
-                        T* __restrict__ o,         // [B, S, H, DP]
-                        float* __restrict__ lse,   // [B, H, S]
-                        int B, int S, int H, int KV, float scale_log2) {
-  using L = Tile<DP>;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = smem + L::kFloats;
-  float* vs = smem + 2 * L::kFloats;
-  float* pt = smem + 3 * L::kFloats;
-
-  const int bh = head_index();
-  if (bh >= B * H) return;
-  const int b = bh / H, h = bh % H, g = h / (H / KV);
-  const int n_t = (S + kRows - 1) / kRows;
-  const int qi = CAUSAL ? n_t - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int q0 = qi * kRows;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qs_stride = (size_t)H * DP, kv_stride = (size_t)KV * DP;
-  const T* k_bg = k + (size_t)b * S * kv_stride + (size_t)g * DP;
-  const T* v_bg = v + (size_t)b * S * kv_stride + (size_t)g * DP;
-
-  load_tile<DP>(qs, q + ((size_t)b * S + q0) * qs_stride + (size_t)h * DP, qs_stride,
-                min(kRows, S - q0));
-  float acc[4][DP / 16];
-  zero(acc);
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = kNegInf, l[i] = 0.f;
-
-  const int n_kv = CAUSAL ? qi + 1 : n_t;
-  for (int it = 0; it < n_kv; ++it) {
-    const int k0 = it * kRows;
-    __syncthreads();  // the last tile's K, V and scores are read
-    load_tile<DP>(ks, k_bg + (size_t)k0 * kv_stride, kv_stride, min(kRows, S - k0));
-    load_tile<DP>(vs, v_bg + (size_t)k0 * kv_stride, kv_stride, min(kRows, S - k0));
-    __syncthreads();
-    float s[4][4];
-    scores<DP>(s, qs, ks);
-    const bool edge = (CAUSAL && it == qi) || k0 + kRows > S;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        float t = s[i][j] * scale_log2;
-        if (edge && (key >= S || (CAUSAL && key > row))) t = kNegInf;
-        s[i][j] = t;
-        mx = fmaxf(mx, t);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = exp2f(m[i] - m_new);
-      m[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = exp2f(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int c = 0; c < DP / 16; ++c) acc[i][c] *= alpha;
-    }
-    store_scores(pt, s);
-    __syncthreads();
-    accumulate<DP>(acc, pt, vs);
-  }
-
-  float inv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float sum = fmaxf(row_sum(l[i]), 1e-30f);
-    inv[i] = 1.f / sum;
-    const int row = q0 + ty * 4 + i;
-    if (tx == 0 && row < S) lse[(size_t)bh * S + row] = m[i] * kLn2 + logf(sum);
-  }
-  store_acc<DP>(o + ((size_t)b * S + q0) * qs_stride + (size_t)h * DP, qs_stride, acc, inv,
-                S - q0);
-}
-
 template <int DP, typename T, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_simple_dq_kernel(const T* __restrict__ q,        // [B, S, H, DP]
@@ -392,92 +1225,6 @@ flash_simple_dq_kernel(const T* __restrict__ q,        // [B, S, H, DP]
   store_acc<DP>(dq + q_off, qs_stride, acc, one, rows);
 }
 
-template <int DP, typename T, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_simple_dkv_kernel(const T* __restrict__ q,        // [B, S, H, DP]
-                        const T* __restrict__ k,        // [B, S, KV, DP]
-                        const T* __restrict__ v,        // [B, S, KV, DP]
-                        const T* __restrict__ dout,     // [B, S, H, DP]
-                        const float* __restrict__ lse,  // [B, H, S]
-                        const float* __restrict__ delta,
-                        T* __restrict__ dk,             // [B, S, KV, DP]
-                        T* __restrict__ dv,             // [B, S, KV, DP]
-                        int B, int S, int H, int KV, float scale, float scale_log2) {
-  using L = Tile<DP>;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* dos = smem + L::kFloats;
-  float* ks = smem + 2 * L::kFloats;
-  float* pt = smem + 3 * L::kFloats;
-  float* vs = L::kResident ? smem + 3 * L::kFloats + kRows * kLdP : ks;
-
-  const int bg = head_index();
-  if (bg >= B * KV) return;
-  const int b = bg / KV, g = bg % KV, rep = H / KV;
-  const int n_t = (S + kRows - 1) / kRows;
-  const int ki = blockIdx.x;  // key tiles near 0 walk the most query tiles
-  const int k0 = ki * kRows, krows = min(kRows, S - k0);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qs_stride = (size_t)H * DP, kv_stride = (size_t)KV * DP;
-  const size_t kv_off = ((size_t)b * S + k0) * kv_stride + (size_t)g * DP;
-
-  if (L::kResident) {
-    load_tile<DP>(ks, k + kv_off, kv_stride, krows);
-    load_tile<DP>(vs, v + kv_off, kv_stride, krows);
-  }
-  float dk_acc[4][DP / 16], dv_acc[4][DP / 16];
-  zero(dk_acc);
-  zero(dv_acc);
-
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = g * rep + hh;
-    const size_t row_bh = (size_t)b * H + h;
-    for (int t = CAUSAL ? ki : 0; t < n_t; ++t) {
-      const int q0 = t * kRows, qrows = min(kRows, S - q0);
-      const size_t q_off = ((size_t)b * S + q0) * qs_stride + (size_t)h * DP;
-      __syncthreads();  // the last tile's Q, dO and scores are read
-      load_tile<DP>(qs, q + q_off, qs_stride, qrows);
-      load_tile<DP>(dos, dout + q_off, qs_stride, qrows);
-      if (!L::kResident) load_tile<DP>(ks, k + kv_off, kv_stride, krows);
-      __syncthreads();
-      // Transposed: s[i][j] for key k0 + ty * 4 + i, query q0 + tx + 16 j.
-      float s[4][4], dp[4][4];
-      scores<DP>(s, ks, qs);
-      if (!L::kResident) {  // V takes K's place
-        __syncthreads();
-        load_tile<DP>(vs, v + kv_off, kv_stride, krows);
-        __syncthreads();
-      }
-      scores<DP>(dp, vs, dos);
-      const bool edge = (CAUSAL && t == ki) || q0 + kRows > S || k0 + kRows > S;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float lq = c < qrows ? lse[row_bh * S + q0 + c] * kLog2e : 0.f;
-        const float dlq = c < qrows ? delta[row_bh * S + q0 + c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float p = exp2f(fmaf(s[i][j], scale_log2, -lq));
-          if (edge && (c >= qrows || ty * 4 + i >= krows || (CAUSAL && q0 + c < k0 + ty * 4 + i)))
-            p = 0.f;
-          s[i][j] = p;
-          dp[i][j] = p * (dp[i][j] - dlq) * scale;
-        }
-      }
-      store_scores(pt, s);
-      __syncthreads();
-      accumulate<DP>(dv_acc, pt, dos);  // dV += P^T dO
-      __syncthreads();
-      store_scores(pt, dp);
-      __syncthreads();
-      accumulate<DP>(dk_acc, pt, qs);   // dK += dS^T Q
-    }
-  }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_acc<DP>(dk + kv_off, kv_stride, dk_acc, one, krows);
-  store_acc<DP>(dv + kv_off, kv_stride, dv_acc, one, krows);
-}
-
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -486,18 +1233,22 @@ struct Args {
   cudaStream_t stream;
 };
 
-
 template <int DP, typename T, bool CAUSAL>
 cudaError_t launch_fwd(const Args& a, void* o, float* lse) {
-  auto kernel = flash_simple_fwd_kernel<DP, T, CAUSAL>;
-  const size_t smem = smem_bytes(DP, 3);
-  const dim3 grid = head_grid((a.S + kRows - 1) / kRows, a.B * a.H);
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(o), lse, a.B, a.S, a.H, a.KV, a.scale * kLog2e);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {  // bf16 (DP = 256): the wgmma kernel
+    return wg256::launch<CAUSAL>(a.q, a.k, a.v, o, lse, a.B, a.S, a.H, a.KV, a.scale, a.stream);
+  } else {
+    using C = FwdCfg<DP>;
+    auto kernel = flash_simple_fwd_kernel<DP, CAUSAL>;
+    const dim3 grid = head_grid((a.S + C::BQ - 1) / C::BQ, a.B * a.H);
+    cudaError_t e = allow_smem(kernel, C::kSmem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, C::kThreads, C::kSmem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(o), lse, a.B, a.S, a.H, a.KV,
+        a.scale * kLog2e);
+    return cudaGetLastError();
+  }
 }
 
 template <int DP, typename T, bool CAUSAL>
@@ -516,12 +1267,12 @@ cudaError_t launch_dq(const Args& a, void* dq) {
 
 template <int DP, typename T, bool CAUSAL>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
+  using C = DkvCfg<DP, T>;
   auto kernel = flash_simple_dkv_kernel<DP, T, CAUSAL>;
-  const size_t smem = smem_bytes(DP, Tile<DP>::kResident ? 4 : 3);
-  const dim3 grid = head_grid((a.S + kRows - 1) / kRows, a.B * a.KV);
-  cudaError_t e = allow_smem(kernel, smem);
+  const dim3 grid = head_grid((a.S + C::BKEY - 1) / C::BKEY, a.B * a.KV);
+  cudaError_t e = allow_smem(kernel, C::kSmem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  kernel<<<grid, C::kThreads, C::kSmem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk), static_cast<T*>(dv),
       a.B, a.S, a.H, a.KV, a.scale, a.scale * kLog2e);

@@ -33,7 +33,11 @@
 //   the 7B decode shape, 0.079-0.094 ms against 0.076; PERF.md);
 // - vectorised steps with no shared-memory scratch between them: LPT
 //   lanes share a token, each owning 16-byte chunks of its K and V rows
-//   (8 bf16 or 4 fp32 values), read as uint4.  A group of LPT lanes keeps
+//   (8 bf16 or 4 fp32 values), read as uint4.  A row whose bytes are no
+//   multiple of 16 (a bf16 head dim that is no multiple of 8, an fp32 one
+//   no multiple of 4) runs a narrow-copy instance instead: 4-byte chunks
+//   (fp32, even bf16 head dims; `cp.async` of 4 bytes) or 2-byte ones
+//   (odd bf16 head dims; plain loads and stores), 32 lanes a token.  A group of LPT lanes keeps
 //   its own online softmax (running max m and sum l of each head, in
 //   registers) over the J tokens of each tile it owns, and holds its
 //   heads' q chunk and acc chunk in registers; the scores are summed over
@@ -49,10 +53,9 @@
 // fp32 p; the mask value is -1e30.  Splits and groups change the order of
 // the sums, and p is rounded against a group's running max.
 //
-// Layout requirement: a K/V row of Dh elements is a whole number of
-// 16-byte copies (at most 64 of them) and both pools start 16-byte
-// aligned.  The entry point refuses anything else with
-// cudaErrorInvalidValue.
+// Layout requirement: q and both pools start aligned to the chunk the
+// row's width picks (16, 4 or 2 bytes: `chunk_bytes`), and Dh is at most
+// 256.  The entry point refuses anything else with cudaErrorInvalidValue.
 //
 // Contract: lengths[b] >= 1.  A row with length 0 returns 0 here, while
 // the Pallas kernel returns the mean of V (exp(-1e30 - (-1e30)) = 1).
@@ -85,7 +88,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// The V = 16 / sizeof(T) values of a 16-byte chunk, as fp32.
+// A chunk of CB bytes, the unit a lane copies and reads.
+template <int CB> struct ChunkOf;
+template <> struct ChunkOf<16> { using type = uint4; };
+template <> struct ChunkOf<4> { using type = uint32_t; };
+template <> struct ChunkOf<2> { using type = uint16_t; };
+
+// The CB / sizeof(T) values of a chunk, as fp32.
 template <typename T> __device__ __forceinline__ void unpack(const uint4& u, float* f);
 template <> __device__ __forceinline__ void unpack<float>(const uint4& u, float* f) {
   f[0] = __uint_as_float(u.x);
@@ -101,10 +110,33 @@ template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& u
     f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+template <typename T> __device__ __forceinline__ void unpack(const uint32_t& u, float* f);
+template <> __device__ __forceinline__ void unpack<float>(const uint32_t& u, float* f) {
+  f[0] = __uint_as_float(u);
+}
+template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint32_t& u, float* f) {
+  f[0] = __uint_as_float(u << 16);
+  f[1] = __uint_as_float(u & 0xffff0000u);
+}
+template <typename T> __device__ __forceinline__ void unpack(const uint16_t& u, float* f) {
+  f[0] = __uint_as_float((uint32_t)u << 16);  // a bf16 value
+}
 
+// Stage one chunk: 16- and 4-byte chunks by cp.async, 2-byte ones (which
+// cp.async does not copy) by a load and a store, visible after the
+// barrier that publishes the tile.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void copy_chunk(uint4* dst, const void* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void copy_chunk(uint32_t* dst, const void* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void copy_chunk(uint16_t* dst, const void* src) {
+  *dst = *static_cast<const uint16_t*>(src);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -114,29 +146,31 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Compile-time shape of one instantiation: RMAX query heads a CTA, CPL
-// 16-byte chunks a lane, LPT lanes a token.  NG groups of LPT lanes each
-// own J tokens of a tile of TT tokens; a stage (K and V of a tile) is at
-// most 16 KB, 8 KB at 8 heads a CTA, which frees registers for them.
-template <typename T, int RMAX, int CPL, int LPT>
+// chunks of CB bytes a lane, LPT lanes a token.  NG groups of LPT lanes
+// each own J tokens of a tile of TT tokens; a stage (K and V of a tile) is
+// at most 16 KB, 8 KB at 8 heads a CTA, which frees registers for them.
+template <typename T, int RMAX, int CPL, int LPT, int CB>
 struct Cfg {
-  static constexpr int V = 16 / sizeof(T);  // values in a chunk
+  using Chunk = typename ChunkOf<CB>::type;
+  static constexpr int V = CB / sizeof(T);  // values in a chunk
   static constexpr int NG = kThreads / LPT;
-  static constexpr int J = (RMAX >= 8 ? 2 : 4) / CPL;
+  static constexpr int J0 = (RMAX >= 8 ? 32 : 64) / (CPL * CB);
+  static constexpr int J = J0 < 1 ? 1 : (J0 > 4 ? 4 : J0);
   static constexpr int TT = NG * J;
 };
 constexpr int kStages = 4;       // K/V tiles in the ring, three in flight
 constexpr int kTableSmem = 4096; // most table columns of a split kept in smem
 
 // Stage the K and V rows of a tile's live tokens (tile-local t < t_live,
-// at position rel0 + t counted from the split's first column) as 16-byte
+// at position rel0 + t counted from the split's first column) as chunk
 // copies, committed as one group.  Group grp copies rows grp + NG * k; its
 // J page ids are read first, so their latencies overlap.
-template <typename T, int CPL, int LPT, int NG, int J>
-__device__ __forceinline__ void stage_tile(uint4* k_s, uint4* v_s, const T* k_pool,
+template <typename T, int CPL, int LPT, int NG, int J, typename Chunk>
+__device__ __forceinline__ void stage_tile(Chunk* k_s, Chunk* v_s, const T* k_pool,
                                            const T* v_pool, const int* tbl, int rel0,
                                            int t_live, int C, int g, int Dh, int BS,
                                            size_t row_stride, int sub, int grp) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = sizeof(Chunk) / sizeof(T);
   int blk[J], slot[J];
 #pragma unroll
   for (int k = 0; k < J; ++k) {
@@ -157,8 +191,8 @@ __device__ __forceinline__ void stage_tile(uint4* k_s, uint4* v_s, const T* k_po
       for (int kc = 0; kc < CPL; ++kc) {
         const int c = sub + kc * LPT;
         if (c < C) {
-          cp_async16(k_s + (size_t)t * C + c, k_pool + row + c * V);
-          cp_async16(v_s + (size_t)t * C + c, v_pool + row + c * V);
+          copy_chunk(k_s + (size_t)t * C + c, k_pool + row + c * V);
+          copy_chunk(v_s + (size_t)t * C + c, v_pool + row + c * V);
         }
       }
     }
@@ -166,7 +200,7 @@ __device__ __forceinline__ void stage_tile(uint4* k_s, uint4* v_s, const T* k_po
   cp_async_commit();
 }
 
-template <typename T, int RMAX, int CPL, int LPT>
+template <typename T, int RMAX, int CPL, int LPT, int CB>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
                     const T* __restrict__ k_pool,    // [NB, BS, KV, Dh]
@@ -179,7 +213,8 @@ paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
                     float* __restrict__ part_l,      // [B, H, n_splits]
                     int KV, int rep, int Dh, int BS, int n_cols, int n_splits,
                     float scale_log2) {
-  using K = Cfg<T, RMAX, CPL, LPT>;
+  using K = Cfg<T, RMAX, CPL, LPT, CB>;
+  using Chunk = typename K::Chunk;
   constexpr int V = K::V, NG = K::NG, J = K::J, TT = K::TT;
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -224,7 +259,7 @@ paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
   const int n_tok = min(c1 * BS, len) - tok0;  // the split's live tokens
   const int n_tiles = (n_tok + TT - 1) / TT;
 
-  uint4* stage = reinterpret_cast<uint4*>(smem);
+  Chunk* stage = reinterpret_cast<Chunk*>(smem);
   const size_t stage_chunks = (size_t)TT * C;  // of K, and as many of V
   // The split's table columns, in shared memory when a split's share fits:
   // the host's own test (launch_cfg reserves the room only then), never
@@ -239,7 +274,7 @@ paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
   const size_t row_stride = (size_t)KV * Dh;  // between tokens of a page
   auto stage_it = [&](int it) {
     if (it < n_tiles) {
-      uint4* k_n = stage + 2 * (it % kStages) * stage_chunks;
+      Chunk* k_n = stage + 2 * (it % kStages) * stage_chunks;
       stage_tile<T, CPL, LPT, NG, J>(k_n, k_n + stage_chunks, k_pool, v_pool, tbl, it * TT,
                                       min(TT, n_tok - it * TT), C, g, Dh, BS, row_stride,
                                       sub, grp);
@@ -258,7 +293,7 @@ paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
     for (int k = 0; k < CPL; ++k) {
       const int c = sub + k * LPT;
       if (r < nr && c < C) {
-        const uint4 u = *reinterpret_cast<const uint4*>(q + (head0 + r) * Dh + c * V);
+        const Chunk u = *reinterpret_cast<const Chunk*>(q + (head0 + r) * Dh + c * V);
         unpack<T>(u, qr[r][k]);
       } else {
 #pragma unroll
@@ -283,8 +318,8 @@ paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
     cp_async_wait<kStages - 2>();
     __syncthreads();
     stage_it(it + kStages - 1);
-    const uint4* k_s = stage + 2 * (it % kStages) * stage_chunks;
-    const uint4* v_s = k_s + stage_chunks;
+    const Chunk* k_s = stage + 2 * (it % kStages) * stage_chunks;
+    const Chunk* v_s = k_s + stage_chunks;
     const int t_live = min(TT, n_tok - it * TT);
 
     // Scores of the group's J tokens for every head, base 2, masked.
@@ -414,11 +449,12 @@ paged_decode_kernel(const T* __restrict__ q,         // [B, KV * rep, Dh]
 
 // Log-sum-exp merge of the splits of one (request, head): M = max_s m_s,
 // L = sum_s l_s e^(m_s - M), O = sum_s acc_s e^(m_s - M) / max(L, 1e-30).
-// The weights e^(m_s - M) go to shared memory; then SL slices of the
-// threads each sum every SL-th split's acc row as float4 loads, and the
-// slices are added.  Dynamic shared memory: n_splits + 4 * kThreads + 32
-// floats.
-template <typename T>
+// The weights e^(m_s - M) go to shared memory; then, where Dh is a
+// multiple of 4 (VEC), SL slices of the threads each sum every SL-th
+// split's acc row as float4 loads, and the slices are added; else each
+// thread sums whole columns.  Dynamic shared memory: n_splits + 4 *
+// kThreads + 32 floats.
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 paged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_m,
                      const float* __restrict__ part_l, T* __restrict__ out, int Dh,
@@ -450,6 +486,16 @@ paged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict
   if (lane == 0) wred[4 + warp] = L;
   __syncthreads();
   L = wred[4] + wred[5] + wred[6] + wred[7];
+  if constexpr (!VEC) {
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    const float* pa = part_acc + row * n_splits * Dh;
+    for (int d = tid; d < Dh; d += kThreads) {
+      float a = 0.f;
+      for (int s = 0; s < n_splits; ++s) a += w[s] * pa[(size_t)s * Dh + d];
+      out[row * Dh + d] = from_f<T>(a * inv);
+    }
+    return;
+  }
 
   const int DV = Dh / 4;  // float4 columns of a row
   const int SL = kThreads / DV;
@@ -487,21 +533,21 @@ paged_combine_kernel(const float* __restrict__ part_acc, const float* __restrict
   }
 }
 
-template <typename T, int RMAX, int CPL, int LPT>
+template <typename T, int RMAX, int CPL, int LPT, int CB>
 cudaError_t launch_cfg(const void* q, const void* k_pool, const void* v_pool,
                        const int* tables, const int* lengths, void* out, float* part_acc,
                        float* part_m, float* part_l, int B, int H, int KV, int Dh, int BS,
                        int n_cols, int n_splits, float scale, cudaStream_t stream) {
-  using K = Cfg<T, RMAX, CPL, LPT>;
+  using K = Cfg<T, RMAX, CPL, LPT, CB>;
   const int rep = H / KV;
   const int C = Dh / K::V;
   const int cps = (n_cols + n_splits - 1) / n_splits;
-  const size_t stages = 2 * (size_t)kStages * K::TT * C * 16 +
+  const size_t stages = 2 * (size_t)kStages * K::TT * C * CB +
                         (cps <= kTableSmem ? ((size_t)cps * 4 + 15) / 16 * 16 : 0);
   const size_t merge = (2 * (size_t)K::NG * RMAX + (size_t)K::NG * RMAX * Dh) * 4;
   const size_t smem = stages > merge ? stages : merge;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = paged_decode_kernel<T, RMAX, CPL, LPT>;
+  auto kernel = paged_decode_kernel<T, RMAX, CPL, LPT, CB>;
   // Raise the kernel's shared-memory limit once per device (a decode tick
   // launches it once per layer; the attribute call costs host time).
   static size_t smem_set[64] = {};
@@ -524,7 +570,7 @@ cudaError_t launch_cfg(const void* q, const void* k_pool, const void* v_pool,
       scale * kLog2e);
   e = cudaGetLastError();
   if (e != cudaSuccess || !split) return e;
-  auto combine = paged_combine_kernel<T>;
+  auto combine = Dh % 4 == 0 ? paged_combine_kernel<T, true> : paged_combine_kernel<T, false>;
   const size_t csmem = (4 * (size_t)kThreads + n_splits + 32) * 4;
   if (csmem > kMaxSmem) return cudaErrorInvalidValue;
   if (csmem > 48 * 1024) {
@@ -536,43 +582,74 @@ cudaError_t launch_cfg(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
-// Pick the instantiation: heads a CTA (1, 2, 4 or 8), then lanes a token
-// (8, 16 or 32: the power of two at or above the row's 16-byte chunks,
-// at least 8) with one chunk a lane, or, for fp32 rows of 33-64 chunks,
-// 32 lanes of two chunks.
-template <typename T, int RMAX>
+// Pick the instantiation's lanes a token and chunks a lane.  16-byte
+// chunks: 8, 16 or 32 lanes (the power of two at or above the row's
+// chunks, at least 8) of one chunk, or, for fp32 rows of 33-64 chunks, 32
+// lanes of two.  Narrow chunks: 32 lanes of 1, 2, 4 or 8.
+template <typename T, int RMAX, int CB>
 cudaError_t launch_rep(const void* q, const void* k, const void* v, const int* tb,
                        const int* ln, void* out, float* pa, float* pm, float* pl, int B,
                        int H, int KV, int Dh, int BS, int n_cols, int n_splits, float scale,
                        cudaStream_t s) {
-  const int C = Dh * (int)sizeof(T) / 16;
-#define PD_LAUNCH(CPL, LPT)                                                                 \
-  return launch_cfg<T, RMAX, CPL, LPT>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, \
-                                       n_cols, n_splits, scale, s)
-  if (C <= 8) PD_LAUNCH(1, 8);
-  if (C <= 16) PD_LAUNCH(1, 16);
-  if (C <= 32) PD_LAUNCH(1, 32);
-  if constexpr (sizeof(T) == 4) {
+  const int C = Dh * (int)sizeof(T) / CB;
+#define PD_LAUNCH(CPL, LPT)                                                                     \
+  return launch_cfg<T, RMAX, CPL, LPT, CB>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, \
+                                           n_cols, n_splits, scale, s)
+  if constexpr (CB == 16) {
+    if (C <= 8) PD_LAUNCH(1, 8);
+    if (C <= 16) PD_LAUNCH(1, 16);
+    if (C <= 32) PD_LAUNCH(1, 32);
+    if constexpr (sizeof(T) == 4) {
+      if (C <= 64) PD_LAUNCH(2, 32);
+    }
+  } else {
+    if (C <= 32) PD_LAUNCH(1, 32);
     if (C <= 64) PD_LAUNCH(2, 32);
+    if (C <= 128) PD_LAUNCH(4, 32);
+    if constexpr (2 * sizeof(T) > CB) {  // rows past 128 chunks
+      if (C <= 256) PD_LAUNCH(8, 32);
+    }
   }
 #undef PD_LAUNCH
   return cudaErrorInvalidValue;
+}
+
+// Heads a CTA: 1, 2, 4 or 8 with 16-byte chunks; 1 or 8 with narrow ones.
+template <typename T, int CB>
+cudaError_t launch_cb(const void* q, const void* k, const void* v, const int* tb,
+                      const int* ln, void* out, float* pa, float* pm, float* pl, int B, int H,
+                      int KV, int Dh, int BS, int n_cols, int n_splits, float scale,
+                      cudaStream_t s) {
+  const int rep = H / KV;
+  if (rep <= 1) return launch_rep<T, 1, CB>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
+  if constexpr (CB == 16) {
+    if (rep <= 2) return launch_rep<T, 2, CB>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
+    if (rep <= 4) return launch_rep<T, 4, CB>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
+  }
+  return launch_rep<T, 8, CB>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
+}
+
+// The chunk a row of `row_bytes` is copied in: 16 bytes where they divide
+// it, else 4, else 2.
+inline int chunk_bytes(int row_bytes) {
+  return row_bytes % 16 == 0 ? 16 : row_bytes % 4 == 0 ? 4 : 2;
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tb, const int* ln,
                    void* out, float* pa, float* pm, float* pl, int B, int H, int KV, int Dh,
                    int BS, int n_cols, int n_splits, float scale, cudaStream_t s) {
-  if ((Dh * sizeof(T)) % 16 != 0 || reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(v) % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0)
+  const int cb = chunk_bytes(Dh * (int)sizeof(T));
+  if (Dh > 256 || reinterpret_cast<uintptr_t>(k) % cb != 0 ||
+      reinterpret_cast<uintptr_t>(v) % cb != 0 || reinterpret_cast<uintptr_t>(q) % cb != 0)
     return cudaErrorInvalidValue;
   if (n_splits > 1 && (pa == nullptr || pm == nullptr || pl == nullptr))
     return cudaErrorInvalidValue;
-  const int rep = H / KV;
-  if (rep <= 1) return launch_rep<T, 1>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
-  if (rep <= 2) return launch_rep<T, 2>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
-  if (rep <= 4) return launch_rep<T, 4>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
-  return launch_rep<T, 8>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
+  if (cb == 16) return launch_cb<T, 16>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
+  if (cb == 4) return launch_cb<T, 4>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
+  if constexpr (sizeof(T) == 2)
+    return launch_cb<T, 2>(q, k, v, tb, ln, out, pa, pm, pl, B, H, KV, Dh, BS, n_cols, n_splits, scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

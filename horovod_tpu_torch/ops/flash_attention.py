@@ -14,11 +14,12 @@ fallback between the two.
   ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``, replacing ``_bwd_dq_kernel``
   and ``_bwd_dkv_kernel``), ``wgmma`` kernels for bf16 at head dims up to
   128; fp32 at any head dim up to 256 and bf16 above 128 run the same three
-  on CUDA cores (``csrc/flash_simple.cu``: ``flash_simple_fwd``,
-  ``flash_simple_dq``, ``flash_simple_dkv``, fp32 throughout, no TF32).
-  :func:`flash_plan` picks the library and the head dim it is padded to.
-  All are bound by operations at training lengths (the tensor cores' or
-  the CUDA cores' rate); :func:`flash_flops` counts them.
+  from ``csrc/flash_simple.cu`` (``flash_simple_fwd`` and
+  ``flash_simple_dkv`` on the tensor cores, fp32 as 3xTF32: three TF32
+  products for each fp32 one, fp32-accurate whatever ``allow_tf32`` says;
+  ``flash_simple_dq`` on the CUDA cores in fp32).  :func:`flash_plan`
+  picks the library and the head dim it is padded to.  All are bound by
+  operations at training lengths; :func:`flash_flops` counts them.
 - :func:`paged_attention` is the decode-step attention of the serving
   engine over a block-paged KV pool (``csrc/paged_decode.cu``, replacing
   ``_paged_decode_kernel``), split over table columns across CTAs
@@ -101,11 +102,11 @@ FLASH_MAX_HEAD_DIM = 256
 #: Head dims the wgmma kernels are compiled for (bf16); a bf16 head dim up
 #: to 128 is zero-padded to the next of them.
 FLASH_HEAD_DIMS = (64, 128)
-#: Head dims the CUDA-core kernels are compiled for: each in fp32, 256 in
-#: bf16 (a head dim above 128).
+#: Head dims the ``flash_simple`` kernels are compiled for: each in fp32,
+#: 256 in bf16 (a head dim above 128).
 SIMPLE_HEAD_DIMS = (32, 64, 128, 256)
 #: Rows of a consumer warpgroup's tile and of a streamed tile in the wgmma
-#: flash kernels (and of every tile of the CUDA-core ones).  A wgmma CTA
+#: flash kernels (and of the ``flash_simple`` ones' tiles).  A wgmma CTA
 #: covers 128 rows (two warpgroups); rows past S read as zeros, are masked
 #: as keys and never stored, so S may be any length.  The backward kernels
 #: read lse and delta in rows of S rounded up to it.
@@ -143,9 +144,10 @@ def default_blocks(seq_len: int) -> tuple[int, int]:
     of one consumer warpgroup's ``wgmma`` tile.  ``flash_fwd`` covers 128
     query rows and 128-key tiles a CTA, ``flash_bwd_dq`` 128 query rows and
     64-key tiles, ``flash_bwd_dkv`` 128 keys and 64-row query tiles, and
-    the CUDA-core kernels 64 by 64; each masks its ragged last tiles, so S
-    need not be a multiple of them.  Fixed by the kernels' register and
-    shared-memory budget, not by the TPU sweep of the JAX package."""
+    the ``flash_simple`` kernels 64 to 128 rows by 32 to 64; each masks its
+    ragged last tiles, so S need not be a multiple of them.  Fixed by the
+    kernels' register and shared-memory budget, not by the TPU sweep of the
+    JAX package."""
     del seq_len
     return FLASH_BLOCK, FLASH_BLOCK
 
@@ -167,8 +169,8 @@ def flash_plan(dtype: torch.dtype, head_dim: int) -> tuple[str, int]:
     """(library, padded head dim) of the flash kernels for a dtype and
     head dim inside :func:`supported`: bf16 up to 128 runs the ``wgmma``
     kernels (``"flash"``: ``flash_fwd`` and ``flash_bwd``) at 64 or 128,
-    everything else the CUDA-core kernels (``"flash_simple"``) at the next
-    of :data:`SIMPLE_HEAD_DIMS`.  D = 96 in bf16 thus pays for 128 columns,
+    everything else the ``flash_simple`` kernels at the next of
+    :data:`SIMPLE_HEAD_DIMS`.  D = 96 in bf16 thus pays for 128 columns,
     4/3 of its work."""
     if dtype == torch.bfloat16 and head_dim <= FLASH_HEAD_DIMS[-1]:
         lib, dims = "flash", FLASH_HEAD_DIMS
@@ -217,7 +219,7 @@ def _check_flash_kernel_inputs(q, k, v, *others) -> None:
     """Raise ``ValueError`` for inputs the flash kernels do not take: a
     shape or dtype outside :func:`supported`, tensors that differ in dtype
     or device, or a tensor that is not 16-byte aligned (TMA loads every
-    tile of the wgmma kernels, the CUDA-core kernels load 16 bytes a
+    tile of the wgmma kernels, the ``flash_simple`` kernels load 16 bytes a
     thread)."""
     if not supported(tuple(q.shape), q.dtype, k.shape[2]):
         raise ValueError(
@@ -463,8 +465,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D]``.  ``scale`` defaults to ``1 / sqrt(D)``.
 
     The forward runs ``flash_fwd`` and the backward ``flash_bwd_dq`` and
-    ``flash_bwd_dkv`` on CUDA tensors, or their CUDA-core counterparts (see
-    :func:`flash_plan`; a shape or dtype outside :func:`supported` raises),
+    ``flash_bwd_dkv`` on CUDA tensors, or their ``flash_simple``
+    counterparts (see :func:`flash_plan`; a shape or dtype outside
+    :func:`supported` raises),
     their plain versions on CPU tensors, or, with ``plain=True``, the
     plain versions on either device."""
     if scale is None:
@@ -505,6 +508,14 @@ def paged_supported(block_size: int, head_dim: int) -> bool:
     return block_size % 8 == 0 and head_dim <= 256
 
 
+def paged_chunk_bytes(head_dim: int, itemsize: int) -> int:
+    """The piece the paged decode kernel copies a K/V row in: 16 bytes
+    where they divide the row, else 4 (fp32, an even bf16 head dim), else
+    2 (an odd bf16 one).  q and both pools must start aligned to it."""
+    row = head_dim * itemsize
+    return 16 if row % 16 == 0 else 4 if row % 4 == 0 else 2
+
+
 def paged_bytes(k_pool: torch.Tensor, lengths, n_cols: int) -> int:
     """Bytes of K and V pages one :func:`paged_attention` launch must read
     for these lengths (each live page once), the kernel's memory bound."""
@@ -534,8 +545,9 @@ def _check_kernel_inputs(q, k_pool, v_pool, tables, lengths) -> None:
     """Raise ``ValueError`` for inputs the CUDA kernel does not take: a
     pool geometry outside :func:`paged_supported`, a dtype other than
     float32/bfloat16 shared by q and the pools, non-int32 tables or
-    lengths, tensors on other devices or not contiguous, a K/V row that is
-    not a whole number of 16-byte copies, or a pool not 16-byte aligned."""
+    lengths, tensors on other devices or not contiguous, or a pool not
+    aligned to the piece its rows are copied in
+    (:func:`paged_chunk_bytes`)."""
     _, BS, _, Dh = k_pool.shape
     if not paged_supported(BS, Dh):
         raise ValueError(
@@ -555,13 +567,11 @@ def _check_kernel_inputs(q, k_pool, v_pool, tables, lengths) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if Dh * q.element_size() % 16:
-        raise ValueError(
-            f"paged decode kernel copies K/V rows in 16-byte pieces; a row "
-            f"of head_dim={Dh} {q.dtype} is {Dh * q.element_size()} bytes")
+    piece = paged_chunk_bytes(Dh, q.element_size())
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start 16-byte aligned")
+        if t.data_ptr() % piece:
+            raise ValueError(f"{name} must start {piece}-byte aligned (its "
+                             f"rows are copied in {piece}-byte pieces)")
 
 
 def paged_attention_reference(q, k_pool, v_pool, tables, lengths,
@@ -730,7 +740,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(Dh)
     q = q.contiguous()
-    if q.data_ptr() % 16:          # q's rows are read as 16-byte chunks
+    if q.data_ptr() % 16:          # q's rows are read in the pools' pieces
         q = q.clone()
     out = torch.empty_like(q)
     n_cols = tables.shape[1]

@@ -294,8 +294,7 @@ def test_backward_source_is_a_hopper_kernel():
 @pytest.mark.parametrize("lib", ["flash_fwd", "flash_bwd", "flash_simple"])
 def test_build_hash_covers_the_hopper_header(tmp_path, monkeypatch, lib):
     """Editing csrc/hopper_common.cuh rebuilds each flash library: its
-    name carries a hash of every csrc/*.cuh (flash_simple includes only
-    flash_common.cuh, and rebuilds all the same)."""
+    name carries a hash of every csrc/*.cuh."""
     src = tmp_path / "csrc"
     src.mkdir()
     for f in _build.SRC_DIR.iterdir():

@@ -117,15 +117,18 @@ def _kernel_case(dtype=torch.bfloat16, BS=8, Dh=64, offset=0):
             torch.from_numpy(tables), torch.from_numpy(lens))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_kernel_input_checks_accept_the_served_layout(dtype):
-    FA._check_kernel_inputs(*_kernel_case(dtype))
+@pytest.mark.parametrize("kw", [
+    dict(dtype=torch.bfloat16), dict(dtype=torch.float32),
+    # a row of 8 bytes: copied in 4-byte pieces
+    dict(Dh=4),
+], ids=["bfloat16", "float32", "Dh4"])
+def test_kernel_input_checks_accept_the_served_layout(kw):
+    FA._check_kernel_inputs(*_kernel_case(**kw))
 
 
 @pytest.mark.parametrize("kw,edit,match", [
     (dict(dtype=torch.float16), None, "float32 or bfloat16"),
     (dict(BS=4), None, "block_size % 8"),
-    (dict(Dh=4), None, "16-byte pieces"),
     (dict(offset=1), None, "16-byte aligned"),
     ({}, lambda a: (a[0], a[1], a[2].float(), a[3], a[4]), "one dtype"),
     ({}, lambda a: (a[0], a[1], a[2], a[3].long(), a[4]), "int32"),
@@ -155,6 +158,37 @@ def test_gqa_expand_matches_jax(H, KV):
     with pytest.raises(ValueError, match="divide"):
         FA.gqa_expand(torch.from_numpy(q[:, :, :3]), torch.from_numpy(k),
                       torch.from_numpy(v))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_path_and_kernel_checks_agree_on_every_head_dim(dtype):
+    """Every head dim the engine sends to the kernel on the card (1 to 256,
+    ``_paged_kernel_path`` under "auto") passes the kernel's input checks
+    with the pools as the engine allocates them: rows whose bytes are no
+    multiple of 16 run the narrow-copy instance (4-byte pieces, 2-byte
+    for odd bf16 head dims), never a refusal."""
+    from horovod_tpu_torch.serving.engine import _paged_kernel_path
+
+    cuda = torch.device("cuda")
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    for dh in range(1, 257):
+        assert _paged_kernel_path(cuda, "auto", 16, dh)
+        FA._check_kernel_inputs(*_kernel_case(dtype, BS=16, Dh=dh))
+        piece = FA.paged_chunk_bytes(dh, itemsize)
+        assert (dh * itemsize) % piece == 0
+        assert piece == (16 if dh * itemsize % 16 == 0 else
+                         4 if dh * itemsize % 4 == 0 else 2)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        _paged_kernel_path(cuda, "auto", 16, 257)
+
+
+def test_narrow_pools_need_only_their_piece_alignment():
+    """A bf16 pool of odd head dim copied in 2-byte pieces may start at
+    any element; an even one (4-byte pieces) must start 4-byte aligned."""
+    FA._check_kernel_inputs(*_kernel_case(torch.bfloat16, Dh=101, offset=1))
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        FA._check_kernel_inputs(*_kernel_case(torch.bfloat16, Dh=100,
+                                              offset=1))
 
 
 @pytest.mark.parametrize("bs,dh,ok", [(16, 128, True), (8, 256, True),
