@@ -367,9 +367,11 @@ from pathlib import Path
 
 # Published H100 SXM rates (NVIDIA data sheet, dense, at the 700 W limit):
 # HBM, bf16 and TF32 on the tensor cores, fp32 on the CUDA cores.  The fp32
-# route of flash_simple_fwd and _dkv runs three TF32 products for each
+# route of flash_simple_fwd, _dq and _dkv runs three TF32 products for each
 # fp32 one (3xTF32): its bound is 3 x the flops at the TF32 rate, beside
-# the CUDA cores' for comparison; flash_simple_dq runs on the CUDA cores.
+# the CUDA cores' for comparison (flash_simple_dq sums dP with fp32 FMAs on
+# the key tiles the mask cuts, a few percent of its flops, counted there at
+# the TF32 rate too).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
@@ -522,6 +524,8 @@ def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
     dtype = dtype or torch.bfloat16
     dname = str(dtype).split(".")[-1]
     if OTHER_TREE and not timed:
+        paged_case(torch, gen, B=B, H=H, KV=KV, Dh=Dh, BS=BS,
+                   lengths=lengths, n_cols=n_cols, dtype=dtype)
         emit({"phase": "kernel", "name": "paged_decode", "shape": label,
               "dtype": dname, "skipped": "another tree: untimed"})
         return {}
@@ -616,10 +620,15 @@ def check_paged_decode(torch, gen, *, label, B, H, KV, Dh, BS, lengths,
 # against it, while it is ~1e-7 of a typical row.
 FLASH_ROW_TOL = 2.0 ** -5
 # fp32 (the flash_simple kernels against the fp32 plain versions, TF32
-# off: the kernels' 3xTF32 products keep fp32's accuracy, dq is fp32 on
-# the CUDA cores): sums of fp32 products in another order, the tensor
-# cores' sums rounded toward zero, exp2 against exp, some 1e-6 of a row's
-# scale; a block dropped or misrouted moves a row by order its own size.
+# off: the kernels' 3xTF32 products keep fp32's accuracy): sums of fp32
+# products in another order, the tensor cores' sums rounded toward zero,
+# exp2 against exp, some 1e-6 of a row's scale; a block dropped or
+# misrouted moves a row by order its own size.  On the rows where dq
+# cancels the bar holds only for a dP summed in the plain version's own
+# order (one fp32 FMA chain over the head dim), which flash_simple_dq
+# uses on the key tiles the mask cuts: any other order, an fp64
+# evaluation's too, leaves those rows up to 2.3e-4 of this scale off the
+# plain version's at the 7B shape on an H100 (PERF.md).
 FLASH_ROW_TOL_FP32 = 1e-5
 FLOOR_SHARE = 2.0 ** -3
 # LSE, absolute: both sum fp32 exponentials of the same fp32-accumulated
@@ -629,7 +638,9 @@ FLOOR_SHARE = 2.0 ** -3
 LSE_ABS_TOL = 1e-3
 # Set by --root: the tree driven may predate some flash shapes, whose
 # cases are then skipped (and say so) instead of failing, as are the
-# untimed coverage cases (a B * H past one grid dimension, S = 100).
+# untimed coverage cases (a B * H past one grid dimension, S = 100).  A
+# skipped case still draws its inputs, so every later case gets the same
+# values in both trees.
 OTHER_TREE = False
 
 
@@ -688,9 +699,9 @@ def check_flash(torch, gen, *, label, B, S, H, KV, D, causal, dtype=None,
     :func:`flash_entry_points` names once, and a second launch of each
     backward kernel giving bitwise the same dq, dk and dv.  Then, if
     ``timed``, each timed beside its bound (bf16 operations at the tensor
-    cores' rate; fp32 at 3 x the TF32 rate for flash_simple_fwd and _dkv,
-    whose fp32 route is 3xTF32, with the CUDA cores' bound beside it, and
-    at the CUDA cores' for flash_simple_dq) and the library yardstick at the
+    cores' rate; fp32 at 3 x the TF32 rate, the flash_simple kernels' fp32
+    route being 3xTF32, with the CUDA cores' bound beside it) and the
+    library yardstick at the
     same dtype: SDPA for the forward, one autograd.grad through SDPA's
     output (dq, dk and dv together) for the backward pair.  The port never
     calls SDPA.  Results are keyed by entry point."""
@@ -700,6 +711,7 @@ def check_flash(torch, gen, *, label, B, S, H, KV, D, causal, dtype=None,
     dtype = dtype or torch.bfloat16
     dname = str(dtype).split(".")[-1]
     if OTHER_TREE and not (timed and FA.supported((B, S, H, D), dtype, KV)):
+        flash_case(torch, gen, B, S, H, KV, D, dtype)  # this tree's draws
         emit({"phase": "kernel", "shape": label, "dtype": dname,
               "skipped": "another tree: untimed, or outside its "
               "flash_attention.supported"})
@@ -798,13 +810,13 @@ def check_flash(torch, gen, *, label, B, S, H, KV, D, causal, dtype=None,
                               "autograd.grad)") + f", {dname}"})
         if dtype == torch.bfloat16:
             r.update(bound(nbytes[name], flops[name]))
-        elif name in ("flash_simple_fwd", "flash_simple_dkv"):
+        elif name.startswith("flash_simple_"):
             r.update(bound(nbytes[name], 3 * flops[name], TF32_FLOPS))
-            r["route"] = "3xTF32 on the tensor cores"
+            r["route"] = "3xTF32 on the tensor cores" + (
+                "; dP on the key tiles the mask cuts in fp32 FMAs"
+                if name == "flash_simple_dq" else "")
             r["bound_ms_cuda_cores"] = bound(
                 nbytes[name], flops[name], FP32_FLOPS)["bound_ms"]
-        else:
-            r.update(bound(nbytes[name], flops[name], FP32_FLOPS))
         emit({"phase": "kernel", "name": name, **r})
     return res
 

@@ -1,7 +1,7 @@
 // Flash attention for what the wgmma kernels (flash_fwd.cu, flash_bwd.cu)
 // do not take: fp32 inputs at any head dim up to 256, and bf16 inputs at a
-// head dim above 128.  Three kernels: the forward and dK/dV on the tensor
-// cores (`mma.sync`) fed by asynchronous copies, and dQ on the CUDA cores.
+// head dim above 128.  Three kernels, the forward, dQ and dK/dV, all on the
+// tensor cores (`mma.sync`, or `wgmma` for bf16) fed by asynchronous copies.
 //
 // Replaces the same Pallas TPU kernels as the wgmma kernels, at these
 // dtypes and widths: `_fwd_kernel` (horovod_tpu/ops/flash_attention.py:85,
@@ -13,8 +13,8 @@
 // fp32 is computed to fp32 accuracy, as PyTorch's own fp32 products on
 // the card (`allow_tf32` False) and the JAX package's fp32 math on the CPU
 // are.  Hopper's tensor cores take fp32 only as TF32 (10 mantissa bits, 495
-// TFLOP/s against 67 TFLOP/s of fp32 FMAs on the CUDA cores), so the
-// forward and dK/dV multiply in 3xTF32: each operand x is split into hi =
+// TFLOP/s against 67 TFLOP/s of fp32 FMAs on the CUDA cores), so all three
+// kernels multiply in 3xTF32: each operand x is split into hi =
 // x rounded to TF32 (to nearest) and lo = x - hi, and a product is lo.hi +
 // hi.lo + hi.hi (lo.lo, below 2^-22 of it, is dropped), summed in fp32.
 // That is fp32's accuracy at three TF32 products, not TF32's, whatever
@@ -26,35 +26,52 @@
 // (B=1, S=4096, H=32, D=128, causal) the forward's two causal S x S x D
 // products are 137 GFLOP: 0.83 ms as three TF32 products at 495 TFLOP/s
 // (2.05 ms as fp32 FMAs at 67), against 0.08 ms to move q, k, v and o once
-// at 3.35 TB/s; dK/dV's four products 1.67 ms.  bf16 at D = 256 (S 2048,
-// H 16, causal) is 0.035 ms (forward) and 0.070 ms (dK/dV) at 989 TFLOP/s.
+// at 3.35 TB/s; dQ's three products 1.25 ms (less the few percent of dP
+// it sums in fp32 FMAs, below), dK/dV's four 1.67 ms.  bf16 at D = 256
+// (S 2048, H 16, causal) is 0.035 ms (forward), 0.052 (dQ) and 0.070
+// (dK/dV) at 989 TFLOP/s.
 //
-// The design of the forward and dK/dV:
+// The design of the fp32 kernels (and of bf16 dK/dV at DP = 256):
 // - `mma.sync` (m16n8k8 TF32 for fp32, m16n8k16 bf16), each warp a 16-row
 //   slice of the tile.  Not `wgmma`: it takes TF32 only K-major in both
-//   operands, so P.V, P^T.dO and dS^T.Q would need V^T, dO^T and Q^T in
-//   shared memory twice over (hi and lo), more than 227 KB at DP = 128; and
-//   at DP = 256 a 64-row wgmma tile's dK and dV accumulators are 256
-//   registers a thread, past the 255 a thread has.  Where a wgmma
-//   accumulator fits, the bf16 forward at DP = 256, the forward is a wgmma
-//   kernel (`wg256`, below, on flash_fwd.cu's design: 128 registers of O a
-//   thread, so 64-key tiles and a two-stage TMA ring).  The dK/dV kernel
-//   splits each 16-key slice between a
-//   pair of warps: one computes S^T = K Q^T, P^T and dV += P^T dO, the
-//   other dP^T = V dO^T, dS^T and dK += dS^T Q, taking P^T from its partner
-//   through shared memory (a named barrier of the pair), so each holds one
-//   DP-wide accumulator;
-// - streamed tiles (64-key K and V in the forward; 64-row Q, dO, lse and
+//   operands, so P.V, dS.K, P^T.dO and dS^T.Q would need V^T, K^T, dO^T
+//   and Q^T in shared memory twice over (hi and lo), more than 227 KB at
+//   DP = 128; and at DP = 256 a 64-row wgmma tile's dK and dV accumulators
+//   are 256 registers a thread, past the 255 a thread has.  Where a wgmma
+//   accumulator fits, bf16 at DP = 256, the forward and dQ are wgmma
+//   kernels (`wg256` and `wgdq`, below, on flash_fwd.cu's and
+//   flash_bwd.cu's designs).  The dK/dV kernel splits each 16-key slice
+//   between a pair of warps: one computes S^T = K Q^T, P^T and dV += P^T
+//   dO, the other dP^T = V dO^T, dS^T and dK += dS^T Q, taking P^T from
+//   its partner through shared memory (a named barrier of the pair), so
+//   each holds one DP-wide accumulator;
+// - dQ is the forward's kernel with one product more and no online
+//   softmax (lse and delta are given): Q and dO stay in shared memory, the
+//   K and V tiles stream, S = Q K^T and dP = dO V^T are two `mma_nt`, and
+//   dS = P (dP - delta) scale, computed in their C fragments, is the A
+//   operand of dQ += dS K (`mma_nn`, K in the forward's V's place).  A CTA
+//   owns its query rows, so there are no sums across CTAs and no atomics.
+//   On the key tiles the mask cuts (the causal diagonal's, and a ragged
+//   last tile), dP is summed on the CUDA cores as the plain versions sum
+//   it, one fp32 FMA chain an element over the head dim (`fma_nt`): the
+//   first row of a causal sequence sees one key, p = 1 and delta = dO . O
+//   = dP there, so dS is the rounding of those two sums alone, and dQ
+//   carries it.  With dP in any other order (3xTF32's, or an fp64
+//   evaluation's) such rows sat up to 2.3e-4 of a row's scale off the
+//   plain version's on an H100 at the 7B shape, against a bar of 1e-5; in
+//   its order they sit within 7e-6.  The mask cuts one or two of the key
+//   tiles a warp walks, a few percent of them at training lengths;
+// - streamed tiles (K and V in the forward and dQ; 64-row Q, dO, lse and
 //   delta in dK/dV) come through a ring of two stages with 16-byte
 //   `cp.async` copies (4-byte for lse and delta): one barrier a tile
 //   publishes tile j and frees the stage of tile j - 1, which tile j + 1
 //   then loads while tile j is multiplied; rows past S arrive as zeros (a
 //   copy of 0 source bytes);
-// - P never goes through shared memory in the forward: the score
-//   accumulator is the A operand of the next product.  For TF32 the C
-//   fragment holds columns 2t, 2t + 1 where the A fragment wants t, t + 4,
-//   so the k index of P.V is permuted (slot t is key 2t, slot t + 4 key
-//   2t + 1) and V's rows are read in the same order;
+// - P (dS in dQ) never goes through shared memory in the forward and dQ:
+//   the score accumulator is the A operand of the next product.  For TF32
+//   the C fragment holds columns 2t, 2t + 1 where the A fragment wants t,
+//   t + 4, so the k index of P.V is permuted (slot t is key 2t, slot t + 4
+//   key 2t + 1) and V's (K's) rows are read in the same order;
 // - fp32 tiles are read as 16-byte vectors: an A or B fragment of an
 //   S = A B^T product two k-steps at a time (slots t, t + 4 hold head-dim
 //   columns 4t, 4t + 1 and then 4t + 2, 4t + 3), and a B fragment of P.V
@@ -70,8 +87,9 @@
 //   with the length of a chain of sums: into one accumulator over 4096 keys
 //   it put a row 6e-5 off the plain version on an H100 (the bar is 1e-5).
 //   So the cross terms lo.hi + hi.lo sum apart from hi.hi, each key tile's
-//   P.V (P^T.dO, dS^T.Q) sums from zero and is added in a rounded fp32 add,
-//   and the head-dim sums of S run in chains of at most 128 columns;
+//   P.V (dS.K, P^T.dO, dS^T.Q) sums from zero and is added in a rounded
+//   fp32 add, and the head-dim sums of S (and dP) run in chains of at most
+//   128 columns;
 // - the online softmax, base-2 exponentials and lse = m ln 2 + log l, of
 //   flash_fwd.cu; a key past S gets p = 0, a row past S is never stored,
 //   the causal mask is applied on the diagonal tiles only and a warp (a
@@ -81,7 +99,10 @@
 //   fixed order: no atomics, so two launches give the same bits.
 // Tiles (rows x DP): forward 128 query rows and 64-key K/V tiles, dK/dV 64
 // keys and 64-row Q/dO tiles; fp32 at DP = 256 halves both (4 warps, or 2
-// pairs).  At most 214 KB of shared memory, one CTA of 8 warps an SM.
+// pairs).  dQ holds Q and dO, so its key tiles narrow: 128 query rows and
+// 64-key tiles up to DP = 64, 32-key tiles at 128, 64 rows and 16-key
+// tiles at 256 (`DqCfg`).  At most 225 KB of shared memory (`wgdq`), one
+// CTA an SM.
 // bf16 at DP = 256, forward and dK/dV on `mma.sync` (H100 80GB HBM3, 700
 // W; S 2048, H 16): 0.268 and 0.428 ms; the wgmma forward 0.134.
 //
@@ -92,11 +113,6 @@
 // mask, lo unrounded 2.70 / 5.48 (the same worst rows); hi by Veltkamp's
 // fp32 split 3.09 / 6.26; each streamed tile split once into hi and lo
 // tiles for all warps (32-row tiles to fit) 3.02 / 6.04.
-//
-// dQ (flash_simple_dq) runs on the CUDA cores, fp32 throughout: 64
-// query rows resident, 64-key K and V tiles copied through registers into
-// shared memory, a 16 x 16 thread grid of 4 x 4 register tiles, the score
-// tile through shared memory transposed.
 //
 // Head dims: DP is 32, 64, 128 or 256; the wrapper zero-pads D up to the
 // next of them (zero columns add 0 to every score and give zero columns of
@@ -292,6 +308,37 @@ __device__ __forceinline__ void mma_nt(float (&acc)[NJ][4], const float* a, int 
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] += lo[j][e];
+}
+// acc = A[m0 + 0..15][:] . B[8 j + 0..7][:]^T over DP columns, j < NJ, in
+// the C fragment's layout, on the CUDA cores: each element one chain of
+// fp32 FMAs over the head dim in order, from zero.  That is how the plain
+// versions' fp32 product sums each element (cuBLAS's fp32 GEMM on the
+// card; MKL's and XLA's on the CPU), and dQ takes dP this way on the tiles
+// the mask cuts (see flash_simple_dq_kernel).  A lane reads 16-byte chunks
+// of its two rows and of its two keys a block (rows g, g + 8, keys 8 j +
+// 2t, 8 j + 2t + 1).
+template <int DP, int NJ>
+__device__ __forceinline__ void fma_nt(float (&acc)[NJ][4], const float* a, int m0,
+                                       const float* b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int sa = swz<float>(g), sb0 = swz<float>(2 * t), sb1 = swz<float>(2 * t + 1);
+  const float* a0 = a + (m0 + g) * DP;
+  const float* a1 = a0 + 8 * DP;
+#pragma unroll 2
+  for (int c = 0; c < DP / 4; ++c) {
+    const float4 x0 = *reinterpret_cast<const float4*>(a0 + ((c ^ sa) << 2));
+    const float4 x1 = *reinterpret_cast<const float4*>(a1 + ((c ^ sa) << 2));
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float* br = b + (8 * j + 2 * t) * DP;
+      const float4 y0 = *reinterpret_cast<const float4*>(br + ((c ^ sb0) << 2));
+      const float4 y1 = *reinterpret_cast<const float4*>(br + DP + ((c ^ sb1) << 2));
+      acc[j][0] = fmaf(x0.w, y0.w, fmaf(x0.z, y0.z, fmaf(x0.y, y0.y, fmaf(x0.x, y0.x, acc[j][0]))));
+      acc[j][1] = fmaf(x0.w, y1.w, fmaf(x0.z, y1.z, fmaf(x0.y, y1.y, fmaf(x0.x, y1.x, acc[j][1]))));
+      acc[j][2] = fmaf(x1.w, y0.w, fmaf(x1.z, y0.z, fmaf(x1.y, y0.y, fmaf(x1.x, y0.x, acc[j][2]))));
+      acc[j][3] = fmaf(x1.w, y1.w, fmaf(x1.z, y1.z, fmaf(x1.y, y1.y, fmaf(x1.x, y1.x, acc[j][3]))));
+    }
+  }
 }
 // bf16: ldmatrix of A's 16 x 16 block and two n-blocks of B a k-step.
 template <int DP, int NJ>
@@ -996,234 +1043,351 @@ flash_simple_dkv_kernel(const T* __restrict__ q,        // [B, S, H, DP]
                  1.f, 1.f);
 }
 
-// ------------------------------------------------- dQ, on the CUDA cores
+// ---------------------------------------------------------------- dQ, fp32
 
-constexpr int kRows = 64;         // rows of every tile, queries or keys
-constexpr int kThreads = 256;     // 16 x 16
-constexpr int kLdP = kRows + 4;   // row stride of the transposed score tile
-
-// Shared memory of `tiles` [64, dp] tiles and the score tile, in bytes.
-constexpr size_t smem_bytes(int dp, int tiles) {
-  return ((size_t)tiles * kRows * (dp + 4) + (size_t)kRows * kLdP) * sizeof(float);
-}
-
-template <int DP> struct Tile {
-  static constexpr int kLd = DP + 4;              // row stride of a [64, DP] tile
-  static constexpr int kFloats = kRows * kLd;
-  static constexpr int kVec = DP >= 64 ? 4 : 2;   // accumulator columns a load
-  static constexpr int kGroups = DP / (16 * kVec);
-  // The backward kernels keep four tiles where they fit, else three.
-  static constexpr bool kResident = smem_bytes(DP, 4) <= kMaxSmem;
-  static_assert(smem_bytes(DP, 3) <= kMaxSmem, "three tiles must fit a CTA");
+// The forward's shape: 8 warps of 16 query rows, Q and dO resident, K and
+// V tiles streamed through the two-stage ring.  Resident dO costs BQ DP
+// floats more than the forward's tiles, so the key tiles narrow as DP
+// grows: 64 keys up to DP = 64, 32 at 128, and at 256 4 warps (64 rows)
+// and 16 keys.  At most 192 KB of shared memory.
+template <int DP> struct DqCfg {
+  static constexpr int kWarps = DP == 256 ? 4 : 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int BQ = 16 * kWarps;
+  static constexpr int BK = DP <= 64 ? 64 : DP == 128 ? 32 : 16;
+  static constexpr size_t kSmem = (size_t)(2 * BQ + 4 * BK) * DP * sizeof(float);
+  static_assert(kSmem <= kMaxSmem, "tiles must fit a CTA");
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ void store_val(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_val(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// dst [64, DP] (rows kLd apart) = rows 0 .. rows - 1 of src, `stride`
-// elements apart, and zeros below them.
-template <int DP, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t stride, int rows) {
-  using L = Tile<DP>;
-  constexpr int kC4 = DP / 4;
-  for (int i = threadIdx.x; i < kRows * kC4; i += kThreads) {
-    const int r = i / kC4, c = (i % kC4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) x = load4(src + (size_t)r * stride + c);
-    *reinterpret_cast<float4*>(dst + r * L::kLd + c) = x;
-  }
-}
-
-// s[i][j] = sum_d a[ty * 4 + i][d] * b[tx + 16 j][d], d in order.
-template <int DP>
-__device__ __forceinline__ void scores(float (&s)[4][4], const float* a, const float* b) {
-  using L = Tile<DP>;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < DP; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(a + (ty * 4 + i) * L::kLd + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * L::kLd + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
-        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
-        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
-        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
-      }
-  }
-}
-
-// pt[tx + 16 j][ty * 4 + i] = s[i][j]: the score tile, transposed.
-__device__ __forceinline__ void store_scores(float* pt, const float (&s)[4][4]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(pt + (tx + 16 * j) * kLdP + ty * 4) =
-        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-}
-
-// Column c of this thread's accumulator: kVec * tx + 16 kVec g + e for
-// c = g kVec + e.
-template <int DP> __device__ __forceinline__ int acc_col(int c) {
-  using L = Tile<DP>;
-  const int tx = threadIdx.x % 16;
-  return L::kVec * tx + 16 * L::kVec * (c / L::kVec) + c % L::kVec;
-}
-
-// acc[i][c] += sum_k pt[k][ty * 4 + i] * x[k][acc_col(c)], k in order.
-template <int DP>
-__device__ __forceinline__ void accumulate(float (&acc)[4][DP / 16], const float* pt,
-                                           const float* x) {
-  using L = Tile<DP>;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 4
-  for (int k = 0; k < kRows; ++k) {
-    const float4 p = *reinterpret_cast<const float4*>(pt + k * kLdP + ty * 4);
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-    for (int g = 0; g < L::kGroups; ++g) {
-      const float* xr = x + k * L::kLd + L::kVec * tx + 16 * L::kVec * g;
-      float xv[4];
-      if constexpr (L::kVec == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(xr);
-        xv[0] = t.x, xv[1] = t.y, xv[2] = t.z, xv[3] = t.w;
-      } else {
-        const float2 t = *reinterpret_cast<const float2*>(xr);
-        xv[0] = t.x, xv[1] = t.y;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < L::kVec; ++e)
-          acc[i][g * L::kVec + e] = fmaf(pv[i], xv[e], acc[i][g * L::kVec + e]);
-    }
-  }
-}
-
-// Rows ty * 4 + i of acc (times mul[i]) into dst, rows `stride` elements
-// apart, those below `rows` only.
-template <int DP, typename T>
-__device__ __forceinline__ void store_acc(T* dst, size_t stride, const float (&acc)[4][DP / 16],
-                                          const float (&mul)[4], int rows) {
-  const int ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int c = 0; c < DP / 16; ++c)
-      store_val(dst + (size_t)r * stride + acc_col<DP>(c), acc[i][c] * mul[i]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&a)[4][N]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < N; ++c) a[i][c] = 0.f;
-}
-
-template <int DP, typename T, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_simple_dq_kernel(const T* __restrict__ q,        // [B, S, H, DP]
-                       const T* __restrict__ k,        // [B, S, KV, DP]
-                       const T* __restrict__ v,        // [B, S, KV, DP]
-                       const T* __restrict__ dout,     // [B, S, H, DP]
-                       const float* __restrict__ lse,  // [B, H, S]
-                       const float* __restrict__ delta,
-                       T* __restrict__ dq,             // [B, S, H, DP]
+template <int DP, bool CAUSAL>
+__global__ void __launch_bounds__(DqCfg<DP>::kThreads, 1)
+flash_simple_dq_kernel(const float* __restrict__ q,      // [B, S, H, DP]
+                       const float* __restrict__ k,      // [B, S, KV, DP]
+                       const float* __restrict__ v,      // [B, S, KV, DP]
+                       const float* __restrict__ dout,   // [B, S, H, DP]
+                       const float* __restrict__ lse,    // [B, H, S]
+                       const float* __restrict__ delta,  // [B, H, S]
+                       float* __restrict__ dq,           // [B, S, H, DP]
                        int B, int S, int H, int KV, float scale, float scale_log2) {
-  using L = Tile<DP>;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = smem + L::kFloats;
-  float* vs = smem + 2 * L::kFloats;
-  float* pt = smem + 3 * L::kFloats;
-  float* dos = L::kResident ? smem + 3 * L::kFloats + kRows * kLdP : qs;
+  using C = DqCfg<DP>;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::kThreads, NJ = BK / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + BQ * DP;
+  float* kv_s = dos + BQ * DP;  // stage st: K at kv_s + 2 st BK DP, V after it
 
   const int bh = head_index();
   if (bh >= B * H) return;
   const int b = bh / H, h = bh % H, g = h / (H / KV);
-  const int n_t = (S + kRows - 1) / kRows;
-  const int qi = CAUSAL ? n_t - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int q0 = qi * kRows, rows = min(kRows, S - q0);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int n_q = (S + BQ - 1) / BQ;
+  const int qi = CAUSAL ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int q0 = qi * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, t4 = lane & 3;
+  const int m0 = 16 * warp;                 // the warp's rows in the tile
+  const int row0 = q0 + m0 + (lane >> 2);   // this lane's rows: row0, row0 + 8
   const size_t qs_stride = (size_t)H * DP, kv_stride = (size_t)KV * DP;
   const size_t q_off = ((size_t)b * S + q0) * qs_stride + (size_t)h * DP;
-  const T* k_bg = k + (size_t)b * S * kv_stride + (size_t)g * DP;
-  const T* v_bg = v + (size_t)b * S * kv_stride + (size_t)g * DP;
+  const float* k_bg = k + (size_t)b * S * kv_stride + (size_t)g * DP;
+  const float* v_bg = v + (size_t)b * S * kv_stride + (size_t)g * DP;
+  const int n_k = (S + BK - 1) / BK;
+  const int n_kv = CAUSAL ? min(n_k, (q0 + BQ - 1) / BK + 1) : n_k;
 
-  float lse2[4], dl[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    lse2[i] = r < rows ? lse[(size_t)bh * S + q0 + r] * kLog2e : 0.f;
-    dl[i] = r < rows ? delta[(size_t)bh * S + q0 + r] : 0.f;
-  }
-  if (L::kResident) {
-    load_tile<DP>(qs, q + q_off, qs_stride, rows);
-    load_tile<DP>(dos, dout + q_off, qs_stride, rows);
-  }
-  float acc[4][DP / 16];
-  zero(acc);
+  auto load_kv = [&](int it) {
+    float* ks = kv_s + (it & 1) * 2 * BK * DP;
+    const int k0 = it * BK, rows = min(BK, S - k0);
+    async_tile<DP, BK, NT>(ks, k_bg + (size_t)k0 * kv_stride, kv_stride, rows);
+    async_tile<DP, BK, NT>(ks + BK * DP, v_bg + (size_t)k0 * kv_stride, kv_stride, rows);
+  };
+  async_tile<DP, BQ, NT>(qs, q + q_off, qs_stride, min(BQ, S - q0));
+  async_tile<DP, BQ, NT>(dos, dout + q_off, qs_stride, min(BQ, S - q0));
+  load_kv(0);
+  cp_async_commit();
 
-  const int n_kv = CAUSAL ? qi + 1 : n_t;
+  // lse (base 2) and delta of this lane's rows; 0 past S, where Q and dO
+  // are zero rows, so ds is 0 there.
+  const float* lse_r = lse + (size_t)bh * S;
+  const float* dl_r = delta + (size_t)bh * S;
+  const float lse0 = row0 < S ? lse_r[row0] * kLog2e : 0.f;
+  const float lse1 = row0 + 8 < S ? lse_r[row0 + 8] * kLog2e : 0.f;
+  const float dl0 = row0 < S ? dl_r[row0] : 0.f;
+  const float dl1 = row0 + 8 < S ? dl_r[row0 + 8] : 0.f;
+
+  float acc[DP / 8][4];
+  zero_frags(acc);
   for (int it = 0; it < n_kv; ++it) {
-    const int k0 = it * kRows;
-    __syncthreads();  // the last tile's K and dS are read
-    if (!L::kResident) load_tile<DP>(qs, q + q_off, qs_stride, rows);
-    load_tile<DP>(ks, k_bg + (size_t)k0 * kv_stride, kv_stride, min(kRows, S - k0));
-    load_tile<DP>(vs, v_bg + (size_t)k0 * kv_stride, kv_stride, min(kRows, S - k0));
+    cp_async_wait<0>();
+    // Tile it has landed for every thread, and every thread is done with
+    // tile it - 1: its stage takes tile it + 1, loaded while this one is
+    // multiplied.
     __syncthreads();
-    float s[4][4], dp[4][4];
-    scores<DP>(s, qs, ks);
-    if (!L::kResident) {  // dO takes Q's place
-      __syncthreads();
-      load_tile<DP>(dos, dout + q_off, qs_stride, rows);
-      __syncthreads();
+    if (it + 1 < n_kv) load_kv(it + 1);
+    cp_async_commit();
+    const int k0 = it * BK;
+    const float* ks = kv_s + (it & 1) * 2 * BK * DP;
+    // A key tile wholly after the warp's last row adds nothing to it.
+    if (!CAUSAL || k0 <= q0 + m0 + 15) {
+      const bool edge = (CAUSAL && k0 + BK - 1 > q0 + m0) || k0 + BK > S;
+      float s[NJ][4], dp[NJ][4];
+      zero_frags(s);
+      mma_nt<DP, NJ>(s, qs, m0, ks, 0);  // S = Q K^T
+      // dP = dO V^T; on a tile the mask cuts, summed as the plain versions
+      // sum it (fma_nt): there are the rows that see few keys.
+      zero_frags(dp);
+      if (edge)
+        fma_nt<DP, NJ>(dp, dos, m0, ks + BK * DP);
+      else
+        mma_nt<DP, NJ>(dp, dos, m0, ks + BK * DP, 0);
+      // p = 2^(s * scale log2 e - lse log2 e), 0 for a key past S or after
+      // the row; ds = p * (dp - delta) * scale, in place of s: the A
+      // operand of dQ += dS K, as the forward's P is of P V.
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t4 + (e & 1), row = row0 + 8 * (e >> 1);
+          float p = exp2f(fmaf(s[j][e], scale_log2, -(e & 2 ? lse1 : lse0)));
+          if (edge && (key >= S || (CAUSAL && key > row))) p = 0.f;
+          s[j][e] = p * (dp[j][e] - (e & 2 ? dl1 : dl0)) * scale;
+        }
+      mma_nn<DP, NJ>(acc, s, ks, 0);  // dQ += dS K
     }
-    scores<DP>(dp, dos, vs);
-    // p = 2^(s * scale log2 e - lse log2 e), 0 for a key past S or after
-    // the row; ds = p * (dp - delta) * scale.
-    const bool edge = (CAUSAL && it == qi) || k0 + kRows > S;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j, row = q0 + ty * 4 + i;
-        float p = exp2f(fmaf(s[i][j], scale_log2, -lse2[i]));
-        if (edge && (key >= S || (CAUSAL && key > row))) p = 0.f;
-        s[i][j] = p * (dp[i][j] - dl[i]) * scale;
-      }
-    store_scores(pt, s);
-    __syncthreads();
-    accumulate<DP>(acc, pt, ks);  // dQ += dS K
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_acc<DP>(dq + q_off, qs_stride, acc, one, rows);
+
+  float* dq_row = dq + ((size_t)b * S + row0) * qs_stride + (size_t)h * DP;
+  store_rows<DP>(row0 < S ? dq_row : nullptr, row0 + 8 < S ? dq_row + 8 * qs_stride : nullptr,
+                 acc, 1.f, 1.f);
 }
+
+// ------------------------------------------------------ dQ, bf16 at DP = 256
+
+// bf16 at DP = 256 on `wgmma`, as flash_bwd.cu's dQ kernel at D <= 128: a
+// CTA of two consumer warpgroups of 64 query rows and a producer warpgroup
+// whose one thread issues every TMA load (4-D tensor maps, 64-column boxes,
+// 128-byte swizzle).  Q and dO stay in shared memory (64 KB each at 128
+// rows); 32-key K and V tiles (16 KB each) stream through a ring of three
+// stages, 224 KB in all.  A warpgroup's dQ accumulator (64 x 256 fp32) is
+// 128 registers a thread, and 32-key tiles keep S and dP at 16 each.  Per
+// tile and warpgroup: S = Q K^T and dP = dO V^T (`wgmma.m64n32k16`, both
+// operands in shared memory), ds in registers, rounded to bf16 as the A
+// operand of dQ += ds K (two `wgmma.m64n128k16`, one a 128-column half of
+// K, K as the MN-major B).  Numerics of flash_bwd.cu: fp32 sums, ds
+// rounded to bf16 before its product.
+namespace wgdq {
+
+constexpr int kD = 256;
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int BQ = 64 * kConsumers;                  // query rows a CTA
+constexpr int BK = 32;                               // keys a K/V tile
+constexpr int kStages = 3;
+constexpr int kBoxQ = 128 * BQ;                      // a 64-column box of Q or dO
+constexpr int kBoxK = 128 * BK;                      // a 64-column box of K or V
+constexpr int kTileQ = (kD / 64) * kBoxQ;            // 64 KB
+constexpr int kTileK = (kD / 64) * kBoxK;            // 16 KB
+constexpr int kBar = 2 * kTileQ + 2 * kStages * kTileK;  // barriers after the tiles
+constexpr size_t kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;
+static_assert(kSmem <= kMaxSmem, "tiles must fit a CTA");
+
+// Descriptor of k16 step kk of a K-major operand: rows from `tile` (a
+// slice of boxes `box` bytes apart), k columns 16 kk .. 16 kk + 15.
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int box, int kk) {
+  return hopper::desc_sw128(tile + (kk / 4) * box + (kk % 4) * 32, 16, 1024);
+}
+
+// Named as the fp32 dQ kernel is, so a profile's flash_simple_dq time
+// counts both.
+template <bool CAUSAL>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_simple_dq_kernel(const __grid_constant__ CUtensorMap tm_q,   // [B, S, H, 256]
+                       const __grid_constant__ CUtensorMap tm_k,   // [B, S, KV, 256]
+                       const __grid_constant__ CUtensorMap tm_v,   // [B, S, KV, 256]
+                       const __grid_constant__ CUtensorMap tm_do,  // [B, S, H, 256]
+                       const float* __restrict__ lse,              // [B, H, S]
+                       const float* __restrict__ delta,            // [B, H, S]
+                       bf16* __restrict__ dq,                      // [B, S, H, 256]
+                       int B, int S, int H, int KV, float scale, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + kBar);
+  uint64_t* q_full = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + kStages;
+  unsigned char* q_s = smem;
+  unsigned char* do_s = smem + kTileQ;
+  unsigned char* k_s = smem + 2 * kTileQ;
+  unsigned char* v_s = smem + 2 * kTileQ + kStages * kTileK;
+
+  const int n_q = (S + BQ - 1) / BQ;
+  const int qi = CAUSAL ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int bh = head_index();
+  if (bh >= B * H) return;
+  const int b = bh / H, h = bh - b * H;
+  const int g = h / (H / KV);
+  const int n_k = (S + BK - 1) / BK;
+  const int n_kv = CAUSAL ? min(n_k, (qi * BQ + BQ - 1) / BK + 1) : n_k;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full + s, 1);
+      hopper::mbar_init(empty + s, kConsumers * 4);  // one arrival a consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer: one thread keeps the ring full.
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == kConsumers * 128) {
+      hopper::mbar_expect_tx(q_full, 2 * kTileQ);
+#pragma unroll
+      for (int x = 0; x < kD / 64; ++x) {
+        hopper::tma_load_4d(q_s + x * kBoxQ, &tm_q, q_full, 64 * x, h, qi * BQ, b);
+        hopper::tma_load_4d(do_s + x * kBoxQ, &tm_do, q_full, 64 * x, h, qi * BQ, b);
+      }
+      for (int it = 0; it < n_kv; ++it) {
+        const int st = it % kStages;
+        hopper::mbar_wait(empty + st, ((it / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full + st, 2 * kTileK);
+#pragma unroll
+        for (int x = 0; x < kD / 64; ++x) {
+          hopper::tma_load_4d(k_s + st * kTileK + x * kBoxK, &tm_k, full + st, 64 * x, g,
+                              it * BK, b);
+          hopper::tma_load_4d(v_s + st * kTileK + x * kBoxK, &tm_v, full + st, 64 * x, g,
+                              it * BK, b);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows r0 .. r0 + 63.
+    hopper::reg_alloc<240>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int t4 = lane & 3;
+    const int r0 = qi * BQ + wg * 64;
+    const int row0 = r0 + warp * 16 + (lane >> 2);  // this thread's rows row0, row0 + 8
+    const bool live = r0 < S;
+
+    const float* lse_r = lse + (size_t)bh * S;
+    const float* dl_r = delta + (size_t)bh * S;
+    const float lse0 = row0 < S ? lse_r[row0] * kLog2e : 0.f;
+    const float lse1 = row0 + 8 < S ? lse_r[row0 + 8] * kLog2e : 0.f;
+    const float dl0 = row0 < S ? dl_r[row0] : 0.f;
+    const float dl1 = row0 + 8 < S ? dl_r[row0 + 8] : 0.f;
+    const unsigned char* q_w = q_s + wg * 64 * 128;
+    const unsigned char* do_w = do_s + wg * 64 * 128;
+
+    float a0[64], a1[64];  // dQ columns 0-127 and 128-255
+#pragma unroll
+    for (int i = 0; i < 64; ++i) a0[i] = a1[i] = 0.f;
+    hopper::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_kv; ++it) {
+      const int st = it % kStages;
+      const int key0 = it * BK;
+      hopper::mbar_wait(full + st, (it / kStages) & 1);
+      // A key tile wholly after the warpgroup's last row adds nothing.
+      if (live && !(CAUSAL && key0 >= r0 + 64)) {
+        const unsigned char* k_t = k_s + st * kTileK;
+        const unsigned char* v_t = v_s + st * kTileK;
+        float s[BK / 2], dp[BK / 2];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          hopper::wgmma_m64n32k16_ss(s, desc_k(q_w, kBoxQ, kk), desc_k(k_t, kBoxK, kk), kk > 0);
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < kD / 16; ++kk)
+          hopper::wgmma_m64n32k16_ss(dp, desc_k(do_w, kBoxQ, kk), desc_k(v_t, kBoxK, kk),
+                                     kk > 0);
+        hopper::wgmma_commit();
+
+        // p = 2^(s * scale log2 e - lse log2 e), 0 for a key past S or
+        // after the row, while dP is still on the tensor cores.
+        hopper::wgmma_wait<1>();
+        hopper::reg_fence(s);
+        const bool edge = (CAUSAL && key0 + BK - 1 > r0) || key0 + BK > S;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2_approx(fmaf(s[4 * j + e], scale_log2, -(e & 2 ? lse1 : lse0)));
+            const int key = key0 + 8 * j + 2 * t4 + (e & 1), row = row0 + 8 * (e >> 1);
+            if (edge && (key >= S || (CAUSAL && key > row))) p = 0.f;
+            s[4 * j + e] = p;
+          }
+        // ds = p * (dp - delta) * scale, rounded to bf16, then dQ += ds K.
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(dp);
+        uint32_t ds[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int x = 8 * kk + 2 * i;
+            const float dl = i & 1 ? dl1 : dl0;
+            ds[kk][i] = pack_bf16(s[x] * (dp[x] - dl) * scale, s[x + 1] * (dp[x + 1] - dl) * scale);
+          }
+        hopper::reg_fence(a0);
+        hopper::reg_fence(a1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          hopper::wgmma_m64n128k16_rs_tb(
+              a0, ds[kk], hopper::desc_sw128(k_t + kk * 16 * 128, kBoxK, 1024), 1);
+          hopper::wgmma_m64n128k16_rs_tb(
+              a1, ds[kk], hopper::desc_sw128(k_t + 2 * kBoxK + kk * 16 * 128, kBoxK, 1024), 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::reg_fence(a0);
+        hopper::reg_fence(a1);
+      }
+      if (lane == 0) hopper::mbar_arrive(empty + st);
+    }
+
+    if (live) {
+      const size_t q_stride = (size_t)H * kD;
+      bf16* dq_row = dq + ((size_t)b * S + row0) * q_stride + (size_t)h * kD;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (row0 < S) {
+          *reinterpret_cast<uint32_t*>(dq_row + col) = pack_bf16(a0[4 * j], a0[4 * j + 1]);
+          *reinterpret_cast<uint32_t*>(dq_row + 128 + col) = pack_bf16(a1[4 * j], a1[4 * j + 1]);
+        }
+        if (row0 + 8 < S) {
+          *reinterpret_cast<uint32_t*>(dq_row + 8 * q_stride + col) =
+              pack_bf16(a0[4 * j + 2], a0[4 * j + 3]);
+          *reinterpret_cast<uint32_t*>(dq_row + 8 * q_stride + 128 + col) =
+              pack_bf16(a1[4 * j + 2], a1[4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+template <bool CAUSAL>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, int B, int S, int H, int KV,
+                   float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e = hopper::make_map(&mq, q, B, S, H, kD, BQ);
+  if (e == cudaSuccess) e = hopper::make_map(&mk, k, B, S, KV, kD, BK);
+  if (e == cudaSuccess) e = hopper::make_map(&mv, v, B, S, KV, kD, BK);
+  if (e == cudaSuccess) e = hopper::make_map(&mdo, dout, B, S, H, kD, BQ);
+  if (e != cudaSuccess) return e;
+  auto kernel = flash_simple_dq_kernel<CAUSAL>;
+  e = allow_smem(kernel, kSmem);
+  if (e != cudaSuccess) return e;
+  kernel<<<head_grid((S + BQ - 1) / BQ, B * H), kThreads, kSmem, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dq), B, S, H, KV, scale,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace wgdq
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -1253,16 +1417,21 @@ cudaError_t launch_fwd(const Args& a, void* o, float* lse) {
 
 template <int DP, typename T, bool CAUSAL>
 cudaError_t launch_dq(const Args& a, void* dq) {
-  auto kernel = flash_simple_dq_kernel<DP, T, CAUSAL>;
-  const size_t smem = smem_bytes(DP, Tile<DP>::kResident ? 4 : 3);
-  const dim3 grid = head_grid((a.S + kRows - 1) / kRows, a.B * a.H);
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dq), a.B, a.S, a.H, a.KV,
-      a.scale, a.scale * kLog2e);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {  // bf16 (DP = 256): the wgmma kernel
+    return wgdq::launch<CAUSAL>(a.q, a.k, a.v, a.dout, a.lse, a.delta, dq, a.B, a.S, a.H, a.KV,
+                                a.scale, a.stream);
+  } else {
+    using C = DqCfg<DP>;
+    auto kernel = flash_simple_dq_kernel<DP, CAUSAL>;
+    const dim3 grid = head_grid((a.S + C::BQ - 1) / C::BQ, a.B * a.H);
+    cudaError_t e = allow_smem(kernel, C::kSmem);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, C::kThreads, C::kSmem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+        static_cast<float*>(dq), a.B, a.S, a.H, a.KV, a.scale, a.scale * kLog2e);
+    return cudaGetLastError();
+  }
 }
 
 template <int DP, typename T, bool CAUSAL>

@@ -14,10 +14,11 @@ fallback between the two.
   ``flash_bwd_dkv`` (``csrc/flash_bwd.cu``, replacing ``_bwd_dq_kernel``
   and ``_bwd_dkv_kernel``), ``wgmma`` kernels for bf16 at head dims up to
   128; fp32 at any head dim up to 256 and bf16 above 128 run the same three
-  from ``csrc/flash_simple.cu`` (``flash_simple_fwd`` and
-  ``flash_simple_dkv`` on the tensor cores, fp32 as 3xTF32: three TF32
-  products for each fp32 one, fp32-accurate whatever ``allow_tf32`` says;
-  ``flash_simple_dq`` on the CUDA cores in fp32).  :func:`flash_plan`
+  from ``csrc/flash_simple.cu`` (all three on the tensor cores, fp32 as
+  3xTF32: three TF32 products for each fp32 one, fp32-accurate whatever
+  ``allow_tf32`` says; ``flash_simple_dq`` sums dP on the key tiles the
+  mask cuts as the plain versions sum it, in fp32 FMAs; bf16 at head dim
+  256's forward and dQ on ``wgmma``).  :func:`flash_plan`
   picks the library and the head dim it is padded to.  All are bound by
   operations at training lengths; :func:`flash_flops` counts them.
 - :func:`paged_attention` is the decode-step attention of the serving

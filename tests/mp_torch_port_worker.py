@@ -22,6 +22,7 @@ the tests import to build the same inputs for the JAX side.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -373,6 +374,18 @@ OPT_WIRE_SHAPE = (4, 4250)
 LLAMA_STEPS = 2
 
 
+def param_digests(named) -> dict:
+    """``name -> sha256`` of each leaf's bytes (``(name, array or
+    tensor)`` pairs, the tests' numpy side and the workers' torch side
+    alike)."""
+    out = {}
+    for name, t in named:
+        a = t.detach().numpy() if hasattr(t, "detach") else np.asarray(t)
+        out[name] = hashlib.sha256(np.ascontiguousarray(a).tobytes()
+                                   ).hexdigest()
+    return out
+
+
 def _load_params(outdir: str) -> dict:
     """The JAX package's initial parameters, which the test saved."""
     with np.load(os.path.join(outdir, "llama_params.npz")) as z:
@@ -390,16 +403,24 @@ def run_optimizer(hvd, me: int, arrays: dict, info: dict,
                   outdir: str) -> None:
     torch, tllama, cfg = _tiny_llama()
 
-    # two data-parallel Adam steps of a tiny Llama, one sequence a rank
+    # two data-parallel Adam steps of a tiny Llama, one sequence a rank;
+    # what each rank trains from (a digest of every leaf as loaded and
+    # after the broadcast) and its plain forward's loss before the first
+    # step, which the step's own first loss must equal bit for bit
     params = tllama.params_from_jax(_load_params(outdir), device="cpu")
     named = tllama.named_trainable(params)
+    info["llama.digest_loaded"] = param_digests(named)
     hvd.broadcast_parameters(named, root_rank=0)
+    info["llama.digest_broadcast"] = param_digests(named)
     opt = hvd.DistributedOptimizer(
         torch.optim.Adam([t for _, t in named], lr=LLAMA_LR, eps=1e-8),
         named_parameters=named)
     step = tllama.make_train_step(cfg, opt)
     tokens = np.load(os.path.join(outdir, "llama_tokens.npy"))
     batch = {"tokens": torch.from_numpy(tokens[me:me + 1])}
+    with torch.no_grad():
+        info["llama.plain_first_loss"] = tllama.loss_fn(
+            params, batch, cfg).item()
     arrays["llama.losses"] = np.array(
         [step(params, batch).item() for _ in range(LLAMA_STEPS)])
     for name, t in named:

@@ -12,7 +12,10 @@ Two processes, one rank each, on the CPU over Gloo
   two-sequence batch.  The mean of the two ranks' losses within rtol
   1e-5 of the JAX loss; parameters as ``test_three_adam_steps_match_optax``
   holds them (each within 2·lr per step, all but 1e-4 of them within
-  1e-4), and equal on both ranks;
+  1e-4), and equal on both ranks; every rank trains from the saved
+  parameters (each leaf's digest as loaded and after the broadcast), and
+  its first step's loss is its plain forward's, bit for bit, so a run
+  whose numbers move says whether its inputs or its step moved them;
 - ``backward_passes_per_step=2`` (two local passes, one average), against
   the same SGD step on the gradients summed in numpy; a step after one
   pass of two, and a step with no gradient reduced, both raise;
@@ -61,7 +64,9 @@ def _flat(tree) -> dict:
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory):
+def saved(tmp_path_factory):
+    """The directory the battery reads: the JAX package's initial
+    parameters and the two sequences."""
     out = tmp_path_factory.mktemp("optimizer")
     jcfg = jllama.LlamaConfig.tiny(**W.LLAMA_DIMS)
     params = jllama.init_params(jcfg, jax.random.PRNGKey(0))
@@ -69,6 +74,12 @@ def run(tmp_path_factory):
     tokens = np.random.RandomState(0).randint(
         0, W.LLAMA_DIMS["vocab_size"], size=(W.NP, 257)).astype(np.int32)
     np.save(out / "llama_tokens.npy", tokens)
+    return out, jcfg, params, tokens
+
+
+@pytest.fixture(scope="module")
+def run(saved):
+    out, jcfg, params, tokens = saved
     res = W.launch("optimizer", str(out), timeout=150)
     for rc, text in res:
         assert rc == 0, text
@@ -103,6 +114,35 @@ def test_dp_losses_match_jax(run):
     mean = np.mean([a["llama.losses"] for a, _ in ranks], axis=0)
     np.testing.assert_allclose(mean, jlosses, rtol=1e-5)
     assert ranks[0][0]["llama.losses"][1] < ranks[0][0]["llama.losses"][0]
+
+
+def test_dp_ranks_train_from_the_saved_parameters(saved, run):
+    """Every rank trains from the parameters the JAX package saved: each
+    leaf's digest as loaded and after ``broadcast_parameters`` equals the
+    saved array's (layer leaves are the stacks' rows)."""
+    ranks, _, _ = run
+    with np.load(saved[0] / "llama_params.npz") as z:
+        saved = {k: z[k] for k in z.files}
+    leaves = []
+    for key, arr in saved.items():
+        if key.startswith("layers."):
+            leaves += [(f"{key}.{i}", arr[i]) for i in range(arr.shape[0])]
+        else:
+            leaves.append((key, arr))
+    want = W.param_digests(leaves)
+    for r, (_, info) in enumerate(ranks):
+        for when in ("loaded", "broadcast"):
+            got = info[f"llama.digest_{when}"]
+            assert got == want, (r, when, sorted(
+                k for k in want if got.get(k) != want[k]))
+
+
+def test_dp_first_loss_is_the_plain_forward(run):
+    """Each rank's first data-parallel loss is its plain forward's on the
+    same parameters and sequence, bit for bit: nothing but the forward
+    runs before it."""
+    for arrays, info in run[0]:
+        assert arrays["llama.losses"][0] == info["llama.plain_first_loss"]
 
 
 def _port_leaf(arrays, key, cfg_layers):

@@ -1,20 +1,20 @@
-"""The fp32 route of ``flash_simple_fwd`` and ``flash_simple_dkv``: 3xTF32.
+"""The fp32 route of the ``flash_simple`` kernels (forward, dQ, dK/dV): 3xTF32.
 
-On the card the two kernels multiply fp32 on the tensor cores in three
+On the card the three kernels multiply fp32 on the tensor cores in three
 TF32 products: each operand x splits into ``hi = tf32(x)`` (round to
 nearest) and ``lo = x - hi``, of which the tensor cores read the TF32
 bits (its top 11 significant bits), and a product is ``lo.hi + hi.lo +
 hi.hi`` (``lo.lo`` dropped), summed in fp32.  The kernels run only on the
 card; here a plain PyTorch emulation of that product (:func:`tf32` rounds
-by bit arithmetic on int32 views) computes the forward and dK/dV the way
-the kernels do, and is held against the port's fp32 plain versions and
+by bit arithmetic on int32 views) computes the forward, dQ and dK/dV the
+way the kernels do, and is held against the port's fp32 plain versions and
 against the JAX package's Pallas kernels in interpret mode: every output
 row within 1e-5 of its scale, the bar ``chip_smoke.py`` holds the card's
 fp32 kernels to.  The emulation is a test helper, never on the main path.
 
-The source test checks that the two kernels are tensor-core kernels fed by
-asynchronous copies (bf16's forward at head dim 256 a ``wgmma`` one), and
-that ``flash_simple_dq`` stays exported.
+The source test checks that the three kernels are tensor-core kernels fed
+by asynchronous copies (bf16's forward and dQ at head dim 256 ``wgmma``
+ones), and that the CUDA-core helpers the old dQ kernel used are gone.
 """
 
 from __future__ import annotations
@@ -94,6 +94,37 @@ def dkv_3xtf32(q, k, v, do, lse, delta, scale, causal):
     dv = mm3(p.transpose(-1, -2), do.transpose(1, 2)).transpose(1, 2)
     dk = mm3(ds.transpose(-1, -2), q.transpose(1, 2)).transpose(1, 2)
     return FA._group_sum(dk, k.shape[2]), FA._group_sum(dv, v.shape[2])
+
+
+# Keys a tile of flash_simple_dq by padded head dim (csrc/flash_simple.cu
+# DqCfg): each tile's dS K is summed from zero and added to dQ in fp32.
+DQ_KEY_TILE = {32: 64, 64: 64, 128: 32, 256: 16}
+
+
+def dq_3xtf32(q, k, v, do, lse, delta, scale, causal):
+    """dq as flash_simple_dq computes it: S in 3xTF32; dP = dO V^T in
+    3xTF32, except on the tiles the mask cuts (a warp's 16 rows against a
+    key tile on the causal diagonal, or the ragged last key tile), where it
+    is the plain versions' own fp32 product (an fp32 ``matmul``, which sums
+    each element as one FMA chain over the head dim, as the kernel's
+    ``fma_nt`` and cuBLAS's fp32 GEMM do); dS K in 3xTF32 a key tile at a
+    time, each tile's product added to dq in fp32."""
+    p = torch.exp(_scores(q, k, scale, causal) - lse[..., None])
+    rep = q.shape[2] // k.shape[2]
+    S = q.shape[1]
+    vt = v.repeat_interleave(rep, dim=2).permute(0, 2, 3, 1)
+    dot = do.transpose(1, 2)
+    tile = DQ_KEY_TILE[FA.flash_plan(torch.float32, q.shape[-1])[1]]
+    row0 = torch.arange(S)[:, None] // 16 * 16      # a warp's first row
+    key0 = torch.arange(S)[None, :] // tile * tile  # a key tile's first key
+    cut = (key0 + tile > S) | (causal & (key0 + tile - 1 > row0))
+    dp = torch.where(cut, torch.matmul(dot, vt), mm3(dot, vt))
+    ds = p * (dp - delta[..., None]) * scale
+    kr = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    dq = torch.zeros_like(q.transpose(1, 2))
+    for k0 in range(0, S, tile):
+        dq = dq + mm3(ds[..., k0:k0 + tile], kr[:, :, k0:k0 + tile])
+    return dq.transpose(1, 2)
 
 
 def worst_row(got, ref) -> float:
@@ -176,6 +207,33 @@ def test_3xtf32_dkv_holds_fp32_and_pallas(D, kv, causal):
         assert worst_row(got, np.asarray(jref)) <= ROW_TOL, name
 
 
+@pytest.mark.parametrize("D,kv,causal", CASES)
+def test_3xtf32_dq_holds_fp32_and_pallas(D, kv, causal):
+    """dQ as the kernel computes it (:func:`dq_3xtf32`) against the fp32
+    plain version and the Pallas backward (interpret mode), on the Pallas
+    forward's o and lse: worst row within 1e-5."""
+    q, k, v, do = _inputs(3 * D + kv, D, kv)
+    sc = 1.0 / math.sqrt(D)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    jo, jlse = JFA._flash_forward(jq, jk, jv, scale=sc, causal=causal,
+                                  block_q=128, block_k=128, interpret=True)
+    jdq, _, _ = JFA._flash_backward(
+        jq, jk, jv, jo, jlse, jdo, scale=sc, causal=causal, block_q=128,
+        block_k=128, interpret=True)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    lse = torch.from_numpy(np.asarray(jlse).reshape(B, H, S))
+    delta = FA.flash_delta(torch.from_numpy(np.asarray(jo)), tdo)
+    rdq = FA.flash_backward_dq_reference(tq, tk, tv, tdo, lse, delta, sc,
+                                         causal)
+    assert worst_row(dq_3xtf32(tq, tk, tv, tdo, lse, delta, sc, causal),
+                     rdq) <= ROW_TOL
+    # The Pallas backward takes delta = rowsum(dO O) in its own sum order.
+    jdelta = torch.from_numpy(np.asarray(jnp.sum(
+        jdo * jo, axis=-1)).transpose(0, 2, 1).copy())
+    assert worst_row(dq_3xtf32(tq, tk, tv, tdo, lse, jdelta, sc, causal),
+                     np.asarray(jdq)) <= ROW_TOL
+
+
 def test_3xtf32_is_far_closer_than_one_tf32_product():
     """The bar is not met by a single TF32 product (what ``allow_tf32``
     would give): the split is what makes the route fp32-accurate."""
@@ -201,12 +259,13 @@ def _kernel_body(src: str, name: str) -> str:
 
 
 def test_forward_and_dkv_sources_are_tensor_core_kernels():
-    """flash_simple_fwd and flash_simple_dkv multiply on the tensor cores
-    (mma.sync: TF32 operands split into hi, rounded to nearest as tf32()
-    rounds, and lo for fp32; bf16 operands through ldmatrix) on tiles that
-    asynchronous copies fill; bf16's forward at head dim 256 is a wgmma
-    kernel on TMA-fed tiles; the CUDA-core dQ kernel stays, exported under
-    its name."""
+    """flash_simple_fwd, flash_simple_dq and flash_simple_dkv multiply on
+    the tensor cores (mma.sync: TF32 operands split into hi, rounded to
+    nearest as tf32() rounds, and lo for fp32; bf16 operands through
+    ldmatrix) on tiles that asynchronous copies fill; bf16's forward and
+    dQ at head dim 256 are wgmma kernels on TMA-fed tiles; the CUDA-core
+    helpers the old dQ kernel used are gone, and every entry point stays
+    exported under its name."""
     src = (_build.SRC_DIR / "flash_simple.cu").read_text()
     for needle in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
                    "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
@@ -215,16 +274,24 @@ def test_forward_and_dkv_sources_are_tensor_core_kernels():
                    "cp.async.cg.shared.global", "cp.async.wait_group",
                    "bar.arrive", '#include "hopper_common.cuh"'):
         assert needle in src, needle
-    for kernel in ("flash_simple_fwd_kernel", "flash_simple_dkv_kernel"):
+    for kernel in ("flash_simple_fwd_kernel", "flash_simple_dq_kernel",
+                   "flash_simple_dkv_kernel"):
         body = _kernel_body(src, kernel)
         for call in ("mma_nt<", "mma_nn<", "async_tile<", "cp_async_wait<0>"):
             assert call in body, (kernel, call)
         assert "fmaf(av" not in body and "accumulate<" not in body, kernel
-    wg = src[src.index("namespace wg256 {"):src.index("}  // namespace wg256")]
-    for needle in ("wgmma_m64n64k16_ss", "wgmma_m64n128k16_rs_tb",
-                   "tma_load_4d", "reg_alloc<", "mbar_wait",
-                   "__grid_constant__ CUtensorMap"):
-        assert needle in wg, needle
+    for helper in ("load_tile", "store_scores", "acc_col", "store_acc",
+                   "smem_bytes", "kLdP", "struct Tile"):
+        assert not re.search(rf"\b{helper}\b", src), helper
+    for ns, needles in (
+            ("wg256", ("wgmma_m64n64k16_ss", "wgmma_m64n128k16_rs_tb")),
+            ("wgdq", ("wgmma_m64n32k16_ss", "wgmma_m64n128k16_rs_tb"))):
+        wg = src[src.index(f"namespace {ns} {{"):
+                 src.index(f"}}  // namespace {ns}")]
+        for needle in needles + ("tma_load_4d", "reg_alloc<", "mbar_wait",
+                                 "__grid_constant__ CUtensorMap"):
+            assert needle in wg, (ns, needle)
+    assert "wgdq::launch<" in _kernel_body(src, "launch_dq")
     assert "atomicAdd" not in src
     c_block = src[src.index('extern "C"'):]
     for fn in ("flash_simple_fwd", "flash_simple_dq", "flash_simple_dkv"):
