@@ -2460,18 +2460,24 @@ def _engine_device_ms(prof) -> tuple:
     (packing a fusion buffer, the division, the copies out).  The
     engine's stream is found by marker kernels (``torch.cuda._sleep``'s
     ``spin_kernel``) launched on it before and after the step, since the
-    profiler does not see the engine thread's host side; None when no
-    marker or more than one stream shows up."""
+    profiler does not see the engine thread's host side.  It is the
+    stream of the marker that starts last, the one launched after the
+    step behind the engine's work: the profile does not always record
+    the first, launched as it starts, and a recorded training step
+    launches a marker of its own on the compute stream (obs/steps.py).
+    None when no marker shows up."""
     device = [e for e in prof.events() if e.device_type.name == "CUDA"]
     marks = [e for e in device if "spin" in e.name]
-    streams = {getattr(e, "device_resource_id", None) for e in marks}
-    if len(streams) != 1 or None in streams:
+    if not marks:
+        return None, None
+    stream = getattr(max(marks, key=lambda e: e.time_range.start),
+                     "device_resource_id", None)
+    if stream is None:
         return None, None
 
     def ms(evts):
         return sum(e.time_range.end - e.time_range.start for e in evts) / 1e3
 
-    stream = streams.pop()
     return (ms(e for e in device if "nccl" in e.name.lower()),
             ms(e for e in device if e.device_resource_id == stream
                and "spin" not in e.name and "nccl" not in e.name.lower()))

@@ -41,6 +41,7 @@ import threading
 import time
 from typing import Optional
 
+from . import steps as _steps
 from .registry import REGISTRY
 
 #: The name of the collective engine's cycle thread (ops/engine.py starts
@@ -189,12 +190,17 @@ class SamplingProfiler:
             if hz <= 0:
                 return
             t0 = time.perf_counter()
+            step = _steps.CURRENT
+            tick = (step.root.child("hvd.prof.tick", lane="hvd.prof")
+                    if step is not None else None)
             try:
                 self._sample_once(me)
             except Exception:
                 # Never let the profiler take the process down; skip the
                 # tick and keep sampling.
                 pass
+            if tick is not None:
+                tick.end()
             spent = time.perf_counter() - t0
             _m_overhead.inc(spent)
             self._stop.wait(max(0.001, 1.0 / hz - spent))

@@ -99,10 +99,10 @@ class _TraceState:
     """Shared bookkeeping of one sampled trace (all spans point here)."""
 
     __slots__ = ("trace_id", "name", "lane", "timeline", "tracer",
-                 "spans", "t_wall0", "t_mono0", "lock")
+                 "spans", "t_wall0", "t_mono0", "lock", "dense")
 
     def __init__(self, tracer: "Tracer", trace_id: str, name: str,
-                 lane: str, timeline) -> None:
+                 lane: str, timeline, dense: bool = False) -> None:
         self.tracer = tracer
         self.trace_id = trace_id
         self.name = name
@@ -112,6 +112,7 @@ class _TraceState:
         self.t_wall0 = time.time()
         self.t_mono0 = time.monotonic()
         self.lock = threading.Lock()
+        self.dense = dense
 
 
 class Span:
@@ -121,11 +122,11 @@ class Span:
     as one connected chain."""
 
     __slots__ = ("_st", "span_id", "parent_id", "name", "t0", "t1",
-                 "attrs", "events", "_after", "_ctx_token", "_root")
+                 "attrs", "events", "_after", "_ctx_token", "_root", "lane")
 
     def __init__(self, st: _TraceState, name: str,
                  parent_id: Optional[str], after: Optional["Span"] = None,
-                 **attrs: Any) -> None:
+                 lane: Optional[str] = None, **attrs: Any) -> None:
         self._st = st
         self.span_id = f"{st.tracer._salt}-{st.tracer._next_id():x}"
         self.parent_id = parent_id
@@ -137,6 +138,8 @@ class Span:
         self._after = after
         self._ctx_token = None
         self._root = False
+        # The timeline row this span renders on (None: its trace's lane).
+        self.lane = lane
 
     # -- identity ---------------------------------------------------------
     @property
@@ -170,10 +173,23 @@ class Span:
                             **({"attrs": attrs} if attrs else {})})
 
     def child(self, name: str, *, after: Optional["Span"] = None,
-              **attrs: Any) -> "Span":
+              lane: Optional[str] = None, **attrs: Any) -> "Span":
         """Sub-span of this one.  ``after=`` links a flow arrow from an
-        ended sibling span (the previous phase) to this one."""
-        return Span(self._st, name, self.span_id, after=after, **attrs)
+        ended sibling span (the previous phase) to this one; ``lane``
+        renders it on its own timeline row (a span of another thread,
+        which would not nest in its parent's row)."""
+        return Span(self._st, name, self.span_id, after=after, lane=lane,
+                    **attrs)
+
+    def child_at(self, name: str, t0: float, t1: float, *,
+                 lane: Optional[str] = None, **attrs: Any) -> "Span":
+        """An already-finished sub-span from ``t0`` to ``t1``
+        (``time.monotonic()`` values): a phase whose bounds are known
+        only after the fact (the first and last of many events)."""
+        sp = Span(self._st, name, self.span_id, lane=lane, **attrs)
+        sp.t0, sp.t1 = t0, t1
+        self._st.tracer._span_ended(sp)
+        return sp
 
     def end(self, **attrs: Any) -> None:
         if self.t1 is not None:     # idempotent: error paths double-close
@@ -334,7 +350,8 @@ class Tracer:
 
     # -- trace lifecycle --------------------------------------------------
     def start_trace(self, name: str, *, lane: Optional[str] = None,
-                    timeline=None, parent=None, **attrs: Any):
+                    timeline=None, parent=None, dense: bool = False,
+                    **attrs: Any):
         """Root span of a new trace, or :data:`NULL_SPAN` when the
         sampling decision says no.  ``lane`` names the Timeline-v2 row
         the trace's spans render on (defaults to the trace id);
@@ -348,7 +365,13 @@ class Tracer:
         ``span_id``; the parent's sampling decision is final — a
         ``sampled=False`` context returns :data:`NULL_SPAN` without
         consulting the local sample rate, so one ingress decision governs
-        the whole distributed chain."""
+        the whole distributed chain.
+
+        ``dense`` is for a caller that records only while a profiler or
+        the timeline watches, and then hundreds of spans a second
+        (:mod:`.steps`): every such trace is kept whatever the sample
+        rate, and its spans stay out of the flight recorder, whose ring
+        they would flood."""
         ctx = _coerce_context(parent)
         if ctx is not None:
             if not ctx.get("sampled") or not ctx.get("trace_id"):
@@ -359,7 +382,7 @@ class Tracer:
             parent_sid = ctx.get("span_id")
             parent_sid = str(parent_sid) if parent_sid else None
         else:
-            if not self._should_sample():
+            if not dense and not self._should_sample():
                 _m_traces.labels(sampled="false").inc()
                 return NULL_SPAN
             _m_traces.labels(sampled="true").inc()
@@ -369,7 +392,8 @@ class Tracer:
         st = _TraceState(self, trace_id, name,
                          lane or f"trace:{trace_id[:8]}",
                          timeline if timeline is not None
-                         and getattr(timeline, "enabled", False) else None)
+                         and getattr(timeline, "enabled", False) else None,
+                         dense)
         sp = Span(st, name, parent_sid, **attrs)
         sp._root = True
         return sp
@@ -393,7 +417,7 @@ class Tracer:
         _m_spans.inc()
         tl = st.timeline
         if tl is not None:
-            tl.complete(st.lane, span.name, span.t0, span.t1,
+            tl.complete(span.lane or st.lane, span.name, span.t0, span.t1,
                         args={"trace_id": st.trace_id,
                               "span_id": span.span_id,
                               **span.attrs})
@@ -404,16 +428,18 @@ class Tracer:
                 # the head of this one: the QUEUE→PREFILL→DECODE chain.
                 tl.flow_at(st.lane, fid, "s", prev.t1)
                 tl.flow_at(st.lane, fid, "f", span.t0)
-        from . import flightrec
-        # Attrs are caller-controlled: keys that collide with record()'s
-        # own parameters must not turn span.end() into a TypeError.
-        reserved = ("kind", "name", "trace", "span", "dur_s")
-        flightrec.RECORDER.record(
-            "span", name=span.name, trace=st.trace_id,
-            span=span.span_id, dur_s=rec["duration_s"],
-            **{k: v for k, v in span.attrs.items()
-               if k not in reserved
-               and isinstance(v, (int, float, str, bool))})
+        if not st.dense:
+            from . import flightrec
+            # Attrs are caller-controlled: keys that collide with
+            # record()'s own parameters must not turn span.end() into a
+            # TypeError.
+            reserved = ("kind", "name", "trace", "span", "dur_s")
+            flightrec.RECORDER.record(
+                "span", name=span.name, trace=st.trace_id,
+                span=span.span_id, dur_s=rec["duration_s"],
+                **{k: v for k, v in span.attrs.items()
+                   if k not in reserved
+                   and isinstance(v, (int, float, str, bool))})
         # Root ended -> trace finished.  An adopted root (remote parent)
         # has a non-None parent_id, hence the explicit flag.
         if span._root or span.parent_id is None:

@@ -45,6 +45,7 @@ import time
 from collections import deque
 from typing import Callable, Iterable, Optional, Sequence
 
+from . import steps as _steps
 from .registry import REGISTRY, MetricRegistry
 
 #: default seconds between registry samples (env HVDTPU_TSDB_INTERVAL).
@@ -604,12 +605,17 @@ class TsdbSampler:
 
         def loop():
             while not self._stop.is_set():
+                step = _steps.CURRENT
+                tick = (step.root.child("hvd.tsdb.tick", lane="hvd.tsdb")
+                        if step is not None else None)
                 try:
                     self.tick()
                 except Exception:   # telemetry never kills the job
                     from ..utils import logging as hvd_logging
                     hvd_logging.get_logger().exception(
                         "tsdb sampler tick failed")
+                if tick is not None:
+                    tick.end()
                 self._stop.wait(self.store.interval_s)
 
         self._thread = threading.Thread(target=loop, daemon=True,

@@ -73,6 +73,7 @@ All of it runs on the engine's stream.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 import time
@@ -90,6 +91,7 @@ from ..obs import REGISTRY as _obs
 from ..obs import flightrec as _frec
 from ..obs import perfmodel as _perf
 from ..obs import prof as _prof
+from ..obs import steps as _steps
 from ..obs import trace as _trace
 from ..utils import logging as hvd_logging
 
@@ -597,6 +599,9 @@ class CollectiveEngine:
             return
         t0 = time.monotonic()
         entries = [e for e, _ in batch]
+        # Under an open training step, the cycle's spans (obs/steps.py),
+        # made at its end from these clock reads.
+        step = _steps.CURRENT if entries else None
         handles = {id(e): h for e, h in batch}
         if entries:
             _m_cycles.inc()
@@ -610,9 +615,13 @@ class CollectiveEngine:
         cap = self._group_cap()
         for e in entries:
             e.cap = cap
+        t_neg = time.monotonic() if step is not None else 0.0
         try:
             outcome = self._negotiator.negotiate(entries, joined=join_req)
         except Exception as err:
+            if step is not None:
+                step.cycle(t0, (t_neg, time.monotonic()), None,
+                           error=repr(err))
             # Negotiation transport failure (controller died, TCP error):
             # fail every handle in the batch so waiters raise instead of
             # hanging († error Response to all ranks).
@@ -644,6 +653,7 @@ class CollectiveEngine:
                 extra={"error": str(err),
                        "entries": [e.name for e, _ in batch]})
             return
+        neg = (t_neg, time.monotonic()) if step is not None else None
         by_name = {e.name: e for e in entries}
         ready: list[TensorTableEntry] = []
         errored: set[int] = set()
@@ -695,9 +705,11 @@ class CollectiveEngine:
             with self._lock:
                 self._queue = deferred + self._queue
         _reconcile_metas(ready, by_name, outcome.metas)
-        for group in self._fuse(ready, _agreed_cap(ready, outcome.metas,
-                                                   cap)):
+        t_disp = time.monotonic() if step is not None else 0.0
+        groups = self._fuse(ready, _agreed_cap(ready, outcome.metas, cap))
+        for group in groups:
             self._execute_group(group, handles)
+        disp = (t_disp, time.monotonic()) if step is not None else None
         if any(e.last for e in ready):
             with self._lock:
                 self._running = False
@@ -722,6 +734,9 @@ class CollectiveEngine:
         if self._autotuner is not None:
             payload = sum(self._entry_bytes(e) for e in ready)
             self._autotuner.record_cycle(payload, time.monotonic() - t0)
+        if step is not None:
+            step.cycle(t0, neg, disp, tensors=len(ready), groups=len(groups),
+                       bytes=sum(self._entry_bytes(e) for e in ready))
 
     # -- join († RequestType::JOIN, hvd.join()) ------------------------------
     def join(self, timeout: Optional[float] = None) -> int:
@@ -867,8 +882,12 @@ class CollectiveEngine:
             # The model ignores one rank (no wire): time nothing there.
             timed = self._state.size > 1
             t_disp = time.monotonic()
-            with torch.profiler.record_function(
-                    f"hvd.{group[0].verb}:{label}"):
+            # The group's range on a profile's host rows, only while a
+            # profiler records (entering one costs a few microseconds).
+            rf = (torch.profiler.record_function(
+                f"hvd.{group[0].verb}:{label}") if _steps.profiling()
+                else contextlib.nullcontext())
+            with rf:
                 if self._stream is None:
                     results = self._dispatch(group)
                 else:

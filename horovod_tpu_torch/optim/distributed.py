@@ -27,6 +27,7 @@ from typing import Any, Optional
 import torch
 
 from .. import context
+from ..obs import steps as _steps
 from ..ops.collectives import Average, ReduceOp
 from ..ops.compression import Compression, routes_engine_side
 
@@ -93,6 +94,10 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
             inner.state[p][key] = synced[k]
 
 
+#: a step whose recording zero_grad() or the first gradient hook decides
+_UNDECIDED = object()
+
+
 class _DistributedOptimizer(torch.optim.Optimizer):
     """† ``horovod/torch/optimizer.py _DistributedOptimizer``: gradient
     hooks enqueue async allreduces during backward; ``step()``
@@ -137,6 +142,14 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                            for gi, group in enumerate(optimizer.param_groups)
                            for pi, p in enumerate(group["params"])}
         self._params = [p for p in params if p.requires_grad]
+        # This step's spans (obs/steps.py): a StepSpans while the step is
+        # recorded, None while it is not, _UNDECIDED until zero_grad() or
+        # the first gradient hook decides.
+        self._step = _UNDECIDED
+        # The device on which the first unrecorded step loads the marker
+        # kernel, or None (off the card, or loaded).
+        self._unloaded = (self._params[0].device if self._params and
+                          self._params[0].device.type == "cuda" else None)
         self._pass_counts: dict = {}
         # param -> (handle, compression ctx, wire tensor) of this step
         self._handles: dict = {}
@@ -171,12 +184,31 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def _name_of(self, p: torch.Tensor) -> str:
         return self._names[id(p)]
 
+    def _open_step(self, at_zero_grad: bool) -> None:
+        """Decide whether this step is recorded, and open its spans if
+        so."""
+        tl = context.global_state().timeline
+        if _steps.armed(tl):
+            dev = self._params[0].device if self._params else None
+            self._step = _steps.StepSpans.open(tl, dev, at_zero_grad)
+        else:
+            self._step = None
+            if self._unloaded is not None:
+                # No profiler records now, so the load shows in none.
+                _steps.load_marker(self._unloaded)
+                self._unloaded = None
+
     def _hook(self, p: torch.Tensor) -> None:
         import horovod_tpu_torch as hvd
         # Local gradient aggregation († backward_passes_per_step): torch
         # sums into p.grad across backwards; the collective fires on the
         # Nth pass, carrying the sum / N.
         count = self._pass_counts.get(p, 0) + 1
+        if self._step is not None:
+            if self._step is _UNDECIDED:
+                self._open_step(at_zero_grad=False)
+            if self._step is not None:
+                self._step.grad(enqueued=count >= self._bpps)
         self._pass_counts[p] = count
         if count < self._bpps:
             return
@@ -207,6 +239,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         import horovod_tpu_torch as hvd
         missing = [self._name_of(p) for p in self._params
                    if p not in self._handles]
+        st = self._step if isinstance(self._step, _steps.StepSpans) \
+            else None
+        if st is not None:
+            st.waiting(len(self._handles))
         try:
             for p, (handle, ctx, wire) in self._handles.items():
                 out = hvd.synchronize(handle)
@@ -215,6 +251,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                         p.grad.copy_(self._compression.decompress(out, ctx))
         finally:
             self._handles.clear()
+            if st is not None:
+                st.waited()
         if missing:
             raise RuntimeError(
                 f"step() before every gradient was reduced: no gradient "
@@ -229,14 +267,26 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 f"{max(self._pass_counts.values())} backward passes; "
                 f"backward_passes_per_step={self._bpps} requires exactly "
                 f"{self._bpps} († optimizer.step() assertion)")
-        self.synchronize()
-        return self._inner.step(closure)
+        st = self._step
+        if not isinstance(st, _steps.StepSpans):
+            self._step = _UNDECIDED
+            self.synchronize()
+            return self._inner.step(closure)
+        try:
+            self.synchronize()
+            st.optimizer()
+            return self._inner.step(closure)
+        finally:
+            self._step = _UNDECIDED
+            st.close()
 
     def zero_grad(self, set_to_none: bool = True):
         if self._handles:
             raise RuntimeError(
                 "zero_grad() between backward and step(): the gradients' "
                 "allreduces are still in flight")
+        if not isinstance(self._step, _steps.StepSpans):
+            self._open_step(at_zero_grad=True)
         return self._inner.zero_grad(set_to_none=set_to_none)
 
     def state_dict(self):
